@@ -39,7 +39,7 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 PINNING = os.path.join(REPO, "build", "sync_step_testnet_21.pinning.json")
 
-# H100 SXM peaks (NVIDIA data sheet; the on-chip-measurement table): HBM3 at
+# H100 SXM peaks (NVIDIA data sheet): HBM3 at
 # 3.35 TB/s; 67 TFLOP/s of float32 FMA outside the tensor cores, i.e. 33.5 T
 # FMA/s, of which the integer pipe issues 32-bit multiply-adds at half rate.
 HBM_BYTES_PER_S = 3.35e12
