@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Run spectre_tpu_torch's stage-1 prove on one CUDA GPU, and hold each of
-its four kernels against its plain PyTorch version.
+its kernels against its plain PyTorch version.
 
     python3 chip_smoke.py           # the sync-step testnet shape, k = 21
     python3 chip_smoke.py --k 19    # the same columns on fewer rows
@@ -11,10 +11,14 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
   K2       complete addition, 2^16 point pairs plus P+P, P+(-P), inf+P and
            inf+inf: equal limb for limb; timed at 2^21 pairs
   K3       Montgomery product at 2^23 elements: equal; timed
-  K4       one NTT stage at 2^23 rows: equal; timed
+  K4       the whole NTT (one launch per pass) at 2^23, at a [4, 2^21]
+           batch and at 2^6: equal to the plain stage loop; timed at 2^23
+           and at the advice commitments' batch, [16, 2^21]
   K1       bucket sums at n = 2^21, c from default_window_pallas, for
            random, all-equal and all-zero scalars: equal after affine
-           normalization; timed
+           normalization; the plan kernels K1a and K1b equal to their plain
+           versions; the wrapper timed, and each of its four kernels under
+           torch.profiler
   msm      the full MSM at n = 2^21 against the host sum of a 2^10 prefix,
            and linear in its scalars
   devices  a K=6 circuit proved on the GPU and on the CPU gives the same bytes
@@ -81,6 +85,86 @@ def limb_err(F, got, want) -> int:
     if got.dtype.itemsize == 8:
         got, want = F.split16(got), F.split16(want)
     return int((got.long() - want.long()).abs().max().item()) if got.numel() else 0
+
+
+# K1's four kernels and the name each has in a profiler trace
+K1_KERNELS = {"K1a_bucket_count": "k1_count_kernel",
+              "K1b_bucket_scatter": "k1_scatter_kernel",
+              "K1c_bucket_walk": "k1_walk_kernel",
+              "K1d_bucket_pieces": "k1_pieces_kernel"}
+
+
+def ntt_bound_ms(batch: int, logn: int) -> tuple[float, str]:
+    """K4's bound for a [batch, 2^logn] transform: one read and one write
+    of the data plus the twiddle table, against the Montgomery products the
+    kernel performs: one per radix-2 butterfly, 2^(logn-1) a stage, in every
+    stage but stage 0, whose twist by one it skips (ntt.cuh)."""
+    n = 1 << logn
+    return bound_ms(batch * n * 2 * 32 + n // 2 * 32,
+                    batch * (logn - 1) * (n // 2) * IMAD_PER_MONT)
+
+
+def k1_bounds(torch, MK, digits, bstart, n: int, nkeys: int, nblk: int) -> dict:
+    """Per K1 kernel (bound ms, by, bytes, IMAD) for this run's digits:
+    each input read once and each output written once; the adds are one
+    per entry less one per nonempty bucket, those of the buckets that cross
+    walk blocks split off to K1d."""
+    nwin = digits.shape[0]
+    b = bstart.to(torch.int64)
+    E = int(b[-1])
+    nonempty = b[1:] > b[:-1]
+    first = b[:-1] // MK.K1_BLOCK_ENTRIES
+    last = (b[1:] - 1) // MK.K1_BLOCK_ENTRIES
+    multi = nonempty & (last > first)
+    pieces = int(torch.where(multi, last - first + 1, 0).sum())
+    d_adds = pieces - int(multi.sum())
+    c_adds = E - int(nonempty.sum()) - d_adds
+    sizes = {
+        "K1a_bucket_count": (4 * nwin * n + 4 * nkeys * nblk, 0),
+        "K1b_bucket_scatter": (4 * nwin * n + 4 * n + 4 * nkeys * nblk + 4 * E, 0),
+        "K1c_bucket_walk": (4 * E + (96 * n if E else 0) + 4 * (nkeys + 1)
+                            + 96 * int(nonempty.sum()), c_adds * IMAD_PER_PADD),
+        "K1d_bucket_pieces": (96 * (pieces + nkeys) + 4 * (nkeys + 1), d_adds * IMAD_PER_PADD),
+    }
+    return {k: (*bound_ms(nb_, ops), nb_, ops) for k, (nb_, ops) in sizes.items()}
+
+
+def normalized_buckets(ec, sums):
+    """[nwin, 48, nb] bucket sums -> affine standard limbs, one row each."""
+    return ec.normalize_std(ec.soa16_to_aos32(sums.permute(1, 0, 2).reshape(48, -1))).reshape(-1, 4)
+
+
+def bucket_multiset_err(torch, got, want, bstart) -> int:
+    """0 when every bucket holds the same entries in both sorted arrays
+    (in any order), else the largest difference of the sorted (key, entry)
+    codes."""
+    E = int(bstart[-1])
+    key = torch.bucketize(torch.arange(E, device=got.device), bstart[1:].long(), right=True)
+    code = lambda e: torch.sort(key * (1 << 32) + (e[:E].long() & 0xFFFFFFFF)).values  # noqa: E731
+    return int((code(got) - code(want)).abs().max()) if E else 0
+
+
+def profile_kernels(torch, fn, names: dict, reps: int) -> dict:
+    """Device ms per call of fn() of each kernel in names ({record:
+    substring of its profiler name}), under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = {k: 0.0 for k in names}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        for k, sub in names.items():
+            if sub in ev.key:
+                us[k] += ev.self_device_time_total
+    missing = [k for k, v in us.items() if v == 0]
+    require(not missing, f"the profiler saw {missing} run")
+    return {k: v / reps / 1e3 for k, v in us.items()}
 
 
 def require(cond: bool, what: str) -> None:
@@ -192,28 +276,40 @@ def main(argv=None) -> int:
 
     # --- K4 ------------------------------------------------------------------
     tables = N.Twiddles(dev)
-    omega = bn254.fr_root_of_unity(23)
-    tw = tables.twiddles(omega, n3)
-    half = 1 << 11
+    k4_err = 0
+    for logn, batch in ((23, 1), (21, 4), (6, 1)):
+        x4 = F.to_mont(fr, random_fr(torch, batch << logn, gen, dev)).reshape(batch, 1 << logn, 4)
+        tw = tables.twiddles(bn254.fr_root_of_unity(logn), 1 << logn)
+        err = limb_err(F, N.ntt_passes(x4, tw), N.ntt_stages_plain(x4, tw, tables))
+        require(err == 0, f"K4 equals the plain NTT at [{batch}, 2^{logn}]")
+        k4_err = max(k4_err, err)
+    del x4
     x4 = a3.reshape(1, n3, 4)
-    y_k, y_p = x4.clone(), x4.clone()
-    N.ntt_stage(y_k, tw, half, n3 // (2 * half))
-    N.ntt_stage_plain(y_p, tw, half, n3 // (2 * half))
-    k4_err = limb_err(F, y_k, y_p)
-    require(k4_err == 0, "K4 equals its plain version")
-    k4_ms = time_ms(torch, lambda: N.ntt_stage(y_k, tw, half, n3 // (2 * half)), reps=10)
-    k4_plain = time_ms(torch, lambda: N.ntt_stage_plain(y_p, tw, half, n3 // (2 * half)), reps=1)
-    ntt_ms = time_ms(torch, lambda: N.ntt(x4, omega, tables), reps=3)
-    bm, by = bound_ms(n3 * 2 * 32 + half * 32, (n3 // 2) * IMAD_PER_MONT)
-    records["K4_ntt_stage"] = dict(ms=k4_ms, plain_ms=k4_plain, bound_ms=bm, bound_by=by,
-                                   max_abs_err=k4_err, shape="one stage of 2^23 rows")
-    log(f"K4: equal; stage at 2^23 rows {k4_ms:.3f} ms (plain {k4_plain:.1f} ms, "
-        f"bound {bm:.3f} ms by {by}); full NTT 2^23 {ntt_ms:.2f} ms")
-    del a3, b3, x4, y_k, y_p
+    tw = tables.twiddles(bn254.fr_root_of_unity(23), n3)
+    k4_ms = time_ms(torch, lambda: N.ntt_passes(x4, tw), reps=10)
+    k4_plain = time_ms(torch, lambda: N.ntt_stages_plain(x4, tw, tables), reps=1)
+    k4_bound = ntt_bound_ms(1, 23)
+    xb = F.to_mont(fr, random_fr(torch, 16 << 21, gen, dev)).reshape(16, 1 << 21, 4)
+    twb = tables.twiddles(bn254.fr_root_of_unity(21), 1 << 21)
+    k4b_ms = time_ms(torch, lambda: N.ntt_passes(xb, twb), reps=5)
+    k4b_bound = ntt_bound_ms(16, 21)
+    del xb
+    records["K4_ntt"] = dict(
+        ms=k4_ms, plain_ms=k4_plain, bound_ms=k4_bound[0], bound_by=k4_bound[1],
+        max_abs_err=k4_err, shape="2^23 (whole transform)",
+        passes={"2^23": N.ntt_plan(23), "2^21": N.ntt_plan(21)},
+        batch_16x2e21=dict(ms=k4b_ms, bound_ms=k4b_bound[0], bound_by=k4b_bound[1]))
+    log(f"K4: equal at 2^23, [4, 2^21], 2^6; 2^23 {k4_ms:.3f} ms in {len(N.ntt_plan(23))} "
+        f"passes (plain stage loop {k4_plain:.1f} ms, bound {k4_bound[0]:.3f} ms by "
+        f"{k4_bound[1]}); [16, 2^21] {k4b_ms:.3f} ms (bound {k4b_bound[0]:.3f} ms by "
+        f"{k4b_bound[1]})")
+    del a3, b3, x4
 
     # --- K1 ------------------------------------------------------------------
     c = M.default_window_pallas(n_pts)
     nwin, nb = M.num_windows(c), 1 << (c - 1)
+    nkeys = nwin * nb
+    P, nblk = MK.plan_blocks(n_pts)
     soa = ec.aos32_to_soa16(pts)
     negs = torch.zeros((1, n_pts), dtype=torch.int32, device=dev)
     one_scalar = random_fr(torch, 1, gen, dev)
@@ -223,6 +319,7 @@ def main(argv=None) -> int:
         "all-zero": torch.zeros((n_pts, 4), dtype=torch.int64, device=dev),
     }
     k1 = {}
+    k1_errs = {name: 0 for name in K1_KERNELS}
     for name, sc in cases.items():
         digits = M.signed_digit_stream(sc, c, nwin)
         got = MK.bucket_sums(soa, digits, negs, c)
@@ -231,25 +328,51 @@ def main(argv=None) -> int:
         want = MK.bucket_sums_plain(soa, digits, negs, c)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
-        norm_got = ec.normalize_std(ec.soa16_to_aos32(got.permute(1, 0, 2).reshape(48, -1)))
-        norm_want = ec.normalize_std(ec.soa16_to_aos32(want.permute(1, 0, 2).reshape(48, -1)))
-        err = limb_err(F, norm_got.reshape(-1, 4), norm_want.reshape(-1, 4))
+        err = limb_err(F, normalized_buckets(ec, got), normalized_buckets(ec, want))
         require(err == 0, f"K1 ({name}) equals its plain version after normalization")
-        kms = time_ms(torch, lambda: MK.bucket_sums(soa, digits, negs, c), reps=2)
-        nz = int((digits != 0).sum())
-        buckets = int(torch.unique(digits[digits != 0].abs().to(torch.int64)
-                                   + nb * torch.nonzero(digits != 0)[:, 0]).numel()) if nz else 0
-        adds = max(nz - buckets, 0)
-        nbytes = 192 * n_pts + 4 * nwin * n_pts + 4 * n_pts + 4 * nwin * 48 * nb
-        bm, by = bound_ms(nbytes, adds * IMAD_PER_PADD)
-        k1[name] = dict(ms=kms, plain_ms=plain_ms, bound_ms=bm, bound_by=by, adds=adds,
-                        max_abs_err=err, limb_equal=bool(torch.equal(got, want)))
-        log(f"K1 {name}: equal after normalization; {kms:.2f} ms (plain {plain_ms:.0f} ms, "
-            f"bound {bm:.3f} ms by {by}, {adds} adds), c={c} nwin={nwin}")
-    records["K1_bucket_accumulate"] = dict(
-        shape=f"n=2^21 c={c} nwin={nwin}", cases=k1,
-        max_abs_err=max(v["max_abs_err"] for v in k1.values()),
-        **{key: k1["random"][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")})
+        # the plan kernels against their plain versions
+        counts, bstart, entries_plain = MK.bucket_plan_plain(digits, negs, c)
+        got_counts, _, entries = MK.bucket_plan(digits, negs, c)
+        e_err = bucket_multiset_err(torch, entries, entries_plain, bstart)
+        require(torch.equal(got_counts, counts), f"K1a ({name}) equals its plain counts")
+        require(e_err == 0, f"K1b ({name}) places each bucket's entries as the plain sort")
+        k1_errs["K1c_bucket_walk"] = k1_errs["K1d_bucket_pieces"] = max(
+            k1_errs["K1c_bucket_walk"], err)
+        k1_errs["K1b_bucket_scatter"] = max(k1_errs["K1b_bucket_scatter"], e_err)
+        wrapper_ms = time_ms(torch, lambda: MK.bucket_sums_aos32(pts, digits, negs, c), reps=3)
+        sub_ms = profile_kernels(torch, lambda: MK.bucket_sums_aos32(pts, digits, negs, c),
+                                 K1_KERNELS, reps=2)
+        plain_sub = {
+            "K1a_bucket_count": time_ms(torch, lambda: MK.bucket_counts_plain(digits, nb, P), reps=1),
+            "K1b_bucket_scatter": time_ms(torch, lambda: MK.bucket_scatter_plain(digits, negs, nb),
+                                          reps=1),
+            "K1c_bucket_walk": time_ms(torch, lambda: MK.bucket_walk_plain(pts, entries_plain,
+                                                                           bstart), reps=1)}
+        # the plain walk sums each bucket whole: it covers K1c and K1d together,
+        # and its time stands under K1c alone
+        plain_sub["K1d_bucket_pieces"] = None
+        bounds = k1_bounds(torch, MK, digits, bstart, n_pts, nkeys, nblk)
+        total = bound_ms(sum(b[2] for b in bounds.values()), sum(b[3] for b in bounds.values()))
+        k1[name] = dict(ms=wrapper_ms, plain_ms=plain_ms, bound_ms=total[0], bound_by=total[1],
+                        adds=int(bstart[-1]) - int((bstart[1:] > bstart[:-1]).sum()),
+                        max_abs_err=err, kernels={
+                            k: dict(ms=sub_ms[k], plain_ms=plain_sub[k], bound_ms=bounds[k][0],
+                                    bound_by=bounds[k][1]) for k in K1_KERNELS})
+        log(f"K1 {name}: equal after normalization; wrapper {wrapper_ms:.3f} ms (plain "
+            f"{plain_ms:.0f} ms, bound {total[0]:.3f} ms by {total[1]}), c={c} nwin={nwin}; "
+            + ", ".join(f"{k} {sub_ms[k]:.3f} ms (bound {bounds[k][0]:.3f})" for k in K1_KERNELS))
+        del got, want, entries, entries_plain
+    for k in K1_KERNELS:
+        rnd = k1["random"]["kernels"][k]
+        records[k] = dict(ms=rnd["ms"], plain_ms=rnd["plain_ms"], bound_ms=rnd["bound_ms"],
+                          bound_by=rnd["bound_by"], max_abs_err=k1_errs[k],
+                          shape=f"n=2^21 c={c} nwin={nwin}, random scalars",
+                          cases={name: v["kernels"][k] for name, v in k1.items()})
+    records["K1d_bucket_pieces"]["plain_note"] = (
+        "the plain walk covers K1c and K1d together: its time is K1c's plain_ms")
+    records["K1c_bucket_walk"]["wrapper_cases"] = {
+        name: {key: v[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "adds")}
+        for name, v in k1.items()}
     del cases
 
     # --- msm -----------------------------------------------------------------
@@ -260,13 +383,13 @@ def main(argv=None) -> int:
     rest[:1024] = 0
     g1 = bn254.g1_curve
     t0 = time.perf_counter()
-    full = M.msm(soa, sc)
+    full = M.msm_base(pts, sc)
     torch.cuda.synchronize()
     msm_s = time.perf_counter() - t0
     host_pts = ec.decode_points(pts[:1024])
     host = M.host_msm(host_pts, F.to_ints(fr, sc[:1024]))
-    require(M.msm(soa, pre) == host, "MSM of a 2^10 prefix equals the host sum")
-    require(g1.add(M.msm(soa, pre), M.msm(soa, rest)) == full, "MSM is linear")
+    require(M.msm_base(pts, pre) == host, "MSM of a 2^10 prefix equals the host sum")
+    require(g1.add(M.msm_base(pts, pre), M.msm_base(pts, rest)) == full, "MSM is linear")
     log(f"msm: n=2^21 {msm_s * 1e3:.1f} ms; prefix equals host sum; linear")
     del soa, sc, pre, rest, pts
 
@@ -323,14 +446,13 @@ def main(argv=None) -> int:
 
     kernels = []
     for name, info in KL.KERNELS.items():
-        rec = records[name]
+        rec = dict(records[name])
         kernels.append({
             "name": name, "route": "cuda", "source": info.source,
             "replaces": info.replaces, "launches": counts[name],
-            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": None, "shape": rec["shape"],
-            **({"cases": rec["cases"]} if "cases" in rec else {})})
+            **{key: rec.pop(key) for key in ("max_abs_err", "ms", "plain_ms",
+                                             "bound_ms", "bound_by")},
+            "library_ms": None, **rec})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,13 @@
 // BN254 Montgomery arithmetic and the complete projective G1 addition,
-// shared by the port's four CUDA kernels (msm_kernels.cu, field_kernels.cu).
+// shared by the port's CUDA kernels (msm_kernels.cu, field_kernels.cu and
+// the per-block bodies in bucket.cuh and ntt.cuh).
 //
 // Everything here is __host__ __device__: the same per-element bodies the
 // kernels launch can be compiled by a host C++ compiler and checked against
-// the Python oracle without a GPU.
+// the Python oracle without a GPU. add, sub and mont_mul have a second,
+// PTX carry-chain body for the card (`__CUDA_ARCH__`); the host build checks
+// the portable one, and the card's kernels are held against the plain
+// PyTorch versions by tests/test_torch_cuda.py and chip_smoke.py.
 //
 // Values are 8 little-endian 32-bit limbs in Montgomery form with radix
 // R = 2^256, the radix of the JAX reference's 16 x 16-bit limbs: a reference
@@ -19,6 +23,14 @@
 #define SPT_HD __host__ __device__ __forceinline__
 #else
 #define SPT_HD inline
+#endif
+
+// atomicAdd on the card; a plain add where a host compiler runs one block's
+// threads one after another. Returns the old value either way.
+#if defined(__CUDA_ARCH__)
+#define SPT_ATOMIC_ADD(ptr, v) atomicAdd((ptr), (v))
+#else
+#define SPT_ATOMIC_ADD(ptr, v) ((*(ptr) += (v)) - (v))
 #endif
 
 namespace spt {
@@ -77,7 +89,136 @@ template <int F> SPT_HD Fe cond_sub_p(const Fe& a) {
   return borrow ? a : d;
 }
 
+#if defined(__CUDA_ARCH__)
+// The card's versions of add, sub and mont_mul: the same values, with the
+// limb carries in the PTX carry flag (add.cc / addc, mad.lo.cc / madc.hi.cc)
+// instead of 64-bit sums; each carry chain is one asm statement, so nothing
+// can come between its instructions.
+
+template <int F> __device__ __forceinline__ Fe add_dev(const Fe& a, const Fe& b) {
+  Fe s, d;
+  uint32_t bw;
+  asm("add.cc.u32 %0, %8, %16;\n\t"
+      "addc.cc.u32 %1, %9, %17;\n\t"
+      "addc.cc.u32 %2, %10, %18;\n\t"
+      "addc.cc.u32 %3, %11, %19;\n\t"
+      "addc.cc.u32 %4, %12, %20;\n\t"
+      "addc.cc.u32 %5, %13, %21;\n\t"
+      "addc.cc.u32 %6, %14, %22;\n\t"
+      "addc.u32 %7, %15, %23;\n\t"
+      : "=r"(s.v[0]), "=r"(s.v[1]), "=r"(s.v[2]), "=r"(s.v[3]), "=r"(s.v[4]), "=r"(s.v[5]), "=r"(s.v[6]), "=r"(s.v[7])
+      : "r"(a.v[0]), "r"(a.v[1]), "r"(a.v[2]), "r"(a.v[3]), "r"(a.v[4]), "r"(a.v[5]), "r"(a.v[6]), "r"(a.v[7]),
+        "r"(b.v[0]), "r"(b.v[1]), "r"(b.v[2]), "r"(b.v[3]), "r"(b.v[4]), "r"(b.v[5]), "r"(b.v[6]), "r"(b.v[7]));
+  asm("sub.cc.u32 %0, %9, %17;\n\t"
+      "subc.cc.u32 %1, %10, %18;\n\t"
+      "subc.cc.u32 %2, %11, %19;\n\t"
+      "subc.cc.u32 %3, %12, %20;\n\t"
+      "subc.cc.u32 %4, %13, %21;\n\t"
+      "subc.cc.u32 %5, %14, %22;\n\t"
+      "subc.cc.u32 %6, %15, %23;\n\t"
+      "subc.cc.u32 %7, %16, %24;\n\t"
+      "subc.u32 %8, 0, 0;"
+      : "=r"(d.v[0]), "=r"(d.v[1]), "=r"(d.v[2]), "=r"(d.v[3]), "=r"(d.v[4]), "=r"(d.v[5]), "=r"(d.v[6]), "=r"(d.v[7]), "=r"(bw)
+      : "r"(s.v[0]), "r"(s.v[1]), "r"(s.v[2]), "r"(s.v[3]), "r"(s.v[4]), "r"(s.v[5]), "r"(s.v[6]), "r"(s.v[7]),
+        "r"(Consts<F>::p(0)), "r"(Consts<F>::p(1)), "r"(Consts<F>::p(2)), "r"(Consts<F>::p(3)), "r"(Consts<F>::p(4)), "r"(Consts<F>::p(5)), "r"(Consts<F>::p(6)), "r"(Consts<F>::p(7)));
+  return bw ? s : d;  // a + b < 2p < 2^256: borrow iff a + b < p
+}
+
+template <int F> __device__ __forceinline__ Fe sub_dev(const Fe& a, const Fe& b) {
+  Fe d, r;
+  uint32_t bw;
+  asm("sub.cc.u32 %0, %9, %17;\n\t"
+      "subc.cc.u32 %1, %10, %18;\n\t"
+      "subc.cc.u32 %2, %11, %19;\n\t"
+      "subc.cc.u32 %3, %12, %20;\n\t"
+      "subc.cc.u32 %4, %13, %21;\n\t"
+      "subc.cc.u32 %5, %14, %22;\n\t"
+      "subc.cc.u32 %6, %15, %23;\n\t"
+      "subc.cc.u32 %7, %16, %24;\n\t"
+      "subc.u32 %8, 0, 0;"
+      : "=r"(d.v[0]), "=r"(d.v[1]), "=r"(d.v[2]), "=r"(d.v[3]), "=r"(d.v[4]), "=r"(d.v[5]), "=r"(d.v[6]), "=r"(d.v[7]), "=r"(bw)
+      : "r"(a.v[0]), "r"(a.v[1]), "r"(a.v[2]), "r"(a.v[3]), "r"(a.v[4]), "r"(a.v[5]), "r"(a.v[6]), "r"(a.v[7]),
+        "r"(b.v[0]), "r"(b.v[1]), "r"(b.v[2]), "r"(b.v[3]), "r"(b.v[4]), "r"(b.v[5]), "r"(b.v[6]), "r"(b.v[7]));
+  asm("add.cc.u32 %0, %8, %16;\n\t"
+      "addc.cc.u32 %1, %9, %17;\n\t"
+      "addc.cc.u32 %2, %10, %18;\n\t"
+      "addc.cc.u32 %3, %11, %19;\n\t"
+      "addc.cc.u32 %4, %12, %20;\n\t"
+      "addc.cc.u32 %5, %13, %21;\n\t"
+      "addc.cc.u32 %6, %14, %22;\n\t"
+      "addc.u32 %7, %15, %23;\n\t"
+      : "=r"(r.v[0]), "=r"(r.v[1]), "=r"(r.v[2]), "=r"(r.v[3]), "=r"(r.v[4]), "=r"(r.v[5]), "=r"(r.v[6]), "=r"(r.v[7])
+      : "r"(d.v[0]), "r"(d.v[1]), "r"(d.v[2]), "r"(d.v[3]), "r"(d.v[4]), "r"(d.v[5]), "r"(d.v[6]), "r"(d.v[7]),
+        "r"(Consts<F>::p(0) & bw), "r"(Consts<F>::p(1) & bw), "r"(Consts<F>::p(2) & bw), "r"(Consts<F>::p(3) & bw), "r"(Consts<F>::p(4) & bw), "r"(Consts<F>::p(5) & bw), "r"(Consts<F>::p(6) & bw), "r"(Consts<F>::p(7) & bw));
+  return r;  // a - b, plus p where it borrowed
+}
+
+// CIOS, 8 rounds: t += a * b[i] (low halves into t[0..7], high halves into
+// t[1..8], carries into t[8], t[9]), m = t[0] * n0, t += m * p the same
+// way (t[0] becomes 0), shift down one limb.
+template <int F> __device__ __forceinline__ Fe mont_mul_dev(const Fe& a, const Fe& b) {
+  uint32_t t0 = 0, t1 = 0, t2 = 0, t3 = 0, t4 = 0, t5 = 0, t6 = 0, t7 = 0, t8 = 0,
+           t9 = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const uint32_t bi = b.v[i];
+    asm("mad.lo.cc.u32 %0, %10, %18, %0;\n\t"
+        "madc.lo.cc.u32 %1, %11, %18, %1;\n\t"
+        "madc.lo.cc.u32 %2, %12, %18, %2;\n\t"
+        "madc.lo.cc.u32 %3, %13, %18, %3;\n\t"
+        "madc.lo.cc.u32 %4, %14, %18, %4;\n\t"
+        "madc.lo.cc.u32 %5, %15, %18, %5;\n\t"
+        "madc.lo.cc.u32 %6, %16, %18, %6;\n\t"
+        "madc.lo.cc.u32 %7, %17, %18, %7;\n\t"
+        "addc.cc.u32 %8, %8, 0;\n\t"
+        "addc.u32 %9, %9, 0;\n\t"
+        "mad.hi.cc.u32 %1, %10, %18, %1;\n\t"
+        "madc.hi.cc.u32 %2, %11, %18, %2;\n\t"
+        "madc.hi.cc.u32 %3, %12, %18, %3;\n\t"
+        "madc.hi.cc.u32 %4, %13, %18, %4;\n\t"
+        "madc.hi.cc.u32 %5, %14, %18, %5;\n\t"
+        "madc.hi.cc.u32 %6, %15, %18, %6;\n\t"
+        "madc.hi.cc.u32 %7, %16, %18, %7;\n\t"
+        "madc.hi.cc.u32 %8, %17, %18, %8;\n\t"
+        "addc.u32 %9, %9, 0;"
+        : "+r"(t0), "+r"(t1), "+r"(t2), "+r"(t3), "+r"(t4), "+r"(t5), "+r"(t6), "+r"(t7), "+r"(t8), "+r"(t9)
+        : "r"(a.v[0]), "r"(a.v[1]), "r"(a.v[2]), "r"(a.v[3]), "r"(a.v[4]), "r"(a.v[5]), "r"(a.v[6]), "r"(a.v[7]), "r"(bi));
+    const uint32_t m = t0 * Consts<F>::n0;
+    asm("mad.lo.cc.u32 %0, %10, %18, %0;\n\t"
+        "madc.lo.cc.u32 %1, %11, %18, %1;\n\t"
+        "madc.lo.cc.u32 %2, %12, %18, %2;\n\t"
+        "madc.lo.cc.u32 %3, %13, %18, %3;\n\t"
+        "madc.lo.cc.u32 %4, %14, %18, %4;\n\t"
+        "madc.lo.cc.u32 %5, %15, %18, %5;\n\t"
+        "madc.lo.cc.u32 %6, %16, %18, %6;\n\t"
+        "madc.lo.cc.u32 %7, %17, %18, %7;\n\t"
+        "addc.cc.u32 %8, %8, 0;\n\t"
+        "addc.u32 %9, %9, 0;\n\t"
+        "mad.hi.cc.u32 %1, %10, %18, %1;\n\t"
+        "madc.hi.cc.u32 %2, %11, %18, %2;\n\t"
+        "madc.hi.cc.u32 %3, %12, %18, %3;\n\t"
+        "madc.hi.cc.u32 %4, %13, %18, %4;\n\t"
+        "madc.hi.cc.u32 %5, %14, %18, %5;\n\t"
+        "madc.hi.cc.u32 %6, %15, %18, %6;\n\t"
+        "madc.hi.cc.u32 %7, %16, %18, %7;\n\t"
+        "madc.hi.cc.u32 %8, %17, %18, %8;\n\t"
+        "addc.u32 %9, %9, 0;"
+        : "+r"(t0), "+r"(t1), "+r"(t2), "+r"(t3), "+r"(t4), "+r"(t5), "+r"(t6), "+r"(t7), "+r"(t8), "+r"(t9)
+        : "r"(Consts<F>::p(0)), "r"(Consts<F>::p(1)), "r"(Consts<F>::p(2)), "r"(Consts<F>::p(3)), "r"(Consts<F>::p(4)), "r"(Consts<F>::p(5)), "r"(Consts<F>::p(6)), "r"(Consts<F>::p(7)), "r"(m));
+    t0 = t1; t1 = t2; t2 = t3; t3 = t4; t4 = t5; t5 = t6; t6 = t7; t7 = t8; t8 = t9;
+    t9 = 0;
+  }
+  Fe r;
+  r.v[0] = t0; r.v[1] = t1; r.v[2] = t2; r.v[3] = t3;
+  r.v[4] = t4; r.v[5] = t5; r.v[6] = t6; r.v[7] = t7;
+  return cond_sub_p<F>(r);  // p < R/4: the result is < 2p, t8 == 0
+}
+#endif
+
 template <int F> SPT_HD Fe add(const Fe& a, const Fe& b) {
+#if defined(__CUDA_ARCH__)
+  return add_dev<F>(a, b);
+#else
   Fe s;
   uint64_t carry = 0;
 #pragma unroll
@@ -87,9 +228,13 @@ template <int F> SPT_HD Fe add(const Fe& a, const Fe& b) {
     carry = cur >> 32;
   }
   return cond_sub_p<F>(s);  // a + b < 2p < 2^255: no carry out
+#endif
 }
 
 template <int F> SPT_HD Fe sub(const Fe& a, const Fe& b) {
+#if defined(__CUDA_ARCH__)
+  return sub_dev<F>(a, b);
+#else
   Fe d;
   uint64_t borrow = 0;
 #pragma unroll
@@ -108,11 +253,15 @@ template <int F> SPT_HD Fe sub(const Fe& a, const Fe& b) {
     }
   }
   return d;
+#endif
 }
 
 // CIOS Montgomery product a * b * 2^-256 mod p: 8 rounds, each one row of
 // 32x32->64 products of a by b[i] and one row of m*p.
 template <int F> SPT_HD Fe mont_mul(const Fe& a, const Fe& b) {
+#if defined(__CUDA_ARCH__)
+  return mont_mul_dev<F>(a, b);
+#else
   uint32_t t[10];
 #pragma unroll
   for (int i = 0; i < 10; ++i) t[i] = 0;
@@ -145,6 +294,7 @@ template <int F> SPT_HD Fe mont_mul(const Fe& a, const Fe& b) {
 #pragma unroll
   for (int i = 0; i < 8; ++i) r.v[i] = t[i];
   return cond_sub_p<F>(r);  // p < R/4: the result is < 2p, t[8] == 0
+#endif
 }
 
 template <int F> SPT_HD Fe zero() {
@@ -233,6 +383,34 @@ SPT_HD void store_point(uint32_t* dst, const Point& a) {
   store_fe(dst + 16, a.z);
 }
 
+// Y -> -Y (infinity (0:1:0) becomes (0:p-1:0), still infinity).
+SPT_HD Point neg(const Point& a) {
+  Point r = a;
+  r.y = sub<FQ>(zero<FQ>(), a.y);
+  return r;
+}
+
+// the low `bits` bits of x in reverse order
+SPT_HD uint32_t bitrev(uint32_t x, int bits) {
+  if (bits == 0) return 0;
+#if defined(__CUDA_ARCH__)
+  return __brev(x) >> (32 - bits);
+#else
+  uint32_t r = 0;
+  for (int i = 0; i < bits; ++i) r |= ((x >> i) & 1u) << (bits - 1 - i);
+  return r;
+#endif
+}
+
+// 16 bytes from src to dst (one 128-bit access on the card)
+SPT_HD void copy16(uint32_t* dst, const uint32_t* src) {
+#if defined(__CUDA_ARCH__)
+  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+#else
+  for (int i = 0; i < 4; ++i) dst[i] = src[i];
+#endif
+}
+
 // ---------------------------------------------------------------------------
 // per-thread bodies of the kernels
 // ---------------------------------------------------------------------------
@@ -244,47 +422,12 @@ SPT_HD void padd_one(long i, const uint32_t* p, const uint32_t* q,
               padd(load_point(p + 24 * i), load_point(q + 24 * i)));
 }
 
-// K1, pass 1: walk the sorted entries of chunk c (at most L of one bucket)
-// and complete-add each point, negated where the entry's top bit says so,
-// into a partial sum that starts at infinity. entry = point index | sign<<31.
-SPT_HD void bucket_chunk_one(long c, const uint32_t* pts,
-                             const int32_t* entries,
-                             const int64_t* chunk_start,
-                             const int32_t* chunk_len, uint32_t* partials) {
-  Point acc = infinity();
-  const long s = chunk_start[c];
-  const int len = chunk_len[c];
-  for (int k = 0; k < len; ++k) {
-    const int32_t e = entries[s + k];
-    const long idx = (long)(e & 0x7fffffff);
-    Point pt = load_point(pts + 24 * idx);
-    if (e < 0) pt.y = sub<FQ>(zero<FQ>(), pt.y);
-    acc = padd(acc, pt);
-  }
-  store_point(partials + 24 * c, acc);
-}
-
 // K3: out[i] = a[i] * b[i % nb] (Montgomery), field F.
 template <int F>
 SPT_HD void mont_mul_one(long i, const uint32_t* a, const uint32_t* b,
                          long nb, uint32_t* out) {
   store_fe(out + 8 * i,
            mont_mul<F>(load_fe(a + 8 * i), load_fe(b + 8 * (i % nb))));
-}
-
-// K4: one radix-2 decimation-in-time butterfly of one stage over Fr.
-// t indexes [batch, n/2]; the stage pairs rows j and j + half inside each
-// block of 2*half rows and twists the upper one by tw[j * tw_stride].
-SPT_HD void ntt_butterfly_one(long t, uint32_t* a, const uint32_t* tw,
-                              long n, long half, long tw_stride) {
-  const long nh = n >> 1;
-  const long b = t / nh, r = t % nh;
-  const long g = r / half, j = r % half;
-  const long i0 = b * n + g * 2 * half + j, i1 = i0 + half;
-  const Fe u = load_fe(a + 8 * i0);
-  const Fe v = mont_mul<FR>(load_fe(a + 8 * i1), load_fe(tw + 8 * (j * tw_stride)));
-  store_fe(a + 8 * i0, add<FR>(u, v));
-  store_fe(a + 8 * i1, sub<FR>(u, v));
 }
 
 }  // namespace spt

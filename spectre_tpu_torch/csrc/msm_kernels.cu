@@ -3,20 +3,23 @@
 //
 // K2 replaces `_padd_soa_call` (msm_pallas.py:222, body `_k_padd`): one
 // thread per point pair, the RCB formula of bn254.cuh in registers. Bound on
-// the H100: integer multiply issue (12 Montgomery products, ~3100 32-bit
+// the H100: integer multiply throughput (12 Montgomery products, ~3100 32-bit
 // multiply-adds, per 288 bytes moved); the design moves nothing but one
 // 96-byte point per operand and the result.
 //
 // K1 replaces `_bucket_sums` (msm_pallas.py:399, body `_k_bucket_accumulate`).
 // The Pallas design keeps every bucket resident in VMEM and adds each point
 // into all 2^(c-1) bucket columns; neither carries over to a 227 KB block.
-// Here the (window, point) pairs arrive sorted by bucket (prep in torch), one
-// thread walks a chunk of at most 32 entries of one bucket, conditionally
-// negating each point and complete-adding it into a partial sum written to
-// device memory, and K2 folds the partials of a bucket pairwise. Chunks keep
-// a bucket holding every point (all scalars equal) from running on one
-// thread. Bound: integer multiply issue, one complete add per nonzero digit;
-// the bucket-ordered gathers of 96-byte points are the memory side.
+// Here four kernels (bodies and design in bucket.cuh) sort the (window,
+// point) pairs by bucket with a counting sort on the card (K1a count, a
+// torch.cumsum, K1b scatter), walk the sorted entries in equal segments with
+// the next point staged in shared memory by cp.async and a segmented tree
+// reduction in shared memory (K1c walk), and add the pieces
+// of the buckets that cross blocks (K1d pieces): no host round trip, no sort
+// from a library, and the work per thread is the same for any digit
+// distribution, all-equal scalars included. Bound: integer multiply
+// throughput, one complete add per nonzero digit less one per bucket; the
+// gathers of 96-byte points in bucket order are the memory side.
 //
 // Plain C interface, loaded with ctypes by spectre_tpu_torch/ops/kernel_lib.py;
 // the wrappers and plain PyTorch versions are in ops/msm_kernels.py. Each
@@ -25,10 +28,12 @@
 #include <cuda_runtime.h>
 
 #include "bn254.cuh"
+#include "bucket.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kPlanThreads = 256;
 
 __global__ void padd_kernel(const uint32_t* __restrict__ p,
                             const uint32_t* __restrict__ q,
@@ -37,38 +42,173 @@ __global__ void padd_kernel(const uint32_t* __restrict__ p,
   if (i < n) spt::padd_one(i, p, q, out);
 }
 
-__global__ void bucket_chunk_kernel(const uint32_t* __restrict__ pts,
-                                    const int32_t* __restrict__ entries,
-                                    const int64_t* __restrict__ chunk_start,
-                                    const int32_t* __restrict__ chunk_len,
-                                    uint32_t* __restrict__ partials,
-                                    long nchunks) {
-  const long c = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c < nchunks)
-    spt::bucket_chunk_one(c, pts, entries, chunk_start, chunk_len, partials);
+// K1a: grid (blocks of P points, windows); shared histogram of nb keys.
+__global__ void k1_count_kernel(const int32_t* __restrict__ digits, long n,
+                                int nb, long P, long nblk,
+                                int32_t* __restrict__ counts) {
+  extern __shared__ int32_t hist[];
+  const int w = blockIdx.y;
+  const long pb = blockIdx.x;
+  for (int b = threadIdx.x; b < nb; b += blockDim.x) hist[b] = 0;
+  __syncthreads();
+  const long i0 = pb * P, i1 = i0 + P < n ? i0 + P : n;
+  spt::k1_count_points(w, i0, i1, threadIdx.x, blockDim.x, digits, n, hist);
+  __syncthreads();
+  for (int b = threadIdx.x; b < nb; b += blockDim.x)
+    counts[((long)w * nb + b) * nblk + pb] = hist[b];
 }
 
-unsigned blocks_for(long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
+// K1b: the same grid; each block's cursors start at its scanned offsets.
+__global__ void k1_scatter_kernel(const int32_t* __restrict__ digits,
+                                  const int32_t* __restrict__ negs, long n,
+                                  int nb, long P, long nblk,
+                                  const int32_t* __restrict__ offs,
+                                  int32_t* __restrict__ entries) {
+  extern __shared__ int32_t cursor[];
+  const int w = blockIdx.y;
+  const long pb = blockIdx.x;
+  for (int b = threadIdx.x; b < nb; b += blockDim.x)
+    cursor[b] = offs[((long)w * nb + b) * nblk + pb];
+  __syncthreads();
+  const long i0 = pb * P, i1 = i0 + P < n ? i0 + P : n;
+  spt::k1_scatter_points(w, i0, i1, threadIdx.x, blockDim.x, digits, negs, n,
+                         cursor, entries);
+}
+
+__device__ spt::Point shfl_down_point(const spt::Point& p, int off) {
+  spt::Point r;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    r.x.v[i] = __shfl_down_sync(0xffffffffu, p.x.v[i], off);
+    r.y.v[i] = __shfl_down_sync(0xffffffffu, p.y.v[i], off);
+    r.z.v[i] = __shfl_down_sync(0xffffffffu, p.z.v[i], off);
+  }
+  return r;
+}
+
+// K1c: one block per K1_BLOCK_ENTRIES sorted entries; blocks past the
+// entry count E (read on the card: the grid is sized for every digit
+// nonzero) leave at once. Dynamic shared memory: the block's nodes, then
+// each thread's staging slots. Three blocks an SM leave ptxas ~170
+// registers a thread, enough for the complete add without spills (at four,
+// 128, the walk spilled and ran slower; kernel_variants.py).
+constexpr size_t kWalkSmem =
+    spt::K1_THREADS * (sizeof(spt::K1Node) + 4 * spt::K1_STAGE_WORDS);
+
+__global__ void __launch_bounds__(spt::K1_THREADS, 3)
+    k1_walk_kernel(const uint32_t* __restrict__ pts,
+                   const int32_t* __restrict__ entries,
+                   const int32_t* __restrict__ bstart, int nkeys,
+                   uint32_t* __restrict__ out, uint32_t* __restrict__ pieces) {
+  extern __shared__ uint4 walk_smem[];
+  spt::K1Node* nodes = reinterpret_cast<spt::K1Node*>(walk_smem);
+  uint32_t* stage = reinterpret_cast<uint32_t*>(nodes + spt::K1_THREADS);
+  const long blk = blockIdx.x;
+  if (blk * spt::K1_BLOCK_ENTRIES >= bstart[nkeys]) return;
+  const int t = threadIdx.x;
+  spt::k1_walk_thread(blk, t, pts, entries, bstart, nkeys, out, &nodes[t],
+                      stage + spt::K1_STAGE_WORDS * t);
+  for (int d = 1; d < spt::K1_THREADS; d <<= 1) {
+    __syncthreads();
+    if ((t & (2 * d - 1)) == 0) spt::k1_merge(&nodes[t], &nodes[t + d], out);
+  }
+  if (t == 0) spt::k1_root(blk, &nodes[0], bstart, out, pieces);
+}
+
+// K1d: one warp per key.
+__global__ void k1_pieces_kernel(const int32_t* __restrict__ bstart,
+                                 int nkeys,
+                                 const uint32_t* __restrict__ pieces,
+                                 uint32_t* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int key = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (key >= nkeys) return;
+  long first, last;
+  spt::k1_bucket_blocks(key, bstart, &first, &last);
+  if (last == first) return;               // written by the walk
+  if (last < first) {                      // empty bucket
+    if (lane == 0) spt::store_point(out + 24 * (long)key, spt::infinity());
+    return;
+  }
+  const long np = last - first + 1;
+  const int active = np < 32 ? (int)np : 32;
+  spt::Point acc = spt::infinity();
+  if (lane < active)
+    acc = spt::k1_pieces_lane(key, first, last, lane, 32, bstart, pieces);
+  for (int off = 1; off < active; off <<= 1) {
+    const spt::Point other = shfl_down_point(acc, off);
+    if ((lane & (2 * off - 1)) == 0 && lane + off < active)
+      acc = spt::padd(acc, other);
+  }
+  if (lane == 0) spt::store_point(out + 24 * (long)key, acc);
+}
+
+unsigned blocks_for(long n, int threads) {
+  return (unsigned)((n + threads - 1) / threads);
+}
+
+// dynamic shared memory beyond 48 KB needs the kernel's opt-in
+template <typename K>
+int allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
 
 }  // namespace
 
 extern "C" int spt_padd(const void* p, const void* q, void* out, long n,
                         void* stream) {
   if (n > 0)
-    padd_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+    padd_kernel<<<blocks_for(n, kThreads), kThreads, 0,
+                  (cudaStream_t)stream>>>(
         (const uint32_t*)p, (const uint32_t*)q, (uint32_t*)out, n);
   return (int)cudaGetLastError();
 }
 
-extern "C" int spt_bucket_chunks(const void* pts, const void* entries,
-                                 const void* chunk_start,
-                                 const void* chunk_len, void* partials,
-                                 long nchunks, void* stream) {
-  if (nchunks > 0)
-    bucket_chunk_kernel<<<blocks_for(nchunks), kThreads, 0,
-                          (cudaStream_t)stream>>>(
-        (const uint32_t*)pts, (const int32_t*)entries,
-        (const int64_t*)chunk_start, (const int32_t*)chunk_len,
-        (uint32_t*)partials, nchunks);
+extern "C" int spt_k1_count(const void* digits, long nwin, long n, int nb,
+                            long P, long nblk, void* counts, void* stream) {
+  const size_t smem = (size_t)nb * sizeof(int32_t);
+  if (int rc = allow_smem(k1_count_kernel, smem)) return rc;
+  k1_count_kernel<<<dim3((unsigned)nblk, (unsigned)nwin), kPlanThreads, smem,
+                    (cudaStream_t)stream>>>((const int32_t*)digits, n, nb, P,
+                                            nblk, (int32_t*)counts);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int spt_k1_scatter(const void* digits, const void* negs, long nwin,
+                              long n, int nb, long P, long nblk,
+                              const void* offs, void* entries, void* stream) {
+  const size_t smem = (size_t)nb * sizeof(int32_t);
+  if (int rc = allow_smem(k1_scatter_kernel, smem)) return rc;
+  k1_scatter_kernel<<<dim3((unsigned)nblk, (unsigned)nwin), kPlanThreads,
+                      smem, (cudaStream_t)stream>>>(
+      (const int32_t*)digits, (const int32_t*)negs, n, nb, P, nblk,
+      (const int32_t*)offs, (int32_t*)entries);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int spt_k1_walk(const void* pts, const void* entries,
+                           const void* bstart, int nkeys, long max_entries,
+                           void* out, void* pieces, void* stream) {
+  const long nblocks =
+      (max_entries + spt::K1_BLOCK_ENTRIES - 1) / spt::K1_BLOCK_ENTRIES;
+  if (int rc = allow_smem(k1_walk_kernel, kWalkSmem)) return rc;
+  if (nblocks > 0)
+    k1_walk_kernel<<<(unsigned)nblocks, spt::K1_THREADS, kWalkSmem,
+                     (cudaStream_t)stream>>>(
+        (const uint32_t*)pts, (const int32_t*)entries, (const int32_t*)bstart,
+        nkeys, (uint32_t*)out, (uint32_t*)pieces);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int spt_k1_pieces(const void* bstart, int nkeys, const void* pieces,
+                             void* out, void* stream) {
+  const int keys_per_block = kThreads / 32;
+  if (nkeys > 0)
+    k1_pieces_kernel<<<blocks_for(nkeys, keys_per_block), kThreads, 0,
+                       (cudaStream_t)stream>>>(
+        (const int32_t*)bstart, nkeys, (const uint32_t*)pieces,
+        (uint32_t*)out);
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,8 @@
 """Build, load and count the port's CUDA kernels.
 
 The sources live in `spectre_tpu_torch/csrc/`: `bn254.cuh` (the shared
-field and curve arithmetic) and one `.cu` file per library with a plain C
+field and curve arithmetic), `bucket.cuh` and `ntt.cuh` (the per-block
+bodies of K1 and K4) and one `.cu` file per library with a plain C
 interface. At first use each library is compiled by `nvcc` for `sm_90a` into
 `build/torch_kernels/` at the repository root (a directory git ignores),
 every source in its own `nvcc` process, all started together, and loaded
@@ -37,13 +38,18 @@ _VP, _LONG, _INT = ctypes.c_void_p, ctypes.c_long, ctypes.c_int
 LIBRARIES = {
     "msm_kernels": ("msm_kernels.cu", {
         "spt_padd": [_VP, _VP, _VP, _LONG, _VP],
-        "spt_bucket_chunks": [_VP, _VP, _VP, _VP, _VP, _LONG, _VP],
+        "spt_k1_count": [_VP, _LONG, _LONG, _INT, _LONG, _LONG, _VP, _VP],
+        "spt_k1_scatter": [_VP, _VP, _LONG, _LONG, _INT, _LONG, _LONG, _VP, _VP,
+                           _VP],
+        "spt_k1_walk": [_VP, _VP, _VP, _INT, _LONG, _VP, _VP, _VP],
+        "spt_k1_pieces": [_VP, _INT, _VP, _VP, _VP],
     }),
     "field_kernels": ("field_kernels.cu", {
         "spt_mont_mul": [_VP, _VP, _LONG, _VP, _LONG, _INT, _VP],
-        "spt_ntt_stage": [_VP, _VP, _LONG, _LONG, _LONG, _LONG, _VP],
+        "spt_ntt_pass": [_VP, _VP, _VP, _LONG, _INT, _INT, _INT, _INT, _VP],
     }),
 }
+HEADERS = ("bn254.cuh", "bucket.cuh", "ntt.cuh")
 
 
 @dataclass
@@ -54,18 +60,22 @@ class KernelInfo:
     launches: int = 0
 
 
+_MSM_CU = "spectre_tpu_torch/csrc/msm_kernels.cu"
+_K1_REPLACES = "spectre_tpu/ops/msm_pallas.py:399"
+
+# K1 is four kernels behind one wrapper (ops/msm_kernels.py bucket_sums)
 KERNELS = {
-    "K1_bucket_accumulate": KernelInfo(
-        "K1_bucket_accumulate", "spectre_tpu_torch/csrc/msm_kernels.cu",
-        "spectre_tpu/ops/msm_pallas.py:399"),
+    "K1a_bucket_count": KernelInfo("K1a_bucket_count", _MSM_CU, _K1_REPLACES),
+    "K1b_bucket_scatter": KernelInfo("K1b_bucket_scatter", _MSM_CU, _K1_REPLACES),
+    "K1c_bucket_walk": KernelInfo("K1c_bucket_walk", _MSM_CU, _K1_REPLACES),
+    "K1d_bucket_pieces": KernelInfo("K1d_bucket_pieces", _MSM_CU, _K1_REPLACES),
     "K2_padd": KernelInfo(
-        "K2_padd", "spectre_tpu_torch/csrc/msm_kernels.cu",
-        "spectre_tpu/ops/msm_pallas.py:222"),
+        "K2_padd", _MSM_CU, "spectre_tpu/ops/msm_pallas.py:222"),
     "K3_mont_mul": KernelInfo(
         "K3_mont_mul", "spectre_tpu_torch/csrc/field_kernels.cu",
         "spectre_tpu/ops/field_ops.py:136 (XLA, no Pallas kernel)"),
-    "K4_ntt_stage": KernelInfo(
-        "K4_ntt_stage", "spectre_tpu_torch/csrc/field_kernels.cu",
+    "K4_ntt": KernelInfo(
+        "K4_ntt", "spectre_tpu_torch/csrc/field_kernels.cu",
         "spectre_tpu/ops/ntt.py:460 (XLA, no Pallas kernel)"),
 }
 
@@ -92,7 +102,7 @@ def _nvcc() -> str:
 def _target(name: str) -> str:
     src, _ = LIBRARIES[name]
     h = hashlib.sha256()
-    for f in ("bn254.cuh", src):
+    for f in (*HEADERS, src):
         with open(os.path.join(CSRC, f), "rb") as fh:
             h.update(fh.read())
     h.update(" ".join(NVCC_FLAGS).encode())

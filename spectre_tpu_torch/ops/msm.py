@@ -80,27 +80,29 @@ def signed_digit_stream(scalars: torch.Tensor, c: int, nwin: int) -> torch.Tenso
     return torch.stack(out).to(torch.int32)
 
 
-def msm_soa(points: torch.Tensor, scalars: torch.Tensor, c: int | None = None):
-    """points [48, n] SoA Montgomery, scalars [n, 4] int64 standard form
-    (values < r) -> affine (Fq, Fq) | None. Kernels on a CUDA device, their
-    plain versions on the CPU."""
-    n = points.shape[1]
+def msm_aos32(points: torch.Tensor, scalars: torch.Tensor, c: int | None = None):
+    """points [n, 24] AoS32 Montgomery (the kernels' layout), scalars [n, 4]
+    int64 standard form (values < r) -> affine (Fq, Fq) | None. Kernels on a
+    CUDA device, their plain versions on the CPU."""
+    n = points.shape[0]
     if scalars.shape != (n, 4):
         raise ValueError(f"scalars: expected [{n}, 4], got {tuple(scalars.shape)}")
     c = c or default_window_pallas(n)
     nwin = num_windows(c)
     digits = signed_digit_stream(scalars, c, nwin)
     negs = torch.zeros((1, n), dtype=torch.int32, device=points.device)
-    sums = MK.bucket_sums(points, digits, negs, c)
+    sums = MK.buckets_soa(MK.bucket_sums_aos32(points, digits, negs, c), nwin, 1 << (c - 1))
     return MK.combine_windows(MK.aggregate_buckets(sums, c), c)
 
 
-def msm(points: torch.Tensor, scalars_mont: torch.Tensor, c: int | None = None):
-    """Commitment MSM: base [48, N] SoA (N >= m), scalars [m, 4] Fr
-    Montgomery tensor on the same device -> affine (Fq, Fq) | None."""
-    m = scalars_mont.shape[0]
-    std = F.from_mont(F.fr_ctx(), scalars_mont.contiguous())
-    return msm_soa(points[:, :m].contiguous(), std, c)
+def msm_base(base: torch.Tensor, scalars_mont: torch.Tensor, c: int | None = None):
+    """Commitment MSM against a device-resident AoS32 base [N, 24] (N >= m,
+    `SRS.device_base`): the first m points, no copy or repack."""
+    return msm_aos32(base[:scalars_mont.shape[0]], _std(scalars_mont), c)
+
+
+def _std(scalars_mont: torch.Tensor) -> torch.Tensor:
+    return F.from_mont(F.fr_ctx(), scalars_mont.contiguous())
 
 
 def host_msm(points, scalars):

@@ -17,15 +17,19 @@ kernel body `_k_bucket_accumulate`): Pippenger signed-digit bucket sums.
 It computes what the Pallas kernel computes, not how: the TPU design keeps
 every bucket resident in VMEM (0.8 MB and up, more than one H100 block's
 227 KB of shared memory) and adds each point into all 2^(c-1) bucket
-columns to keep one, O(n * 2^(c-1)) adds. Here the (window, point) pairs
-are grouped by bucket first (a sort in torch ops, prep), then one thread
-per chunk of at most `chunk_len` sorted entries of one bucket walks them with
-the complete add into a partial sum in device memory (csrc/msm_kernels.cu
-`bucket_chunk_kernel`), and K2 folds the partials of each bucket pairwise.
-Chunking keeps a bucket that holds every point (all scalars equal, common
-in witness columns) from serializing on one thread. Bound: integer multiply
-issue, one complete add per nonzero digit; the gathers of 96-byte points in
-bucket order are the memory side.
+columns to keep one, O(n * 2^(c-1)) adds. Here four kernels on the card
+(csrc/msm_kernels.cu, bodies and design in csrc/bucket.cuh) do one
+complete add per nonzero digit: a counting sort of the (window, point)
+pairs by bucket (K1a count into shared-memory histograms, a torch.cumsum,
+K1b scatter), a walk of the sorted entries in equal segments per thread,
+each next point copied into shared memory by cp.async while the current
+one is added, with a segmented tree reduction in shared memory (K1c), and
+a warp per bucket for the buckets that cross walk blocks (K1d). Every
+thread has the same work whatever the digits, so all-equal scalars (one
+bucket holding every point, common in witness columns) cost no more than
+random ones. No host sync, no sort from a library. Bound: integer
+multiply throughput, one complete add per nonzero digit less one per
+bucket; the gathers of 96-byte points in bucket order are the memory side.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises. `padd_soa_plain` and `bucket_sums_plain`
@@ -42,7 +46,6 @@ from . import kernel_lib as KL
 
 NL = ec.NL
 ROWS = ec.ROWS
-MAX_CHUNK = 32      # most sorted entries one K1 thread walks
 
 
 # ---------------------------------------------------------------------------
@@ -119,46 +122,98 @@ def _check_soa(t: torch.Tensor, what: str) -> None:
 # K1: bucket accumulation
 # ---------------------------------------------------------------------------
 
+# the walk's geometry, as in csrc/bucket.cuh
+K1_SEG = 32
+K1_THREADS = 128
+K1_BLOCK_ENTRIES = K1_SEG * K1_THREADS
+PLAN_POINTS = 1 << 14    # points per K1a / K1b block
+MAX_C = 16               # a window's histogram must fit shared memory
+
+
+def plan_blocks(n: int) -> tuple[int, int]:
+    """(points per plan block, plan blocks per window)."""
+    return PLAN_POINTS, max(1, -(-n // PLAN_POINTS))
+
+
+def bucket_counts_plain(digits: torch.Tensor, nb: int, P: int) -> torch.Tensor:
+    """Plain version of K1a: counts[(w * nb + |d| - 1) * nblk + i // P] =
+    the number of points i of block i // P with digit d != 0 in window w,
+    int32 [nwin * nb * nblk]."""
+    nwin, n = digits.shape
+    nblk = max(1, -(-n // P))
+    w_idx, p_idx = torch.nonzero(digits, as_tuple=True)
+    keys = w_idx * nb + digits[w_idx, p_idx].to(torch.int64).abs() - 1
+    return torch.bincount(keys * nblk + p_idx // P,
+                          minlength=nwin * nb * nblk).to(torch.int32)
+
+
+def bucket_offsets(counts: torch.Tensor, nkeys: int, nblk: int):
+    """The plan's scan, torch ops on any device: (offs, bstart). offs
+    [nkeys * nblk] is the exclusive prefix sum of the counts, each plan
+    block's first slot per key; bstart [nkeys + 1] the bucket boundaries in
+    the sorted entries (bstart[nkeys] = E, the entry count), int32."""
+    incl = torch.cumsum(counts, 0, dtype=torch.int32)
+    offs = incl - counts
+    bstart = torch.cat([offs.view(nkeys, nblk)[:, 0], incl[-1:]])
+    return offs, bstart.contiguous()
+
+
+def bucket_scatter_plain(digits: torch.Tensor, negs: torch.Tensor, nb: int) -> torch.Tensor:
+    """Plain version of K1b: the entries point | sign << 31 of the nonzero
+    digits, sorted by key w * nb + |d| - 1 (by point inside a key), in an
+    int32 [nwin * n] whose first E slots are used."""
+    nwin, n = digits.shape
+    w_idx, p_idx = torch.nonzero(digits, as_tuple=True)
+    d = digits[w_idx, p_idx].to(torch.int64)
+    keys = w_idx * nb + d.abs() - 1
+    sign = (d < 0) ^ (negs[0, p_idx] != 0)
+    order = torch.argsort(keys, stable=True)
+    e = p_idx[order] | (sign[order].to(torch.int64) << 31)
+    out = torch.zeros(nwin * n, dtype=torch.int32, device=digits.device)
+    out[:e.shape[0]] = (e - ((e >> 31) << 32)).to(torch.int32)
+    return out
+
+
+def bucket_walk_plain(pts: torch.Tensor, entries: torch.Tensor,
+                      bstart: torch.Tensor) -> torch.Tensor:
+    """Plain version of K1c and K1d together: the sum of each bucket's
+    sorted entries, AoS32 [nkeys, 24], empty buckets at infinity. Each
+    bucket is cut into chunks of at most chunk_len(E) entries, the chunks
+    are walked one entry per step across all chunks, and the chunk sums of
+    a bucket are folded pairwise."""
+    dev = pts.device
+    nkeys = bstart.shape[0] - 1
+    starts = bstart[:-1].to(torch.int64)
+    counts = bstart[1:].to(torch.int64) - starts
+    size = chunk_len(int(bstart[-1]))
+    nch = (counts + size - 1) // size
+    ckey = torch.repeat_interleave(torch.arange(nkeys, device=dev), nch)
+    rank = torch.arange(ckey.numel(), device=dev) - (torch.cumsum(nch, 0) - nch)[ckey]
+    cstart = starts[ckey] + rank * size
+    clen = torch.clamp(starts[ckey] + counts[ckey] - cstart, max=size)
+    rows = ec.aos32_to_rows16(pts)                              # [n, 48]
+    acc = ec.aos32_to_rows16(ec.inf_aos32(ckey.shape[0], dev))
+    for j in range(size):
+        act = torch.nonzero(clen > j, as_tuple=True)[0]
+        if act.numel() == 0:
+            break
+        e = entries[cstart[act] + j].to(torch.int64)
+        pt = ec.cneg16(e < 0, rows[e & 0x7FFFFFFF].t())         # [48, A]
+        acc[act] = ec.padd16(acc[act].t(), pt).t()
+    sums, keys = _fold(acc, ckey, _padd_rows16)
+    out = ec.inf_aos32(nkeys, dev)
+    out[keys] = ec.rows16_to_aos32(sums)
+    return out
+
+
 def chunk_len(entries: int) -> int:
-    """Entries per K1 chunk: 4 while there are at most ~2^20 chunks (the
-    walk then has few serial steps and the card still has 4x more threads
-    than it holds at once), doubling up to MAX_CHUNK beyond that so the
-    fold's extra adds stay a small fraction of the walk's."""
+    """Entries per chunk of the plain walk: 4 while there are at most ~2^20
+    chunks, doubling up to 32 beyond that, so the walk has few steps and
+    the fold few rounds at any size."""
     size = 4
-    while size < MAX_CHUNK and entries > size << 20:
+    while size < 32 and entries > size << 20:
         size *= 2
     return size
-
-
-def _bucket_plan(digits: torch.Tensor, negs: torch.Tensor, nb: int):
-    """Group the nonzero (window, point) digits by bucket and cut every
-    bucket into chunks of at most `chunk_len(E)` entries.
-
-    Returns (entries int32 [E] sorted by bucket key = w * nb + |d| - 1, each
-    the point index with the sign bit set where the point enters negated;
-    chunk_start int64 [C]; chunk_len int32 [C]; chunk_key int64 [C])."""
-    nwin, n = digits.shape
-    d = digits.to(torch.int64)
-    nz = d != 0
-    w_idx, p_idx = torch.nonzero(nz, as_tuple=True)
-    dv = d[w_idx, p_idx]
-    keys = w_idx * nb + dv.abs() - 1
-    sign = (dv < 0) ^ (negs[0, p_idx] != 0)
-    order = torch.argsort(keys, stable=True)
-    keys = keys[order]
-    entries = (p_idx[order] | (sign[order].to(torch.int64) << 31))
-    entries = (entries - ((entries >> 31) << 32)).to(torch.int32)
-    size = chunk_len(keys.shape[0])
-    counts = torch.bincount(keys, minlength=nwin * nb)
-    starts = torch.cumsum(counts, 0) - counts
-    nch = (counts + size - 1) // size
-    chunk_key = torch.repeat_interleave(torch.arange(nwin * nb, device=d.device), nch)
-    first_chunk = torch.cumsum(nch, 0) - nch
-    rank = torch.arange(chunk_key.numel(), device=d.device) - first_chunk[chunk_key]
-    chunk_start = starts[chunk_key] + rank * size
-    lens = torch.clamp(starts[chunk_key] + counts[chunk_key] - chunk_start,
-                       max=size).to(torch.int32)
-    return entries.contiguous(), chunk_start.contiguous(), lens.contiguous(), chunk_key
 
 
 def _fold(items: torch.Tensor, keys: torch.Tensor, padd):
@@ -184,12 +239,6 @@ def _fold(items: torch.Tensor, keys: torch.Tensor, padd):
     return items, keys
 
 
-def _scatter_buckets(sums_aos: torch.Tensor, keys: torch.Tensor, nwin: int, nb: int):
-    out = ec.inf_aos32(nwin * nb, sums_aos.device)
-    out[keys] = sums_aos
-    return ec.aos32_to_soa16(out).reshape(ROWS, nwin, nb).permute(1, 0, 2).contiguous()
-
-
 def _check_bucket_inputs(points, digits, negs, c):
     _check_soa(points, "bucket points")
     if digits.dim() != 2 or digits.shape[1] != points.shape[1]:
@@ -201,60 +250,133 @@ def _check_bucket_inputs(points, digits, negs, c):
         raise TypeError("digits and negs must be int32")
     if not (points.device == digits.device == negs.device):
         raise ValueError("bucket inputs on different devices")
+    if not 1 <= c <= MAX_C:
+        raise ValueError(f"window {c} outside [1, {MAX_C}]")
     if digits.numel() and int(digits.abs().max()) > 1 << (c - 1):
         raise ValueError(f"digits outside [-2^{c - 1}, 2^{c - 1}]")
 
 
+def buckets_soa(sums_aos: torch.Tensor, nwin: int, nb: int) -> torch.Tensor:
+    """[nwin * nb, 24] AoS32 -> [nwin, 48, nb] SoA16."""
+    return ec.aos32_to_soa16(sums_aos).reshape(ROWS, nwin, nb).permute(1, 0, 2).contiguous()
+
+
 def bucket_sums(points: torch.Tensor, digits: torch.Tensor, negs: torch.Tensor,
                 c: int) -> torch.Tensor:
-    """K1: signed-digit bucket sums.
+    """K1: signed-digit bucket sums, in the reference's layout.
 
     points [48, n] int32 SoA Montgomery; digits [nwin, n] int32 in
     [-2^(c-1)+1, 2^(c-1)]; negs [1, n] int32 0/1 per-point sign (the GLV
     sign of the reference; 0 in vanilla mode). For each (window, point)
     with digit d != 0 the point, negated if (d < 0) xor its sign, is added
     into bucket |d|. Returns [nwin, 48, 2^(c-1)] int32, column j = bucket
-    j + 1, empty buckets at infinity."""
+    j + 1, empty buckets at infinity. Checks its inputs (the digit range
+    costs a host sync), then runs `bucket_sums_aos32`."""
     _check_bucket_inputs(points, digits, negs, c)
-    if not points.is_cuda:
-        return bucket_sums_plain(points, digits, negs, c)
-    nwin, nb = digits.shape[0], 1 << (c - 1)
-    entries, cstart, clen, ckey = _bucket_plan(digits, negs, nb)
-    nchunks = ckey.shape[0]
-    if nchunks == 0:
-        return _scatter_buckets(ec.inf_aos32(0, points.device), ckey, nwin, nb)
-    pts = ec.soa16_to_aos32(points)
-    partials = torch.empty((nchunks, 24), dtype=torch.int32, device=points.device)
-    lib = KL.library("msm_kernels")
-    KL.KERNELS["K1_bucket_accumulate"].launches += 1
-    rc = lib.spt_bucket_chunks(pts.data_ptr(), entries.data_ptr(), cstart.data_ptr(),
-                               clen.data_ptr(), partials.data_ptr(), nchunks,
-                               KL.stream_of(pts))
-    KL.check_launch(rc, "K1_bucket_accumulate")
-    sums, keys = _fold(partials, ckey, padd_aos32)
-    return _scatter_buckets(sums, keys, nwin, nb)
+    sums = bucket_sums_aos32(ec.soa16_to_aos32(points), digits, negs, c)
+    return buckets_soa(sums, digits.shape[0], 1 << (c - 1))
 
 
 def bucket_sums_plain(points: torch.Tensor, digits: torch.Tensor,
                       negs: torch.Tensor, c: int) -> torch.Tensor:
-    """Plain version of K1, on any device: the same bucket plan, the chunk
-    walks advanced one entry per step across all chunks, the same fold."""
+    """Plain version of K1 in the reference's layout, on any device: the
+    plain plan (bincount, scan, stable sort) and the plain walk."""
     _check_bucket_inputs(points, digits, negs, c)
-    nwin, nb = digits.shape[0], 1 << (c - 1)
-    entries, cstart, clen, ckey = _bucket_plan(digits, negs, nb)
-    dev = points.device
-    rows = points.t().to(torch.int64)                         # [n, 48]
-    acc = ec.aos32_to_rows16(ec.inf_aos32(ckey.shape[0], dev))
-    for j in range(MAX_CHUNK):
-        act = torch.nonzero(clen > j, as_tuple=True)[0]
-        if act.numel() == 0:
-            break
-        e = entries[cstart[act] + j].to(torch.int64)
-        pt = rows[e & 0x7FFFFFFF].t()                          # [48, A]
-        pt = ec.cneg16(e < 0, pt)
-        acc[act] = ec.padd16(acc[act].t(), pt).t()
-    sums, keys = _fold(acc, ckey, _padd_rows16)
-    return _scatter_buckets(ec.rows16_to_aos32(sums), keys, nwin, nb)
+    sums = _bucket_sums_aos32_plain(ec.soa16_to_aos32(points), digits, negs, c)
+    return buckets_soa(sums, digits.shape[0], 1 << (c - 1))
+
+
+def bucket_plan_plain(digits: torch.Tensor, negs: torch.Tensor, c: int):
+    """Plain version of K1a, the scan and K1b: (counts, bstart, entries),
+    the entries in a stable sort by key. Any device."""
+    nwin, n = digits.shape
+    nb = 1 << (c - 1)
+    P, nblk = plan_blocks(n)
+    counts = bucket_counts_plain(digits, nb, P)
+    _, bstart = bucket_offsets(counts, nwin * nb, nblk)
+    return counts, bstart, bucket_scatter_plain(digits, negs, nb)
+
+
+def _bucket_sums_aos32_plain(pts, digits, negs, c):
+    _, bstart, entries = bucket_plan_plain(digits, negs, c)
+    return bucket_walk_plain(pts, entries, bstart)
+
+
+def bucket_plan(digits: torch.Tensor, negs: torch.Tensor, c: int):
+    """The entries of the nonzero digits sorted by bucket key: (counts,
+    bstart, entries) as `bucket_plan_plain` defines them (the order inside
+    a bucket is free). K1a, the scan and K1b on a CUDA tensor; the plain
+    version on a CPU tensor."""
+    if not digits.is_cuda:
+        return bucket_plan_plain(digits, negs, c)
+    nwin, n = digits.shape
+    nb = 1 << (c - 1)
+    nkeys = nwin * nb
+    P, nblk = plan_blocks(n)
+    KL.require(digits, "digits", torch.int32, ndim=2)
+    KL.require(negs, "negs", torch.int32, ndim=2)
+    if negs.shape != (1, n) or negs.device != digits.device:
+        raise ValueError("bucket plan: negs must be [1, n] beside the digits")
+    if not 1 <= c <= MAX_C or nwin * n >= 1 << 31:
+        raise ValueError(f"bucket plan: window {c} or size {nwin} x {n} out of range")
+    dev, stream = digits.device, KL.stream_of(digits)
+    lib = KL.library("msm_kernels")
+    counts = torch.empty(nkeys * nblk, dtype=torch.int32, device=dev)
+    KL.KERNELS["K1a_bucket_count"].launches += 1
+    KL.check_launch(lib.spt_k1_count(digits.data_ptr(), nwin, n, nb, P, nblk,
+                                     counts.data_ptr(), stream), "K1a_bucket_count")
+    offs, bstart = bucket_offsets(counts, nkeys, nblk)
+    entries = torch.empty(max(nwin * n, 1), dtype=torch.int32, device=dev)
+    KL.KERNELS["K1b_bucket_scatter"].launches += 1
+    KL.check_launch(lib.spt_k1_scatter(digits.data_ptr(), negs.data_ptr(), nwin, n, nb,
+                                       P, nblk, offs.data_ptr(), entries.data_ptr(),
+                                       stream), "K1b_bucket_scatter")
+    return counts, bstart, entries
+
+
+def bucket_walk(pts: torch.Tensor, entries: torch.Tensor, bstart: torch.Tensor) -> torch.Tensor:
+    """Bucket sums of sorted entries (`bucket_plan`): AoS32 [nkeys, 24].
+    K1c walk and K1d pieces on a CUDA tensor, with a grid sized for every
+    slot of `entries` (the entry count E stays on the card); the plain walk
+    on a CPU tensor."""
+    if not pts.is_cuda:
+        return bucket_walk_plain(pts, entries, bstart)
+    KL.require(pts, "bucket points", torch.int32, ndim=2, last=24)
+    KL.require(entries, "entries", torch.int32, ndim=1)
+    KL.require(bstart, "bstart", torch.int32, ndim=1)
+    if not (pts.device == entries.device == bstart.device):
+        raise ValueError("bucket walk inputs on different devices")
+    dev, stream = pts.device, KL.stream_of(pts)
+    nkeys = bstart.shape[0] - 1
+    max_entries = entries.shape[0]
+    nwalk = -(-max_entries // K1_BLOCK_ENTRIES)
+    lib = KL.library("msm_kernels")
+    out = torch.empty((nkeys, 24), dtype=torch.int32, device=dev)
+    pieces = torch.empty((max(2 * nwalk, 1), 24), dtype=torch.int32, device=dev)
+    KL.KERNELS["K1c_bucket_walk"].launches += 1
+    KL.check_launch(lib.spt_k1_walk(pts.data_ptr(), entries.data_ptr(), bstart.data_ptr(),
+                                    nkeys, max_entries, out.data_ptr(), pieces.data_ptr(),
+                                    stream), "K1c_bucket_walk")
+    KL.KERNELS["K1d_bucket_pieces"].launches += 1
+    KL.check_launch(lib.spt_k1_pieces(bstart.data_ptr(), nkeys, pieces.data_ptr(),
+                                      out.data_ptr(), stream), "K1d_bucket_pieces")
+    return out
+
+
+def bucket_sums_aos32(pts: torch.Tensor, digits: torch.Tensor, negs: torch.Tensor,
+                      c: int) -> torch.Tensor:
+    """K1 on the kernels' layout: points AoS32 [n, 24] -> bucket sums AoS32
+    [nwin * 2^(c-1), 24], row w * 2^(c-1) + j = bucket j + 1 of window w.
+    The digits must lie in [-2^(c-1), 2^(c-1)] (the MSM's recode makes them
+    so; `bucket_sums` checks them). On a CUDA tensor K1a, the scan, K1b,
+    K1c and K1d run with no host round trip; the plain version on a CPU
+    tensor."""
+    if pts.shape[0] != digits.shape[1]:
+        raise ValueError("bucket sums: points and digits disagree on n")
+    if not pts.is_cuda:
+        return _bucket_sums_aos32_plain(pts, digits, negs, c)
+    _, bstart, entries = bucket_plan(digits, negs, c)
+    return bucket_walk(pts, entries, bstart)
 
 
 # ---------------------------------------------------------------------------

@@ -2,14 +2,27 @@
 the prover's extended domain.
 
 The port of `spectre_tpu/ops/ntt.py`'s radix-2 path (`_ntt_stages` :460,
-XLA code in the JAX package): a bit-reversal gather, then log2(n)
-decimation-in-time stages. Each stage is kernel K4 on a CUDA tensor
-(csrc/field_kernels.cu `ntt_stage_kernel`: one thread per butterfly, in
-place, the twiddle and the Montgomery product in registers) and its plain
-version on a CPU tensor. A stage reads and writes every element once and
-does one Montgomery product per pair, 257 32-bit multiply-adds per 128
-bytes: bound by memory on the H100. The four-step and int8-matmul NTTs of
-the reference, which cut the passes over memory, are later work.
+XLA code in the JAX package): decimation in time on the bit-reversed input,
+log2(n) stages. On a CUDA tensor the transform is kernel K4
+(csrc/field_kernels.cu `ntt_pass_kernel`, bodies in csrc/ntt.cuh): one
+launch per pass of up to TMAX stages, each pass a block per tile of
+C x 2^t rows held in shared memory, the first pass reading the input in
+natural order straight into bit-reversed tile rows. A 2^21 or 2^23
+transform is three passes over memory; ceil(log2(n) / TMAX) in general.
+Tiles of 2^10 elements (32 KB: six blocks an SM) ran faster on the H100
+than 2^11 or 2^12 (scripts/torch_kernel_variants.py, PERF.md).
+
+Bound on the H100: integer multiply throughput. A butterfly after stage 0
+is one Montgomery product (257 32-bit multiply-adds; stage 0 twists by one
+and skips it) against, per pass, 2 x 32 bytes per element; with three
+passes and 23 stages the products outweigh the bytes about three to one. The four-step and int8-matmul NTTs of the reference are
+later work.
+
+Plain versions, for CPU tensors and the tests: `ntt_passes_plain` repeats
+the kernel's passes in torch ops (the same tiles, rows, strides and twiddle
+indices), and `ntt_stages_plain` is the stage loop (a bit-reversal gather,
+then one vectorized stage at a time), the plain NTT the kernel is held
+against on the card.
 
 The coset/Montgomery folds of the reference's fused stage-0 tables
 (`_fused_in_table` :239, `_fused_out_table` :265, `_vinv_in_table` :295)
@@ -18,7 +31,7 @@ g^i before the transform, the iLDE multiplies by n^-1 g^-i after it, and
 the quotient folds the vanishing inverse into one product before it.
 
 Every tensor here is [..., n, 4] int64 Montgomery (field_ops); a batch of
-polynomials is [B, n, 4] and transforms in one launch per stage.
+polynomials is [B, n, 4] and transforms in one launch per pass.
 """
 
 from __future__ import annotations
@@ -27,6 +40,10 @@ import torch
 
 from . import field_ops as F
 from . import kernel_lib as KL
+
+TMAX = 10        # most stages one pass holds
+TILE_LOG = 10    # log2 of the elements a block holds: 32 KB and a pad row
+MAX_BATCH = 65535   # the kernel's grid y
 
 
 def _fr():
@@ -52,12 +69,8 @@ class Twiddles:
 
     def bitrev(self, n: int) -> torch.Tensor:
         if n not in self._rev:
-            logn = n.bit_length() - 1
-            idx = torch.arange(n, device=self.device)
-            rev = torch.zeros_like(idx)
-            for b in range(logn):
-                rev |= ((idx >> b) & 1) << (logn - 1 - b)
-            self._rev[n] = rev
+            self._rev[n] = _bitrev(torch.arange(n, device=self.device),
+                                   n.bit_length() - 1)
         return self._rev[n]
 
     def powers(self, x: int, n: int) -> torch.Tensor:
@@ -67,37 +80,140 @@ class Twiddles:
         return self._pow[key]
 
 
-def ntt_stage(a: torch.Tensor, tw: torch.Tensor, half: int, tw_stride: int) -> None:
-    """K4, in place: one DIT stage over a contiguous [B, n, 4] batch: rows
-    j and j + half of each block of 2*half rows become u + w v and u - w v,
-    w = tw[j * tw_stride]. The plain version for a CPU tensor."""
-    if not a.is_cuda:
-        ntt_stage_plain(a, tw, half, tw_stride)
-        return
-    KL.require(a, "ntt a", torch.int64, ndim=3, last=4)
-    KL.require(tw, "ntt twiddles", torch.int64, ndim=2, last=4)
-    if tw.device != a.device:
-        raise ValueError("ntt_stage: twiddles on another device")
-    n = a.shape[1]
-    if n & (n - 1) or half < 1 or n % (2 * half) or (half - 1) * tw_stride >= tw.shape[0]:
-        raise ValueError("ntt_stage: bad stage geometry or twiddle table too short")
-    lib = KL.library("field_kernels")
-    KL.KERNELS["K4_ntt_stage"].launches += 1
-    rc = lib.spt_ntt_stage(a.data_ptr(), tw.data_ptr(), a.shape[0], a.shape[1],
-                           half, tw_stride, KL.stream_of(a))
-    KL.check_launch(rc, "K4_ntt_stage")
+def _bitrev(idx: torch.Tensor, bits: int) -> torch.Tensor:
+    rev = torch.zeros_like(idx)
+    for b in range(bits):
+        rev |= ((idx >> b) & 1) << (bits - 1 - b)
+    return rev
 
 
-def ntt_stage_plain(a: torch.Tensor, tw: torch.Tensor, half: int, tw_stride: int) -> None:
-    """Plain version of K4 (in place, any device)."""
+# ---------------------------------------------------------------------------
+# the pass plan (shared by K4 and its pass-structured plain version)
+# ---------------------------------------------------------------------------
+
+def ntt_plan(logn: int, tmax: int = TMAX, tile_log: int = TILE_LOG) -> list:
+    """The passes of a 2^logn transform as (s0, t, logc): stages s0 ..
+    s0+t-1, tiles of 2^t rows, 2^logc columns per block. The stages are
+    split as evenly as ceil(logn / tmax) passes allow; a block holds up to
+    2^tile_log elements, and its columns are adjacent input columns (first
+    pass) or adjacent low row bits (later passes, at most 2^s0 of them)."""
+    if logn == 0:
+        return []
+    npass = -(-logn // tmax)
+    base, extra = divmod(logn, npass)
+    plan, s0 = [], 0
+    for i in range(npass):
+        t = base + (i < extra)
+        room = logn - t if s0 == 0 else s0
+        plan.append((s0, t, max(0, min(tile_log - t, room))))
+        s0 += t
+    return plan
+
+
+def _pass_rows(logn: int, s0: int, t: int, logc: int, device):
+    """(load, store, lo): the transform rows a pass's tiles read and write,
+    each [nblk, C, T] in tile-row order after the load, and the low row bits
+    lo [nblk, C] of each column (csrc/ntt.cuh `ntt_pass_load`/`_store`)."""
+    n, T, C = 1 << logn, 1 << t, 1 << logc
+    nblk = n // (T * C)
+    blk = torch.arange(nblk, device=device)[:, None, None]
+    c = torch.arange(C, device=device)[None, :, None]
+    m = torch.arange(T, device=device)[None, None, :]
+    if s0 == 0:
+        o = (blk << logc) + c
+        load = o + (_bitrev(m, t) << (logn - t))
+        store = (_bitrev(o, logn - t) << t) + m
+        lo = torch.zeros((nblk, C), dtype=torch.int64, device=device)
+        return load, store, lo
+    lgbits = s0 - logc
+    hi, lg = blk >> lgbits, blk & ((1 << lgbits) - 1)
+    rows = (hi << (s0 + t)) + (m << s0) + (lg << logc) + c
+    return rows, rows, ((lg << logc) + c)[:, :, 0]
+
+
+def _pass_plain(src: torch.Tensor, dst: torch.Tensor, tw: torch.Tensor,
+                logn: int, s0: int, t: int, logc: int) -> None:
+    """One pass in torch ops: gather the tiles, run stages s0 .. s0+t-1 on
+    them (pairs (m0, m0 + 2^ls) of each column, twiddle index
+    ((jl << s0) + lo) * n / 2^(s0+ls+1)), scatter them to dst."""
     ctx = _fr()
-    b, n, _ = a.shape
-    v = a.view(b, n // (2 * half), 2, half, 4)
-    w = tw[::tw_stride][:half].contiguous()
-    t = F.mont_mul_plain(ctx, v[:, :, 1].contiguous(), w)
-    u = v[:, :, 0].clone()
-    v[:, :, 0] = F.add(ctx, u, t)
-    v[:, :, 1] = F.sub(ctx, u, t)
+    b, n = src.shape[0], 1 << logn
+    load, store, lo = _pass_rows(logn, s0, t, logc, src.device)
+    nblk, C, T = load.shape
+    tile = src.index_select(1, load.reshape(-1)).reshape(b, nblk, C, T, 4)
+    for ls in range(t):
+        h = 1 << ls
+        v = tile.view(b, nblk, C, T // (2 * h), 2, h, 4)
+        jl = torch.arange(h, device=src.device)
+        j = (jl[None, None, :] << s0) + lo[:, :, None]               # [nblk, C, h]
+        w = tw.index_select(0, (j * (n >> (s0 + ls + 1))).reshape(-1))
+        w = w.reshape(1, nblk, C, 1, h, 4).expand(b, nblk, C, T // (2 * h), h, 4)
+        x = F.mont_mul_plain(ctx, v[:, :, :, :, 1].contiguous(),
+                             w.contiguous().reshape(-1, 4))
+        u = v[:, :, :, :, 0].clone()
+        v[:, :, :, :, 0] = F.add(ctx, u, x)
+        v[:, :, :, :, 1] = F.sub(ctx, u, x)
+    dst.index_copy_(1, store.reshape(-1), tile.reshape(b, -1, 4))
+
+
+def ntt_passes_plain(x: torch.Tensor, tw: torch.Tensor, plan=None) -> torch.Tensor:
+    """Plain version of K4 with the kernel's pass structure: [B, n, 4] ->
+    new [B, n, 4]. `plan` defaults to ntt_plan(log2 n)."""
+    n = x.shape[1]
+    logn = n.bit_length() - 1
+    out = x.clone()
+    for i, (s0, t, logc) in enumerate(ntt_plan(logn) if plan is None else plan):
+        _pass_plain(x if i == 0 else out, out, tw, logn, s0, t, logc)
+    return out
+
+
+def ntt_stages_plain(x: torch.Tensor, tw: torch.Tensor, tables: Twiddles) -> torch.Tensor:
+    """Plain NTT as a stage loop: [B, n, 4] -> new [B, n, 4] (a
+    bit-reversal gather, then each stage over the whole batch at once)."""
+    ctx = _fr()
+    b, n, _ = x.shape
+    y = x.index_select(1, tables.bitrev(n)).contiguous()
+    half = 1
+    while half < n:
+        v = y.view(b, n // (2 * half), 2, half, 4)
+        w = tw[::n // (2 * half)][:half].contiguous()
+        t = F.mont_mul_plain(ctx, v[:, :, 1].contiguous(), w)
+        u = v[:, :, 0].clone()
+        v[:, :, 0] = F.add(ctx, u, t)
+        v[:, :, 1] = F.sub(ctx, u, t)
+        half *= 2
+    return y
+
+
+def ntt_passes(x: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
+    """K4: the forward transform of a contiguous [B, n, 4] batch, one launch
+    per pass of ntt_plan(log2 n), into a new tensor. The pass-structured
+    plain version for a CPU tensor."""
+    n = x.shape[1]
+    if not x.is_cuda:
+        return ntt_passes_plain(x, tw)
+    KL.require(x, "ntt x", torch.int64, ndim=3, last=4)
+    KL.require(tw, "ntt twiddles", torch.int64, ndim=2, last=4)
+    if tw.device != x.device:
+        raise ValueError("ntt: twiddles on another device")
+    if tw.shape[0] < max(n // 2, 1):
+        raise ValueError("ntt: twiddle table too short")
+    if x.shape[0] > MAX_BATCH:
+        raise ValueError(f"ntt: batch {x.shape[0]} above {MAX_BATCH}")
+    out = torch.empty_like(x)
+    plan = ntt_plan(n.bit_length() - 1)
+    if not plan:
+        out.copy_(x)
+        return out
+    lib = KL.library("field_kernels")
+    for i, (s0, t, logc) in enumerate(plan):
+        src = x if i == 0 else out
+        KL.KERNELS["K4_ntt"].launches += 1
+        rc = lib.spt_ntt_pass(src.data_ptr(), out.data_ptr(), tw.data_ptr(),
+                              x.shape[0], n.bit_length() - 1, s0, t, logc,
+                              KL.stream_of(x))
+        KL.check_launch(rc, "K4_ntt")
+    return out
 
 
 def ntt(a: torch.Tensor, omega: int, tables: Twiddles) -> torch.Tensor:
@@ -107,13 +223,8 @@ def ntt(a: torch.Tensor, omega: int, tables: Twiddles) -> torch.Tensor:
     n = shape[-2]
     if n & (n - 1):
         raise ValueError(f"ntt: size {n} is not a power of two")
-    x = a.reshape(-1, n, 4).index_select(1, tables.bitrev(n)).contiguous()
-    tw = tables.twiddles(omega, n)
-    half = 1
-    while half < n:
-        ntt_stage(x, tw, half, n // (2 * half))
-        half *= 2
-    return x.reshape(shape)
+    x = a.reshape(-1, n, 4).contiguous()
+    return ntt_passes(x, tables.twiddles(omega, n)).reshape(shape)
 
 
 def intt(a: torch.Tensor, omega: int, tables: Twiddles, post=None) -> torch.Tensor:

@@ -115,9 +115,9 @@ class TorchBackend:
     def coset_ilde(self, evals, omega: int, g: int):
         return NTT.coset_ilde(evals, omega, g, self.tables)
 
-    # -- MSM against a device-resident base ([48, N] SoA, srs.device_base) --
+    # -- MSM against a device-resident base ([N, 24] AoS32, srs.device_base) --
     def msm(self, base: torch.Tensor, scalars: torch.Tensor):
-        return MSM.msm(base, scalars)
+        return MSM.msm_base(base, scalars)
 
     def msm_many(self, base: torch.Tensor, scalars_list) -> list:
-        return [MSM.msm(base, s) for s in scalars_list]
+        return [MSM.msm_base(base, s) for s in scalars_list]

@@ -81,13 +81,14 @@ class SRS:
         return self._digest
 
     def device_base(self, device=None) -> torch.Tensor:
-        """The G1 powers as a [48, n] SoA Montgomery projective tensor on
-        `device` (default CUDA), encoded there once and cached."""
+        """The G1 powers as an AoS32 [n, 24] Montgomery projective tensor
+        (the MSM kernels' layout) on `device` (default CUDA), encoded there
+        once and cached: an MSM reads a prefix of it as it is."""
         dev = resolve(device)
         key = str(dev)
         if key not in self._bases:
             xy = F.tensor_from_u64(self.g1_powers, dev)
-            self._bases[key] = ec.aos32_to_soa16(ec.encode_affine_std(xy))
+            self._bases[key] = ec.encode_affine_std(xy)
         return self._bases[key]
 
     @classmethod

@@ -1,4 +1,4 @@
-"""The four CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 Every test here needs a CUDA GPU and nvcc: it is marked `cuda` and skips
 elsewhere. On the GPU machine, which has no jax for `tests/conftest.py`, run
@@ -39,22 +39,29 @@ def _points(n, dev, seed):
 @pytest.mark.parametrize("field", ["fr", "fq"])
 def test_k3_mont_mul(dev, field):
     ctx = F.fr_ctx() if field == "fr" else F.fq_ctx()
-    a, b = _fe(ctx, 1000, dev, 1), _fe(ctx, 1000, dev, 2)
+    edge = F.from_ints(ctx, [0, 1, ctx.p - 1, ctx.r_mod_p, ctx.p - ctx.r_mod_p], dev)
+    a = torch.cat([edge.repeat_interleave(5, 0), _fe(ctx, 975, dev, 1)])
+    b = torch.cat([edge.repeat(5, 1), _fe(ctx, 975, dev, 2)])
     before = KL.KERNELS["K3_mont_mul"].launches
     assert torch.equal(F.mont_mul(ctx, a, b), F.mont_mul_plain(ctx, a, b))
     assert torch.equal(F.mont_mul(ctx, a, b[:1]), F.mont_mul_plain(ctx, a, b[:1]))
     assert KL.KERNELS["K3_mont_mul"].launches == before + 2
 
 
-def test_k4_ntt_stage(dev):
+@pytest.mark.parametrize("logn,batch", [(6, 1), (7, 3), (10, 1), (12, 2), (16, 3)])
+def test_k4_ntt(dev, logn, batch):
+    """The pass kernel against the plain stage loop and the pass-structured
+    plain version, one launch per pass."""
     ctx = F.fr_ctx()
-    x = _fe(ctx, 1 << 10, dev, 3).reshape(1, -1, 4)
-    tw = N.Twiddles(dev).twiddles(bn254.fr_root_of_unity(10), 1 << 10)
-    for half in (1, 16, 512):
-        y_k, y_p = x.clone(), x.clone()
-        N.ntt_stage(y_k, tw, half, (1 << 10) // (2 * half))
-        N.ntt_stage_plain(y_p, tw, half, (1 << 10) // (2 * half))
-        assert torch.equal(y_k, y_p)
+    n = 1 << logn
+    x = _fe(ctx, batch * n, dev, 3 + logn).reshape(batch, n, 4)
+    tables = N.Twiddles(dev)
+    tw = tables.twiddles(bn254.fr_root_of_unity(logn), n)
+    before = KL.KERNELS["K4_ntt"].launches
+    got = N.ntt_passes(x, tw)
+    assert KL.KERNELS["K4_ntt"].launches == before + len(N.ntt_plan(logn))
+    assert torch.equal(got, N.ntt_stages_plain(x, tw, tables))
+    assert torch.equal(got, N.ntt_passes_plain(x, tw))
 
 
 def test_k2_padd_edge_cases(dev):
@@ -67,10 +74,14 @@ def test_k2_padd_edge_cases(dev):
     assert torch.equal(MK.padd_soa(lhs, rhs), MK.padd_soa_plain(lhs, rhs))
 
 
+@pytest.mark.parametrize("n", [256, 1000, 5003])
 @pytest.mark.parametrize("case", ["random", "all-equal", "all-zero"])
-def test_k1_bucket_sums(dev, case):
-    n, c = 256, 5
-    soa = ec.aos32_to_soa16(_points(n, dev, 5))
+def test_k1_bucket_sums(dev, case, n):
+    """K1's four kernels against the plain version after normalization, at
+    n not a multiple of the walk's segment or block (5003 points: all-equal
+    buckets span several walk blocks)."""
+    c = 5
+    soa = ec.aos32_to_soa16(_points(64, dev, 5)[torch.arange(n, device=dev) % 64])
     r = random.Random(6)
     if case == "random":
         vals = [r.randrange(bn254.R) for _ in range(n)]
@@ -81,10 +92,31 @@ def test_k1_bucket_sums(dev, case):
     sc = F.from_mont(F.fr_ctx(), F.from_ints(F.fr_ctx(), vals, dev))
     digits = M.signed_digit_stream(sc, c, M.num_windows(c))
     negs = (torch.arange(n, device=dev) % 2).to(torch.int32)[None]
+    before = {k: KL.KERNELS[k].launches for k in KL.KERNELS if k.startswith("K1")}
     got = MK.bucket_sums(soa, digits, negs, c)
+    assert all(KL.KERNELS[k].launches == v + 1 for k, v in before.items())
     want = MK.bucket_sums_plain(soa, digits, negs, c)
     flat = lambda t: ec.normalize_std(ec.soa16_to_aos32(t.permute(1, 0, 2).reshape(48, -1)))  # noqa: E731
     assert torch.equal(flat(got), flat(want))
+
+
+def test_k1_plan_kernels(dev):
+    """K1a equals the plain counts exactly; K1b places the same entries in
+    each bucket as the plain stable sort (the order inside a bucket is the
+    kernel's atomics')."""
+    n, c = 40000, 6           # three plan blocks per window
+    nb = 1 << (c - 1)
+    g = torch.Generator(device=dev).manual_seed(11)
+    digits = torch.randint(-nb + 1, nb + 1, (3, n), generator=g, dtype=torch.int32, device=dev)
+    negs = (torch.arange(n, device=dev) % 7 == 0).to(torch.int32)[None]
+    P, _ = MK.plan_blocks(n)
+    counts, bstart, entries = MK.bucket_plan(digits, negs, c)
+    assert torch.equal(counts, MK.bucket_counts_plain(digits, nb, P))
+    want = MK.bucket_scatter_plain(digits, negs, nb)
+    E = int(bstart[-1])      # the slots past E are not written
+    key = torch.bucketize(torch.arange(E, device=dev), bstart[1:].long(), right=True)
+    order = lambda e: torch.sort(key.long() * (1 << 32) + (e[:E].long() & 0xFFFFFFFF)).values  # noqa: E731
+    assert torch.equal(order(entries), order(want))
 
 
 def test_msm_matches_host(dev):
@@ -92,5 +124,6 @@ def test_msm_matches_host(dev):
     r = random.Random(7)
     pts = [bn254.g1_curve.mul(bn254.G1_GEN, r.randrange(1, bn254.R)) for _ in range(n)]
     sc = [r.randrange(bn254.R) for _ in range(n)]
-    base = ec.aos32_to_soa16(ec.encode_points(pts, dev))
-    assert M.msm(base, F.from_ints(F.fr_ctx(), sc, dev)) == bn254.g1_curve.msm(pts, sc)
+    base = ec.encode_points(pts, dev)
+    want = bn254.g1_curve.msm(pts, sc)
+    assert M.msm_base(base, F.from_ints(F.fr_ctx(), sc, dev)) == want

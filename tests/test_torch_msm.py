@@ -169,8 +169,8 @@ class TestMsm:
         pts[4] = pts[7]                                   # repeated point
         sc = _scalars(n, 10) if case == "ragged" else [_scalars(1, 11)[0]] * n
         sc[0], sc[1] = 0, bn254.R - 1
-        base = ec.aos32_to_soa16(ec.encode_points(pts, "cpu"))
-        got = M.msm(base, F.from_ints(F.fr_ctx(), sc, "cpu"))
+        base = ec.encode_points(pts, "cpu")
+        got = M.msm_base(base, F.from_ints(F.fr_ctx(), sc, "cpu"))
         assert got == g1.msm(pts, sc)
         lim = np.array([[int(p[0]) >> (64 * j) & (2 ** 64 - 1) for j in range(4)]
                         + [int(p[1]) >> (64 * j) & (2 ** 64 - 1) for j in range(4)]
@@ -180,8 +180,8 @@ class TestMsm:
 
     def test_zero_msm_is_infinity(self):
         pts = _points(5, 12)
-        base = ec.aos32_to_soa16(ec.encode_points(pts, "cpu"))
-        assert M.msm(base, F.from_ints(F.fr_ctx(), [0] * 5, "cpu")) is None
+        base = ec.encode_points(pts, "cpu")
+        assert M.msm_base(base, F.from_ints(F.fr_ctx(), [0] * 5, "cpu")) is None
 
 
 @pytest.mark.slow
