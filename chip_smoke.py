@@ -7,7 +7,9 @@ its kernels against its plain PyTorch version.
 
 Phases, each of which ends the run with a non-zero exit code if it fails:
   device   the GPU's name and power limit (nvidia-smi)
-  build    nvcc builds the kernels from spectre_tpu_torch/csrc
+  build    nvcc builds the kernels from spectre_tpu_torch/csrc; prints the
+           SASS instruction count of one Montgomery product (cuobjdump on
+           the probe kernel) and the registers a thread of K1c, K2 and K2b
   K2       complete addition, 2^16 point pairs plus P+P, P+(-P), inf+P and
            inf+inf: equal limb for limb; timed at 2^21 pairs
   K3       Montgomery product at 2^23 elements: equal; timed
@@ -19,12 +21,18 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
            normalization; the plan kernels K1a and K1b equal to their plain
            versions; the wrapper timed, and each of its four kernels under
            torch.profiler
+  K2b      the weighted bucket aggregation at c from default_window_pallas
+           (24 windows of 1024 buckets at n = 2^21), on random projective
+           bucket sums and on K1's own output: equal limb for limb; timed
   msm      the full MSM at n = 2^21 against the host sum of a 2^10 prefix,
            and linear in its scalars
   devices  a K=6 circuit proved on the GPU and on the CPU gives the same bytes
   slice    SRS -> keygen -> prove -> verify at the pinned shape of
            build/sync_step_testnet_21.pinning.json with a seeded flex-gate
-           witness; launch counts of every kernel on that path must be > 0
+           witness; launch counts of every kernel on the prove's path
+           must be > 0 (all but K2, which the prove does not launch: the
+           slice runs it only to make the SRS, and not where the SRS is
+           read from params/)
 
 It prints one JSON line of kernel records, then the device line
 {"ok": true, "device": {...}} last. It imports neither jax nor spectre_tpu.
@@ -87,13 +95,6 @@ def limb_err(F, got, want) -> int:
     return int((got.long() - want.long()).abs().max().item()) if got.numel() else 0
 
 
-# K1's four kernels and the name each has in a profiler trace
-K1_KERNELS = {"K1a_bucket_count": "k1_count_kernel",
-              "K1b_bucket_scatter": "k1_scatter_kernel",
-              "K1c_bucket_walk": "k1_walk_kernel",
-              "K1d_bucket_pieces": "k1_pieces_kernel"}
-
-
 def ntt_bound_ms(batch: int, logn: int) -> tuple[float, str]:
     """K4's bound for a [batch, 2^logn] transform: one read and one write
     of the data plus the twiddle table, against the Montgomery products the
@@ -102,6 +103,19 @@ def ntt_bound_ms(batch: int, logn: int) -> tuple[float, str]:
     n = 1 << logn
     return bound_ms(batch * n * 2 * 32 + n // 2 * 32,
                     batch * (logn - 1) * (n // 2) * IMAD_PER_MONT)
+
+
+def k2b_work(MK, nwin: int, nb: int) -> tuple[int, int]:
+    """(complete adds K2b performs, its chain of dependent adds) for nwin
+    windows of nb buckets (csrc/aggregate.cuh): a thread's walk of its L
+    buckets, 2 (L - 1) adds, and log2 L doublings; at each tree level but
+    the last 4 adds a merge (2 for W, 2 for D), 2 at the last. The chain is
+    the walk, the doublings and 2 adds a level."""
+    T, L = MK.aggregate_geometry(nb)
+    levels = T.bit_length() - 1
+    leaf = 2 * (L - 1) + (L.bit_length() - 1)
+    tree = sum((T >> (k + 1)) * (4 if k + 1 < levels else 2) for k in range(levels))
+    return nwin * (T * leaf + tree), leaf + 2 * levels
 
 
 def k1_bounds(torch, MK, digits, bstart, n: int, nkeys: int, nblk: int) -> dict:
@@ -205,6 +219,8 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda")
     fr, fq = F.fr_ctx(), F.fq_ctx()
+    # K1's four kernels and the name each has in a profiler trace
+    k1_kernels = {k: v.symbol for k, v in KL.KERNELS.items() if k.startswith("K1")}
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     records = {}
 
@@ -225,6 +241,15 @@ def main(argv=None) -> int:
             for line in f:
                 if "registers" in line or "spill" in line:
                     log(f"  ptxas {name}: {line.strip()}")
+    sass = KL.sass_opcodes(KL._target("field_kernels"))
+    probe = next(v for k, v in sass.items() if "mont_mul_probe_kernel" in k)
+    regs = KL.ptxas_registers(os.path.join(KL.BUILD_DIR, "msm_kernels.log"))
+    reg_of = {rec: next(v for k, v in regs.items() if KL.KERNELS[rec].symbol in k)
+              for rec in ("K1c_bucket_walk", "K2_padd", "K2b_bucket_aggregate")}
+    top = sorted(probe.items(), key=lambda kv: -kv[1])[:8]
+    log(f"sass: one Montgomery product (probe kernel, its 16 loads and 8 stores "
+        f"included) {sum(probe.values())} instructions, {dict(top)}; registers a thread "
+        + json.dumps(reg_of))
 
     # test points: tau'^i G on the card
     n_pts = 1 << 21
@@ -234,6 +259,7 @@ def main(argv=None) -> int:
     log(f"points: {n_pts} in {time.perf_counter() - t0:.2f} s")
 
     # --- K2 ------------------------------------------------------------------
+    KL.reset_launch_counts()
     m = 1 << 16
     px, py, pz = ec.aos32_coords(pts[:m])
     neg = ec.coords_to_aos32(px, F.neg(fq, py), pz)
@@ -256,7 +282,10 @@ def main(argv=None) -> int:
     del a2s, b2s
     bm, by = bound_ms(n_pts * 3 * 96, n_pts * IMAD_PER_PADD)
     records["K2_padd"] = dict(ms=k2_ms, plain_ms=k2_plain, bound_ms=bm, bound_by=by,
-                              max_abs_err=k2_err, shape=f"{n_pts} pairs")
+                              max_abs_err=k2_err, shape=f"{n_pts} pairs",
+                              phase_launches=KL.launch_counts()["K2_padd"],
+                              phase_launches_note="launches of K2's own phase; in the slice "
+                                                  "K2 makes the SRS, the prove launches it 0 times")
     log(f"K2: equal on {5 * m} pairs; {n_pts} pairs {k2_ms:.3f} ms "
         f"(plain {k2_plain:.1f} ms, bound {bm:.3f} ms by {by})")
 
@@ -319,7 +348,7 @@ def main(argv=None) -> int:
         "all-zero": torch.zeros((n_pts, 4), dtype=torch.int64, device=dev),
     }
     k1 = {}
-    k1_errs = {name: 0 for name in K1_KERNELS}
+    k1_errs = {name: 0 for name in k1_kernels}
     for name, sc in cases.items():
         digits = M.signed_digit_stream(sc, c, nwin)
         got = MK.bucket_sums(soa, digits, negs, c)
@@ -341,7 +370,7 @@ def main(argv=None) -> int:
         k1_errs["K1b_bucket_scatter"] = max(k1_errs["K1b_bucket_scatter"], e_err)
         wrapper_ms = time_ms(torch, lambda: MK.bucket_sums_aos32(pts, digits, negs, c), reps=3)
         sub_ms = profile_kernels(torch, lambda: MK.bucket_sums_aos32(pts, digits, negs, c),
-                                 K1_KERNELS, reps=2)
+                                 k1_kernels, reps=2)
         plain_sub = {
             "K1a_bucket_count": time_ms(torch, lambda: MK.bucket_counts_plain(digits, nb, P), reps=1),
             "K1b_bucket_scatter": time_ms(torch, lambda: MK.bucket_scatter_plain(digits, negs, nb),
@@ -353,16 +382,18 @@ def main(argv=None) -> int:
         plain_sub["K1d_bucket_pieces"] = None
         bounds = k1_bounds(torch, MK, digits, bstart, n_pts, nkeys, nblk)
         total = bound_ms(sum(b[2] for b in bounds.values()), sum(b[3] for b in bounds.values()))
+        if name == "random":
+            k1_random_sums = MK.bucket_sums_aos32(pts, digits, negs, c)
         k1[name] = dict(ms=wrapper_ms, plain_ms=plain_ms, bound_ms=total[0], bound_by=total[1],
                         adds=int(bstart[-1]) - int((bstart[1:] > bstart[:-1]).sum()),
                         max_abs_err=err, kernels={
                             k: dict(ms=sub_ms[k], plain_ms=plain_sub[k], bound_ms=bounds[k][0],
-                                    bound_by=bounds[k][1]) for k in K1_KERNELS})
+                                    bound_by=bounds[k][1]) for k in k1_kernels})
         log(f"K1 {name}: equal after normalization; wrapper {wrapper_ms:.3f} ms (plain "
             f"{plain_ms:.0f} ms, bound {total[0]:.3f} ms by {total[1]}), c={c} nwin={nwin}; "
-            + ", ".join(f"{k} {sub_ms[k]:.3f} ms (bound {bounds[k][0]:.3f})" for k in K1_KERNELS))
+            + ", ".join(f"{k} {sub_ms[k]:.3f} ms (bound {bounds[k][0]:.3f})" for k in k1_kernels))
         del got, want, entries, entries_plain
-    for k in K1_KERNELS:
+    for k in k1_kernels:
         rnd = k1["random"]["kernels"][k]
         records[k] = dict(ms=rnd["ms"], plain_ms=rnd["plain_ms"], bound_ms=rnd["bound_ms"],
                           bound_by=rnd["bound_by"], max_abs_err=k1_errs[k],
@@ -374,6 +405,33 @@ def main(argv=None) -> int:
         name: {key: v[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "adds")}
         for name, v in k1.items()}
     del cases
+
+    # --- K2b -------------------------------------------------------------------
+    nrows = nwin * nb
+    rnd_sums = MK.padd_aos32(pts[:nrows], pts[nrows:2 * nrows])    # Z != 1
+    rnd_sums[::9] = ec.inf_aos32(1, dev)                           # empty buckets
+    k2b_err = 0
+    for what, sums in (("random", rnd_sums), ("K1 output", k1_random_sums)):
+        err = limb_err(F, MK.aggregate_buckets_aos32(sums, nwin, nb),
+                       MK.aggregate_buckets_plain(sums, nwin, nb))
+        require(err == 0, f"K2b equals its plain version limb for limb ({what})")
+        k2b_err = max(k2b_err, err)
+    k2b_ms = time_ms(torch, lambda: MK.aggregate_buckets_aos32(rnd_sums, nwin, nb), reps=10)
+    k2b_plain = time_ms(torch, lambda: MK.aggregate_buckets_plain(rnd_sums, nwin, nb), reps=1)
+    # the function needs 2 (nb - 1) adds a window (running sums R += B_b,
+    # T += R); the kernel's own adds and chain are reported beside the bound
+    need = nwin * 2 * (nb - 1)
+    adds, chain = k2b_work(MK, nwin, nb)
+    bm, by = bound_ms(nrows * 96 + nwin * 96, need * IMAD_PER_PADD)
+    T, L = MK.aggregate_geometry(nb)
+    records["K2b_bucket_aggregate"] = dict(
+        ms=k2b_ms, plain_ms=k2b_plain, bound_ms=bm, bound_by=by, max_abs_err=k2b_err,
+        shape=f"nwin={nwin} nb={nb} (c={c}), {T} threads x {L} buckets a window",
+        bound_adds=need, adds=adds, dependent_adds=chain)
+    log(f"K2b: equal on random sums and on K1's output; {nwin} x {nb} buckets {k2b_ms:.3f} ms "
+        f"(plain {k2b_plain:.1f} ms, bound {bm:.4f} ms by {by} from {need} adds; the kernel "
+        f"makes {adds} adds, a chain of {chain} dependent adds)")
+    del rnd_sums, k1_random_sums
 
     # --- msm -----------------------------------------------------------------
     sc = F.to_mont(fr, random_fr(torch, n_pts, gen, dev))
@@ -442,7 +500,8 @@ def main(argv=None) -> int:
     log(f"  proof {len(proof)} bytes, verified; peak device memory {peak:.1f} GiB")
     log(f"  launches: {json.dumps(counts)}")
     for name, cnt in counts.items():
-        require(cnt > 0, f"{name} launched on the slice's path")
+        if name != "K2_padd":
+            require(cnt > 0, f"{name} launched on the slice's path")
 
     kernels = []
     for name, info in KL.KERNELS.items():

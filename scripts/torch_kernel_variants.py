@@ -1,19 +1,26 @@
 #!/usr/bin/env python3
 """Time variants of the port's CUDA kernels against the sources as they are.
 
-    python3 scripts/torch_kernel_variants.py      # on a CUDA machine
+    python3 scripts/torch_kernel_variants.py             # every variant
+    python3 scripts/torch_kernel_variants.py product K2  # names holding one of these
 
-Each variant is a copy of spectre_tpu_torch/csrc with one or two lines
-edited (a launch bound, the walk's segment length or staging, the portable
-add, sub and mont_mul in place of the PTX carry chains) or a Python-side
-constant changed (the NTT's pass plan, the
-K1 plan's points per block). All copies are built at once with the flags of
-ops/kernel_lib.py into build/kernel_variants/, and each variant runs in
-this one process on the same inputs: K1 at n = 2^21 (random and all-equal
-scalars, checked against the sources' own result after normalization), K4
-at 2^23 and [16, 2^21] (checked exactly), K2 at 2^21 pairs and K3 at 2^23.
-Prints the card's name and power limit, then one JSON line per variant
-with CUDA-event milliseconds. Exits non-zero without CUDA.
+Each variant is a copy of spectre_tpu_torch/csrc with a few lines or one
+function edited (a launch bound, a block size, the walk's segment length or
+staging depth, the point loads, the Montgomery product of the parent
+revision, the unrolling of the complete add's products, the portable add
+and sub in place of the PTX carry chains)
+or a Python-side constant changed (the NTT's pass plan, the K1 plan's
+points per block, K2b's threads a window). All copies are built at once
+with the flags of ops/kernel_lib.py into build/kernel_variants/, and each
+variant runs in this one process on the same inputs: K1 at n = 2^21
+(random and all-equal scalars, checked against the sources' own result
+after normalization), K4 at 2^23 (checked exactly) and [16, 2^21], K2 at
+2^21 pairs, K2b on 24 windows of 1024 projective bucket sums (checked
+after normalization: another geometry adds in another order) and K3 at
+2^23. Prints the card's name and power limit, then one
+JSON line per variant with CUDA-event milliseconds, the SASS instruction
+count of the product's probe kernel and the registers a thread of K1c, K2
+and K2b. Exits non-zero without CUDA.
 """
 
 from __future__ import annotations
@@ -27,48 +34,273 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# (name, nvcc flags, [(file, old text, new text)], {python constant: value})
+# The Montgomery product of the parent revision (PR 2): CIOS with one
+# mad.lo.cc / madc.hi.cc carry chain per half-row, its host path the
+# portable 64-bit CIOS; straight-line code whatever STEP asks.
+PR2_PRODUCT_DEV = r'''// CIOS, 8 rounds: t += a * b[i] (low halves into t[0..7], high halves into
+// t[1..8], carries into t[8], t[9]), m = t[0] * n0, t += m * p the same
+// way (t[0] becomes 0), shift down one limb.
+template <int F> __device__ __forceinline__ Fe mont_mul_dev(const Fe& a, const Fe& b) {
+  uint32_t t0 = 0, t1 = 0, t2 = 0, t3 = 0, t4 = 0, t5 = 0, t6 = 0, t7 = 0, t8 = 0,
+           t9 = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const uint32_t bi = b.v[i];
+    asm("mad.lo.cc.u32 %0, %10, %18, %0;\n\t"
+        "madc.lo.cc.u32 %1, %11, %18, %1;\n\t"
+        "madc.lo.cc.u32 %2, %12, %18, %2;\n\t"
+        "madc.lo.cc.u32 %3, %13, %18, %3;\n\t"
+        "madc.lo.cc.u32 %4, %14, %18, %4;\n\t"
+        "madc.lo.cc.u32 %5, %15, %18, %5;\n\t"
+        "madc.lo.cc.u32 %6, %16, %18, %6;\n\t"
+        "madc.lo.cc.u32 %7, %17, %18, %7;\n\t"
+        "addc.cc.u32 %8, %8, 0;\n\t"
+        "addc.u32 %9, %9, 0;\n\t"
+        "mad.hi.cc.u32 %1, %10, %18, %1;\n\t"
+        "madc.hi.cc.u32 %2, %11, %18, %2;\n\t"
+        "madc.hi.cc.u32 %3, %12, %18, %3;\n\t"
+        "madc.hi.cc.u32 %4, %13, %18, %4;\n\t"
+        "madc.hi.cc.u32 %5, %14, %18, %5;\n\t"
+        "madc.hi.cc.u32 %6, %15, %18, %6;\n\t"
+        "madc.hi.cc.u32 %7, %16, %18, %7;\n\t"
+        "madc.hi.cc.u32 %8, %17, %18, %8;\n\t"
+        "addc.u32 %9, %9, 0;"
+        : "+r"(t0), "+r"(t1), "+r"(t2), "+r"(t3), "+r"(t4), "+r"(t5), "+r"(t6), "+r"(t7), "+r"(t8), "+r"(t9)
+        : "r"(a.v[0]), "r"(a.v[1]), "r"(a.v[2]), "r"(a.v[3]), "r"(a.v[4]), "r"(a.v[5]), "r"(a.v[6]), "r"(a.v[7]), "r"(bi));
+    const uint32_t m = t0 * Consts<F>::n0;
+    asm("mad.lo.cc.u32 %0, %10, %18, %0;\n\t"
+        "madc.lo.cc.u32 %1, %11, %18, %1;\n\t"
+        "madc.lo.cc.u32 %2, %12, %18, %2;\n\t"
+        "madc.lo.cc.u32 %3, %13, %18, %3;\n\t"
+        "madc.lo.cc.u32 %4, %14, %18, %4;\n\t"
+        "madc.lo.cc.u32 %5, %15, %18, %5;\n\t"
+        "madc.lo.cc.u32 %6, %16, %18, %6;\n\t"
+        "madc.lo.cc.u32 %7, %17, %18, %7;\n\t"
+        "addc.cc.u32 %8, %8, 0;\n\t"
+        "addc.u32 %9, %9, 0;\n\t"
+        "mad.hi.cc.u32 %1, %10, %18, %1;\n\t"
+        "madc.hi.cc.u32 %2, %11, %18, %2;\n\t"
+        "madc.hi.cc.u32 %3, %12, %18, %3;\n\t"
+        "madc.hi.cc.u32 %4, %13, %18, %4;\n\t"
+        "madc.hi.cc.u32 %5, %14, %18, %5;\n\t"
+        "madc.hi.cc.u32 %6, %15, %18, %6;\n\t"
+        "madc.hi.cc.u32 %7, %16, %18, %7;\n\t"
+        "madc.hi.cc.u32 %8, %17, %18, %8;\n\t"
+        "addc.u32 %9, %9, 0;"
+        : "+r"(t0), "+r"(t1), "+r"(t2), "+r"(t3), "+r"(t4), "+r"(t5), "+r"(t6), "+r"(t7), "+r"(t8), "+r"(t9)
+        : "r"(Consts<F>::p(0)), "r"(Consts<F>::p(1)), "r"(Consts<F>::p(2)), "r"(Consts<F>::p(3)), "r"(Consts<F>::p(4)), "r"(Consts<F>::p(5)), "r"(Consts<F>::p(6)), "r"(Consts<F>::p(7)), "r"(m));
+    t0 = t1; t1 = t2; t2 = t3; t3 = t4; t4 = t5; t5 = t6; t6 = t7; t7 = t8; t8 = t9;
+    t9 = 0;
+  }
+  Fe r;
+  r.v[0] = t0; r.v[1] = t1; r.v[2] = t2; r.v[3] = t3;
+  r.v[4] = t4; r.v[5] = t5; r.v[6] = t6; r.v[7] = t7;
+  return cond_sub_p<F>(r);  // p < R/4: the result is < 2p, t8 == 0
+}
+'''
+PR2_PRODUCT = r'''// CIOS Montgomery product a * b * 2^-256 mod p: 8 rounds, each one row of
+// 32x32->64 products of a by b[i] and one row of m*p.
+template <int F, int STEP = 8> SPT_HD Fe mont_mul(const Fe& a, const Fe& b) {
+#if defined(__CUDA_ARCH__)
+  return mont_mul_dev<F>(a, b);
+#else
+  uint32_t t[10];
+#pragma unroll
+  for (int i = 0; i < 10; ++i) t[i] = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      uint64_t cur = (uint64_t)a.v[j] * b.v[i] + t[j] + c;
+      t[j] = (uint32_t)cur;
+      c = cur >> 32;
+    }
+    uint64_t cur = (uint64_t)t[8] + c;
+    t[8] = (uint32_t)cur;
+    t[9] = (uint32_t)(cur >> 32);
+    uint32_t m = t[0] * Consts<F>::n0;
+    cur = (uint64_t)m * Consts<F>::p(0) + t[0];
+    c = cur >> 32;
+#pragma unroll
+    for (int j = 1; j < 8; ++j) {
+      cur = (uint64_t)m * Consts<F>::p(j) + t[j] + c;
+      t[j - 1] = (uint32_t)cur;
+      c = cur >> 32;
+    }
+    cur = (uint64_t)t[8] + c;
+    t[7] = (uint32_t)cur;
+    t[8] = t[9] + (uint32_t)(cur >> 32);
+  }
+  Fe r;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) r.v[i] = t[i];
+  return cond_sub_p<F>(r);  // p < R/4: the result is < 2p, t[8] == 0
+#endif
+}
+
+'''
+
+# K1's walk with K1_STAGE_AHEAD points in flight ahead of the one it adds:
+# its slots used as a ring, the wait_group immediate chosen by a switch.
+# Replaces bucket.cuh from k1_staged_point up to the walk's first use of p.
+K1_RING_WALK = r'''SPT_HD Point k1_staged_point(const uint32_t* slot, int32_t e, int pending) {
+  Point p;
+#if defined(__CUDA_ARCH__)
+  static_assert(K1_STAGE_AHEAD <= 3, "wait_group takes an immediate");
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;" ::: "memory"); break;
+  }
+#else
+  (void)pending;
+#endif
+  p = load_point(slot);
+  return e < 0 ? neg(p) : p;
+}
+
+// Thread t of walk block blk: walk entries [s, min(s + SEG, E)). `stage` is
+// the thread's K1_STAGE_AHEAD + 1 point slots, used as a ring: while the
+// point of entry pos is added, those of pos + 1 .. pos + K1_STAGE_AHEAD are
+// on their way into the others, and the entry after them is being read.
+SPT_HD void k1_walk_thread(long blk, long t, const uint32_t* pts,
+                           const int32_t* entries, const int32_t* bstart,
+                           int nkeys, uint32_t* out, K1Node* node,
+                           uint32_t* stage) {
+  constexpr int NS = K1_STAGE_AHEAD + 1;
+  const long E = bstart[nkeys];
+  const long s = blk * K1_BLOCK_ENTRIES + t * K1_SEG;
+  const long e_end = s + K1_SEG < E ? s + K1_SEG : E;
+  node->valid = s < E;
+  if (!node->valid) return;
+  int32_t ahead[NS];                   // entries pos .. pos + K1_STAGE_AHEAD
+#pragma unroll
+  for (int k = 0; k < NS; ++k) {
+    ahead[k] = s + k < e_end ? entries[s + k] : 0;
+    if (s + k < e_end) k1_stage(stage + 24 * k, pts, ahead[k]);
+  }
+  int32_t upcoming = s + NS < e_end ? entries[s + NS] : 0;
+  int key = k1_find_key(bstart, 0, nkeys - 1, s);
+  long bend = bstart[key + 1];
+  const long last = e_end - 1;
+  Point acc = k1_staged_point(stage, ahead[0],
+                              (int)(last - s < K1_STAGE_AHEAD ? last - s : K1_STAGE_AHEAD));
+  int runs = 0;
+  for (long pos = s + 1; pos < e_end; ++pos) {
+#pragma unroll
+    for (int k = 0; k < K1_STAGE_AHEAD; ++k) ahead[k] = ahead[k + 1];
+    const long q = pos + K1_STAGE_AHEAD;
+    if (q < e_end) {   // into the slot of the point just added
+      ahead[K1_STAGE_AHEAD] = upcoming;
+      k1_stage(stage + 24 * ((q - s) % NS), pts, upcoming);
+      upcoming = q + 1 < e_end ? entries[q + 1] : 0;
+    }
+    const Point p = k1_staged_point(
+        stage + 24 * ((pos - s) % NS), ahead[0],
+        (int)(last - pos < K1_STAGE_AHEAD ? last - pos : K1_STAGE_AHEAD));
+'''
+
+
+def _k1_stage_ahead(d: int) -> list:
+    """The edits of bucket.cuh for a K1 walk with d points in flight."""
+    return [("bucket.cuh", "constexpr int K1_STAGE_WORDS = 52;",
+             f"constexpr int K1_STAGE_AHEAD = {d};\n"
+             "constexpr int K1_STAGE_WORDS = 24 * (K1_STAGE_AHEAD + 1) + 4;"),
+            ("bucket.cuh", ("SPT_HD Point k1_staged_point(", "    if (pos < bend) {"),
+             K1_RING_WALK)]
+
+
+# (name, [(file, old text, new text) | (file, (first, last), new text)],
+#  {python constant: value}); a (first, last) pair replaces the text from
+# `first` up to, not including, `last`.
 VARIANTS = [
-    ("as built", [], [], {}),
-    ("K1 walk at 4 blocks an SM", [], [(
+    ("as built", [], {}),
+    ("PR 2 product (PTX CIOS, mad.lo.cc / madc.hi.cc chains)", [
+        ("bn254.cuh", ("// One round of the product on the card", "#endif\n\ntemplate <int F> SPT_HD Fe add("),
+         PR2_PRODUCT_DEV),
+        ("bn254.cuh", ("// Montgomery product a * b * 2^-256 mod p, CIOS", "template <int F> SPT_HD Fe zero() {"),
+         PR2_PRODUCT)], {}),
+    ("complete add's products in straight-line code (STEP 8)", [
+        ("bn254.cuh", "template <int STEP = 2> SPT_HD Point padd(",
+         "template <int STEP = 8> SPT_HD Point padd(")], {}),
+    ("complete add's products one round a loop pass (STEP 1)", [
+        ("bn254.cuh", "template <int STEP = 2> SPT_HD Point padd(",
+         "template <int STEP = 1> SPT_HD Point padd(")], {}),
+    ("every product two rounds a loop pass (K3 and K4 too)", [
+        ("bn254.cuh", "template <int F, int STEP = 8> SPT_HD Fe mont_mul(",
+         "template <int F, int STEP = 2> SPT_HD Fe mont_mul(")], {}),
+    ("complete add not inlined", [
+        ("bn254.cuh", "template <int STEP = 2> SPT_HD Point padd(",
+         "template <int STEP = 2> __host__ __device__ __noinline__ Point padd(")], {}),
+    ("no PTX carry chains in add and sub", [
+        ("bn254.cuh", "#if defined(__CUDA_ARCH__)\n  return add_dev", "#if 0\n  return add_dev"),
+        ("bn254.cuh", "#if defined(__CUDA_ARCH__)\n  return sub_dev", "#if 0\n  return sub_dev")], {}),
+    ("4-byte point loads and stores", [
+        ("bn254.cuh", "#if defined(__CUDA_ARCH__)\n  const uint4* q = reinterpret_cast<const uint4*>(src);",
+         "#if 0\n  const uint4* q = reinterpret_cast<const uint4*>(src);"),
+        ("bn254.cuh", "#if defined(__CUDA_ARCH__)\n  uint4* q = reinterpret_cast<uint4*>(dst);",
+         "#if 0\n  uint4* q = reinterpret_cast<uint4*>(dst);")], {}),
+    ("K2 at 128 threads a block", [
+        ("msm_kernels.cu", "constexpr int kPaddThreads = 256;", "constexpr int kPaddThreads = 128;")], {}),
+    ("K2 launch bound of one block an SM (up to 255 registers)", [
+        ("msm_kernels.cu", "__global__ void padd_kernel(",
+         "__global__ void __launch_bounds__(256, 1) padd_kernel(")], {}),
+    ("K2b at 256 threads a window", [
+        ("aggregate.cuh", "K2B_THREADS = 128", "K2B_THREADS = 256")], {"K2B_THREADS": 256}),
+    ("K2b at 64 threads a window", [
+        ("aggregate.cuh", "K2B_THREADS = 128", "K2B_THREADS = 64")], {"K2B_THREADS": 64}),
+    ("K1 walk at 4 blocks an SM", [(
         "msm_kernels.cu", "__launch_bounds__(spt::K1_THREADS, 3)",
         "__launch_bounds__(spt::K1_THREADS, 4)")], {}),
-    ("K1 walk slots filled by plain loads", [], [
+    ("K1 walk slots filled by plain loads", [
         ("bucket.cuh", "#if defined(__CUDA_ARCH__)\n  const uint32_t dst", "#if 0\n  const uint32_t dst"),
         ("bucket.cuh", "#if defined(__CUDA_ARCH__)\n  if (pending)", "#if 0\n  if (pending)")], {}),
-    ("K1 walk without its tree (timing only: its sums are wrong)", [], [(
+    ("K1 walk with two points in flight ahead", _k1_stage_ahead(2), {}),
+    ("K1 walk with three points in flight ahead", _k1_stage_ahead(3), {}),
+    ("K1 walk without its tree (timing only: its sums are wrong)", [(
         "msm_kernels.cu",
         "    if ((t & (2 * d - 1)) == 0) spt::k1_merge(&nodes[t], &nodes[t + d], out);\n",
         "")], {}),
-    ("K1 segments of 16", [], [("bucket.cuh", "K1_SEG = 32", "K1_SEG = 16")], {}),
-    ("K1 segments of 64", [], [("bucket.cuh", "K1_SEG = 32", "K1_SEG = 64")], {}),
-    ("K1 plan blocks of 2^16 points", [], [], {"PLAN_POINTS": 1 << 16}),
-    ("no PTX carry chains", [], [
-        ("bn254.cuh", f"#if defined(__CUDA_ARCH__)\n  return {fn}_dev", f"#if 0\n  return {fn}_dev")
-        for fn in ("add", "sub", "mont_mul")], {}),
-    ("K4 plan tmax 11, tiles 2^11", [], [], {"TMAX": 11, "TILE_LOG": 11}),
-    ("K4 plan tmax 11, tiles 2^10", [], [], {"TMAX": 11, "TILE_LOG": 10}),
-    ("K4 plan tmax 12, tiles 2^12", [], [], {"TMAX": 12, "TILE_LOG": 12}),
-    ("K4 512 threads", [], [("field_kernels.cu", "constexpr int kThreads = 256;",
-                             "constexpr int kThreads = 512;")], {}),
+    ("K1 segments of 16", [("bucket.cuh", "K1_SEG = 32", "K1_SEG = 16")], {}),
+    ("K1 segments of 64", [("bucket.cuh", "K1_SEG = 32", "K1_SEG = 64")], {}),
+    ("K1 plan blocks of 2^16 points", [], {"PLAN_POINTS": 1 << 16}),
+    ("K4 plan tmax 11, tiles 2^11", [], {"TMAX": 11, "TILE_LOG": 11}),
+    ("K4 plan tmax 11, tiles 2^10", [], {"TMAX": 11, "TILE_LOG": 10}),
+    ("K4 plan tmax 12, tiles 2^12", [], {"TMAX": 12, "TILE_LOG": 12}),
+    ("K4 512 threads", [("field_kernels.cu", "constexpr int kThreads = 256;",
+                         "constexpr int kThreads = 512;")], {}),
 ]
 
 
-def _build(KL, root: str) -> None:
+def _edit(text: str, old, new: str, where: str) -> str:
+    if isinstance(old, tuple):
+        first, last = old
+        a = text.find(first)
+        b = text.find(last, a)
+        if a < 0 or b < 0:
+            raise RuntimeError(f"{where}: {first!r} .. {last!r} not found")
+        return text[:a] + new + text[b:]
+    if old not in text:
+        raise RuntimeError(f"{where}: {old!r} not found")
+    return text.replace(old, new)
+
+
+def _build(KL, root: str, chosen) -> None:
     procs = []
-    for i, (_, flags, edits, _) in enumerate(VARIANTS):
+    for i in chosen:
+        _, edits, _ = VARIANTS[i]
         d = os.path.join(root, str(i))
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(KL.CSRC, d)
         for f, old, new in edits:
             path = os.path.join(d, f)
-            text = open(path).read()
-            if old not in text:
-                raise RuntimeError(f"variant {i}: {old!r} not in {f}")
+            text = _edit(open(path).read(), old, new, f"variant {i}, {f}")
             with open(path, "w") as fh:
-                fh.write(text.replace(old, new))
+                fh.write(text)
         for lib in KL.LIBRARIES:
-            cmd = [KL._nvcc(), *KL.NVCC_FLAGS, *flags, "-I", d, "-o",
+            cmd = [KL._nvcc(), *KL.NVCC_FLAGS, "-I", d, "-o",
                    os.path.join(d, f"{lib}.so"), os.path.join(d, f"{lib}.cu")]
             log = open(os.path.join(d, f"{lib}.log"), "w")
             procs.append((subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), log, cmd))
@@ -76,7 +308,9 @@ def _build(KL, root: str) -> None:
         rc = proc.wait()
         log.close()
         if rc:
-            raise RuntimeError(f"nvcc failed: {' '.join(cmd)}")
+            with open(log.name) as fh:
+                tail = fh.read()[-3000:]
+            raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{tail}")
 
 
 def _use(KL, d: str) -> None:
@@ -88,7 +322,20 @@ def _use(KL, d: str) -> None:
         KL._loaded[lib] = h
 
 
-def main() -> int:
+def _static(KL, d: str) -> dict:
+    """The probe kernel's SASS instruction count and the registers of the
+    K1c, K2 and K2b kernels of one build."""
+    sass = KL.sass_opcodes(os.path.join(d, "field_kernels.so"))
+    probe = next(v for k, v in sass.items() if "mont_mul_probe_kernel" in k)
+    regs = KL.ptxas_registers(os.path.join(d, "msm_kernels.log"))
+    out = {"product SASS": sum(probe.values())}
+    for rec, sym in (("K1c", "k1_walk_kernel"), ("K2", "padd_kernel"),
+                     ("K2b", "k2b_aggregate_kernel")):
+        out[f"{rec} registers"] = next(v for k, v in regs.items() if sym in k)
+    return out
+
+
+def main(argv=None) -> int:
     import torch
     if not torch.cuda.is_available():
         print("torch_kernel_variants: no CUDA device", file=sys.stderr)
@@ -99,11 +346,14 @@ def main() -> int:
                                        msm_kernels as MK, ntt as N)
     from spectre_tpu_torch.plonk.srs import g1_powers_device
 
+    want = sys.argv[1:] if argv is None else argv
+    chosen = [i for i, (name, _, _) in enumerate(VARIANTS)
+              if i == 0 or not want or any(w in name for w in want)]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(f"gpu: {smi}", flush=True)
     root = os.path.join(os.path.dirname(KL.BUILD_DIR), "kernel_variants")
-    _build(KL, root)
+    _build(KL, root, chosen)
     dev = torch.device("cuda")
     fr = F.fr_ctx()
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -128,8 +378,9 @@ def main() -> int:
     n = 1 << 21
     pts = g1_powers_device(12345, n, dev)
     c = M.default_window_pallas(n)
+    nwin, nb = M.num_windows(c), 1 << (c - 1)
     negs = torch.zeros((1, n), dtype=torch.int32, device=dev)
-    digits = {k: M.signed_digit_stream(sc, c, M.num_windows(c))
+    digits = {k: M.signed_digit_stream(sc, c, nwin)
               for k, sc in (("random", rnd(n)), ("all-equal", rnd(1).repeat(n, 1)))}
     tables = N.Twiddles(dev)
     x23 = F.to_mont(fr, rnd(1 << 23)).reshape(1, 1 << 23, 4)
@@ -137,10 +388,14 @@ def main() -> int:
     xb = F.to_mont(fr, rnd(16 << 21)).reshape(16, 1 << 21, 4)
     twb = tables.twiddles(bn254.fr_root_of_unity(21), 1 << 21)
     a2, b2 = pts, torch.roll(pts, 1, 0)
+    _use(KL, os.path.join(root, "0"))
     ref_k1 = {k: ec.normalize_std(MK.bucket_sums_aos32(pts, d, negs, c)) for k, d in digits.items()}
     ref_k4 = N.ntt_passes(x23, tw23)
-    consts = {"PLAN_POINTS": MK, "TMAX": N, "TILE_LOG": N}
-    for i, (name, _, _, pyconst) in enumerate(VARIANTS):
+    sums = MK.padd_aos32(pts[:nwin * nb], pts[nwin * nb:2 * nwin * nb])
+    ref_k2b = ec.normalize_std(MK.aggregate_buckets_aos32(sums, nwin, nb))
+    consts = {"PLAN_POINTS": MK, "TMAX": N, "TILE_LOG": N, "K2B_THREADS": MK}
+    for i in chosen:
+        name, _, pyconst = VARIANTS[i]
         _use(KL, os.path.join(root, str(i)))
         saved = {k: getattr(consts[k], k) for k in pyconst}
         for k, v in pyconst.items():
@@ -148,7 +403,7 @@ def main() -> int:
         plan = N.ntt_plan
         N.ntt_plan = lambda logn, f=plan: f(logn, N.TMAX, N.TILE_LOG)
         try:
-            row = {"variant": name}
+            row = {"variant": name, **_static(KL, os.path.join(root, str(i)))}
             for k, d in digits.items():
                 same = torch.equal(ec.normalize_std(MK.bucket_sums_aos32(pts, d, negs, c)), ref_k1[k])
                 row[f"K1 {k} ms"] = ms(lambda: MK.bucket_sums_aos32(pts, d, negs, c), 3)
@@ -158,6 +413,9 @@ def main() -> int:
             row["K4 16x2^21 ms"] = ms(lambda: N.ntt_passes(xb, twb), 3)
             row["K4 passes 2^23"] = N.ntt_plan(23)
             row["K2 2^21 ms"] = ms(lambda: MK.padd_aos32(a2, b2), 5)
+            row["K2b equal"] = bool(torch.equal(
+                ec.normalize_std(MK.aggregate_buckets_aos32(sums, nwin, nb)), ref_k2b))
+            row["K2b 24x1024 ms"] = ms(lambda: MK.aggregate_buckets_aos32(sums, nwin, nb), 10)
             row["K3 2^23 ms"] = ms(lambda: F.mont_mul(fr, x23.reshape(-1, 4), ref_k4.reshape(-1, 4)), 10)
         finally:
             N.ntt_plan = plan

@@ -8,8 +8,9 @@ Builds the kernels, sets up the SRS and the key for the seeded flex-gate
 witness at the pinned shape of build/sync_step_testnet_21.pinning.json,
 proves once untraced (per-phase seconds), then once more under
 torch.profiler. Prints the device's busy and idle share of the traced
-prove, its device time by kernel, and per-phase seconds, then the same as
-one JSON line. Exits non-zero without CUDA.
+prove, per-phase seconds, the device time and launches of each of the
+port's kernels, the top device rows by time, then the same as one JSON
+line. Exits non-zero without CUDA.
 """
 
 from __future__ import annotations
@@ -87,16 +88,23 @@ def main(argv=None) -> int:
         busy_us += dev_us
         rows.append((dev_us, ev.count, ev.key))
     rows.sort(reverse=True)
+    # the port's own kernels, each whether or not it is among the top rows
+    ours = {name: {"device_ms": sum(us for us, _, key in rows if info.symbol in key) / 1e3,
+                   "count": sum(n for _, n, key in rows if info.symbol in key)}
+            for name, info in KL.KERNELS.items()}
     out = {
         "gpu": smi, "k": cfg.k, "prove_s_untraced": untraced, "prove_s_traced": traced,
         "device_busy_s": busy_us / 1e6, "device_busy_share": busy_us / 1e6 / traced,
         "phases_s": timer.seconds,
+        "kernels": ours,
         "top": [{"device_ms": us / 1e3, "count": n, "name": name[:120]}
                 for us, n, name in rows[:25]],
     }
     print(f"prove {untraced:.3f} s untraced, {traced:.3f} s traced; device busy "
           f"{busy_us / 1e6:.3f} s ({100 * out['device_busy_share']:.1f}% of the traced prove)")
     print("phases (s): " + json.dumps({k: round(v, 3) for k, v in timer.seconds.items()}))
+    for name, r in ours.items():
+        print(f"  {r['device_ms']:10.1f} ms {r['count']:7d}  {name}")
     for r in out["top"]:
         print(f"  {r['device_ms']:10.1f} ms {r['count']:7d}  {r['name']}")
     print(json.dumps(out), flush=True)

@@ -1,13 +1,14 @@
 // BN254 Montgomery arithmetic and the complete projective G1 addition,
 // shared by the port's CUDA kernels (msm_kernels.cu, field_kernels.cu and
-// the per-block bodies in bucket.cuh and ntt.cuh).
+// the per-block bodies in bucket.cuh, aggregate.cuh and ntt.cuh).
 //
 // Everything here is __host__ __device__: the same per-element bodies the
 // kernels launch can be compiled by a host C++ compiler and checked against
-// the Python oracle without a GPU. add, sub and mont_mul have a second,
-// PTX carry-chain body for the card (`__CUDA_ARCH__`); the host build checks
-// the portable one, and the card's kernels are held against the plain
-// PyTorch versions by tests/test_torch_cuda.py and chip_smoke.py.
+// the Python oracle without a GPU. add and sub have a second, PTX
+// carry-chain body for the card (`__CUDA_ARCH__`); mont_mul runs the same
+// rows and carry chains on both, its chains in PTX on the card. The card's
+// kernels are held against the plain PyTorch versions by
+// tests/test_torch_cuda.py and chip_smoke.py.
 //
 // Values are 8 little-endian 32-bit limbs in Montgomery form with radix
 // R = 2^256, the radix of the JAX reference's 16 x 16-bit limbs: a reference
@@ -90,8 +91,8 @@ template <int F> SPT_HD Fe cond_sub_p(const Fe& a) {
 }
 
 #if defined(__CUDA_ARCH__)
-// The card's versions of add, sub and mont_mul: the same values, with the
-// limb carries in the PTX carry flag (add.cc / addc, mad.lo.cc / madc.hi.cc)
+// The card's versions of add and sub, and the carry chains of mont_mul: the
+// same values, with the limb carries in the PTX carry flag (add.cc / addc)
 // instead of 64-bit sums; each carry chain is one asm statement, so nothing
 // can come between its instructions.
 
@@ -153,65 +154,50 @@ template <int F> __device__ __forceinline__ Fe sub_dev(const Fe& a, const Fe& b)
   return r;  // a - b, plus p where it borrowed
 }
 
-// CIOS, 8 rounds: t += a * b[i] (low halves into t[0..7], high halves into
-// t[1..8], carries into t[8], t[9]), m = t[0] * n0, t += m * p the same
-// way (t[0] becomes 0), shift down one limb.
-template <int F> __device__ __forceinline__ Fe mont_mul_dev(const Fe& a, const Fe& b) {
-  uint32_t t0 = 0, t1 = 0, t2 = 0, t3 = 0, t4 = 0, t5 = 0, t6 = 0, t7 = 0, t8 = 0,
-           t9 = 0;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const uint32_t bi = b.v[i];
-    asm("mad.lo.cc.u32 %0, %10, %18, %0;\n\t"
-        "madc.lo.cc.u32 %1, %11, %18, %1;\n\t"
-        "madc.lo.cc.u32 %2, %12, %18, %2;\n\t"
-        "madc.lo.cc.u32 %3, %13, %18, %3;\n\t"
-        "madc.lo.cc.u32 %4, %14, %18, %4;\n\t"
-        "madc.lo.cc.u32 %5, %15, %18, %5;\n\t"
-        "madc.lo.cc.u32 %6, %16, %18, %6;\n\t"
-        "madc.lo.cc.u32 %7, %17, %18, %7;\n\t"
-        "addc.cc.u32 %8, %8, 0;\n\t"
-        "addc.u32 %9, %9, 0;\n\t"
-        "mad.hi.cc.u32 %1, %10, %18, %1;\n\t"
-        "madc.hi.cc.u32 %2, %11, %18, %2;\n\t"
-        "madc.hi.cc.u32 %3, %12, %18, %3;\n\t"
-        "madc.hi.cc.u32 %4, %13, %18, %4;\n\t"
-        "madc.hi.cc.u32 %5, %14, %18, %5;\n\t"
-        "madc.hi.cc.u32 %6, %15, %18, %6;\n\t"
-        "madc.hi.cc.u32 %7, %16, %18, %7;\n\t"
-        "madc.hi.cc.u32 %8, %17, %18, %8;\n\t"
-        "addc.u32 %9, %9, 0;"
-        : "+r"(t0), "+r"(t1), "+r"(t2), "+r"(t3), "+r"(t4), "+r"(t5), "+r"(t6), "+r"(t7), "+r"(t8), "+r"(t9)
-        : "r"(a.v[0]), "r"(a.v[1]), "r"(a.v[2]), "r"(a.v[3]), "r"(a.v[4]), "r"(a.v[5]), "r"(a.v[6]), "r"(a.v[7]), "r"(bi));
-    const uint32_t m = t0 * Consts<F>::n0;
-    asm("mad.lo.cc.u32 %0, %10, %18, %0;\n\t"
-        "madc.lo.cc.u32 %1, %11, %18, %1;\n\t"
-        "madc.lo.cc.u32 %2, %12, %18, %2;\n\t"
-        "madc.lo.cc.u32 %3, %13, %18, %3;\n\t"
-        "madc.lo.cc.u32 %4, %14, %18, %4;\n\t"
-        "madc.lo.cc.u32 %5, %15, %18, %5;\n\t"
-        "madc.lo.cc.u32 %6, %16, %18, %6;\n\t"
-        "madc.lo.cc.u32 %7, %17, %18, %7;\n\t"
-        "addc.cc.u32 %8, %8, 0;\n\t"
-        "addc.u32 %9, %9, 0;\n\t"
-        "mad.hi.cc.u32 %1, %10, %18, %1;\n\t"
-        "madc.hi.cc.u32 %2, %11, %18, %2;\n\t"
-        "madc.hi.cc.u32 %3, %12, %18, %3;\n\t"
-        "madc.hi.cc.u32 %4, %13, %18, %4;\n\t"
-        "madc.hi.cc.u32 %5, %14, %18, %5;\n\t"
-        "madc.hi.cc.u32 %6, %15, %18, %6;\n\t"
-        "madc.hi.cc.u32 %7, %16, %18, %7;\n\t"
-        "madc.hi.cc.u32 %8, %17, %18, %8;\n\t"
-        "addc.u32 %9, %9, 0;"
-        : "+r"(t0), "+r"(t1), "+r"(t2), "+r"(t3), "+r"(t4), "+r"(t5), "+r"(t6), "+r"(t7), "+r"(t8), "+r"(t9)
-        : "r"(Consts<F>::p(0)), "r"(Consts<F>::p(1)), "r"(Consts<F>::p(2)), "r"(Consts<F>::p(3)), "r"(Consts<F>::p(4)), "r"(Consts<F>::p(5)), "r"(Consts<F>::p(6)), "r"(Consts<F>::p(7)), "r"(m));
-    t0 = t1; t1 = t2; t2 = t3; t3 = t4; t4 = t5; t5 = t6; t6 = t7; t7 = t8; t8 = t9;
-    t9 = 0;
-  }
-  Fe r;
-  r.v[0] = t0; r.v[1] = t1; r.v[2] = t2; r.v[3] = t3;
-  r.v[4] = t4; r.v[5] = t5; r.v[6] = t6; r.v[7] = t7;
-  return cond_sub_p<F>(r);  // p < R/4: the result is < 2p, t8 == 0
+// One round of the product on the card (see mont_mul): the row a * bi as
+// eight independent mul.wide.u32, its low halves added into t[0..7] by one
+// carry chain and its high halves into t[1..8] by a second; *w8 is t[8].
+__device__ __forceinline__ void mont_row_dev(uint32_t t[8], uint32_t* w8,
+                                             const Fe& a, uint32_t bi) {
+  asm("{\n\t.reg .u64 q0, q1, q2, q3, q4, q5, q6, q7;\n\t"
+      ".reg .u32 l0, l1, l2, l3, l4, l5, l6, l7, h0, h1, h2, h3, h4, h5, h6, h7;\n\t"
+      "mul.wide.u32 q0, %9, %17;\n\tmul.wide.u32 q1, %10, %17;\n\t"
+      "mul.wide.u32 q2, %11, %17;\n\tmul.wide.u32 q3, %12, %17;\n\t"
+      "mul.wide.u32 q4, %13, %17;\n\tmul.wide.u32 q5, %14, %17;\n\t"
+      "mul.wide.u32 q6, %15, %17;\n\tmul.wide.u32 q7, %16, %17;\n\t"
+      "mov.b64 {l0, h0}, q0;\n\tmov.b64 {l1, h1}, q1;\n\tmov.b64 {l2, h2}, q2;\n\tmov.b64 {l3, h3}, q3;\n\t"
+      "mov.b64 {l4, h4}, q4;\n\tmov.b64 {l5, h5}, q5;\n\tmov.b64 {l6, h6}, q6;\n\tmov.b64 {l7, h7}, q7;\n\t"
+      "add.cc.u32 %0, %0, l0;\n\taddc.cc.u32 %1, %1, l1;\n\taddc.cc.u32 %2, %2, l2;\n\t"
+      "addc.cc.u32 %3, %3, l3;\n\taddc.cc.u32 %4, %4, l4;\n\taddc.cc.u32 %5, %5, l5;\n\t"
+      "addc.cc.u32 %6, %6, l6;\n\taddc.cc.u32 %7, %7, l7;\n\taddc.u32 %8, 0, 0;\n\t"
+      "add.cc.u32 %1, %1, h0;\n\taddc.cc.u32 %2, %2, h1;\n\taddc.cc.u32 %3, %3, h2;\n\t"
+      "addc.cc.u32 %4, %4, h3;\n\taddc.cc.u32 %5, %5, h4;\n\taddc.cc.u32 %6, %6, h5;\n\t"
+      "addc.cc.u32 %7, %7, h6;\n\taddc.u32 %8, %8, h7;\n\t}"
+      : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "=r"(*w8)
+      : "r"(a.v[0]), "r"(a.v[1]), "r"(a.v[2]), "r"(a.v[3]), "r"(a.v[4]), "r"(a.v[5]), "r"(a.v[6]), "r"(a.v[7]), "r"(bi));
+}
+
+// The reduction half of a round on the card: t + m * p shifted down one
+// limb, the same two chains (the low word of t + m * p is 0 and dropped).
+template <int F>
+__device__ __forceinline__ void mont_reduce_dev(uint32_t t[8], uint32_t w8, uint32_t m) {
+  asm("{\n\t.reg .u64 q0, q1, q2, q3, q4, q5, q6, q7;\n\t"
+      ".reg .u32 l0, l1, l2, l3, l4, l5, l6, l7, h0, h1, h2, h3, h4, h5, h6, h7;\n\t"
+      "mul.wide.u32 q0, %10, %9;\n\tmul.wide.u32 q1, %11, %9;\n\t"
+      "mul.wide.u32 q2, %12, %9;\n\tmul.wide.u32 q3, %13, %9;\n\t"
+      "mul.wide.u32 q4, %14, %9;\n\tmul.wide.u32 q5, %15, %9;\n\t"
+      "mul.wide.u32 q6, %16, %9;\n\tmul.wide.u32 q7, %17, %9;\n\t"
+      "mov.b64 {l0, h0}, q0;\n\tmov.b64 {l1, h1}, q1;\n\tmov.b64 {l2, h2}, q2;\n\tmov.b64 {l3, h3}, q3;\n\t"
+      "mov.b64 {l4, h4}, q4;\n\tmov.b64 {l5, h5}, q5;\n\tmov.b64 {l6, h6}, q6;\n\tmov.b64 {l7, h7}, q7;\n\t"
+      "add.cc.u32 l0, %0, l0;\n\taddc.cc.u32 %0, %1, l1;\n\taddc.cc.u32 %1, %2, l2;\n\t"
+      "addc.cc.u32 %2, %3, l3;\n\taddc.cc.u32 %3, %4, l4;\n\taddc.cc.u32 %4, %5, l5;\n\t"
+      "addc.cc.u32 %5, %6, l6;\n\taddc.cc.u32 %6, %7, l7;\n\taddc.u32 %7, %8, 0;\n\t"
+      "add.cc.u32 %0, %0, h0;\n\taddc.cc.u32 %1, %1, h1;\n\taddc.cc.u32 %2, %2, h2;\n\t"
+      "addc.cc.u32 %3, %3, h3;\n\taddc.cc.u32 %4, %4, h4;\n\taddc.cc.u32 %5, %5, h5;\n\t"
+      "addc.cc.u32 %6, %6, h6;\n\taddc.u32 %7, %7, h7;\n\t}"
+      : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]), "+r"(t[7])
+      : "r"(w8), "r"(m), "r"(Consts<F>::p(0)), "r"(Consts<F>::p(1)), "r"(Consts<F>::p(2)), "r"(Consts<F>::p(3)),
+        "r"(Consts<F>::p(4)), "r"(Consts<F>::p(5)), "r"(Consts<F>::p(6)), "r"(Consts<F>::p(7)));
 }
 #endif
 
@@ -256,45 +242,74 @@ template <int F> SPT_HD Fe sub(const Fe& a, const Fe& b) {
 #endif
 }
 
-// CIOS Montgomery product a * b * 2^-256 mod p: 8 rounds, each one row of
-// 32x32->64 products of a by b[i] and one row of m*p.
-template <int F> SPT_HD Fe mont_mul(const Fe& a, const Fe& b) {
+// Montgomery product a * b * 2^-256 mod p, CIOS over 8 x 32-bit limbs in
+// 8 rounds. A round adds the row a * b[i] into the running sum t (< 2p,
+// 8 limbs, t[8] = w8 the limb above), then m * p for m = t[0] * n0, and
+// shifts down one limb. A row is 8 independent 32 x 32 -> 64-bit products
+// (IMAD.WIDE.U32 on the card) with no carry between them; the sum takes
+// their low halves at limbs 0..7 in one carry chain and their high halves
+// at limbs 1..8 in a second, so each limb product costs one wide multiply
+// and two carry-chain adds, and only the adds are serial. On the card the
+// chains are PTX add.cc/addc (mont_row_dev, mont_reduce_dev); the host runs
+// the same two chains with 64-bit sums.
+//
+// STEP is how many rounds one pass of the round loop holds, a matter of code
+// size only: 8 (straight-line code, ~440 instructions) where one product
+// stands alone (K3, K4, K2's single add); 2 in the complete add of the
+// kernels that inline several adds (K1c, K1d, K2b), where 12 straight-line
+// products an add outgrew the instruction cache and ran slower
+// (scripts/torch_kernel_variants.py).
+template <int F, int STEP = 8> SPT_HD Fe mont_mul(const Fe& a, const Fe& b) {
+  static_assert(8 % STEP == 0, "STEP divides the 8 rounds");
+  uint32_t t[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+#pragma unroll 1
+  for (int i0 = 0; i0 < 8; i0 += STEP)
+#pragma unroll
+  for (int k = 0; k < STEP; ++k) {
+    const int i = i0 + k;
+    uint32_t w8;
 #if defined(__CUDA_ARCH__)
-  return mont_mul_dev<F>(a, b);
+    mont_row_dev(t, &w8, a, b.v[i]);
+    mont_reduce_dev<F>(t, w8, t[0] * Consts<F>::n0);
 #else
-  uint32_t t[10];
-#pragma unroll
-  for (int i = 0; i < 10; ++i) t[i] = 0;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
+    uint64_t q[8];
+    for (int j = 0; j < 8; ++j) q[j] = (uint64_t)a.v[j] * b.v[i];
     uint64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      uint64_t cur = (uint64_t)a.v[j] * b.v[i] + t[j] + c;
-      t[j] = (uint32_t)cur;
-      c = cur >> 32;
+    for (int j = 0; j < 8; ++j) {             // low halves at limbs 0..7
+      c += (uint64_t)t[j] + (uint32_t)q[j];
+      t[j] = (uint32_t)c;
+      c >>= 32;
     }
-    uint64_t cur = (uint64_t)t[8] + c;
-    t[8] = (uint32_t)cur;
-    t[9] = (uint32_t)(cur >> 32);
-    uint32_t m = t[0] * Consts<F>::n0;
-    cur = (uint64_t)m * Consts<F>::p(0) + t[0];
-    c = cur >> 32;
-#pragma unroll
-    for (int j = 1; j < 8; ++j) {
-      cur = (uint64_t)m * Consts<F>::p(j) + t[j] + c;
-      t[j - 1] = (uint32_t)cur;
-      c = cur >> 32;
+    w8 = (uint32_t)c;
+    c = 0;
+    for (int j = 1; j < 8; ++j) {             // high halves at limbs 1..8
+      c += (uint64_t)t[j] + (uint32_t)(q[j - 1] >> 32);
+      t[j] = (uint32_t)c;
+      c >>= 32;
     }
-    cur = (uint64_t)t[8] + c;
-    t[7] = (uint32_t)cur;
-    t[8] = t[9] + (uint32_t)(cur >> 32);
+    w8 += (uint32_t)(q[7] >> 32) + (uint32_t)c;
+    const uint32_t m = t[0] * Consts<F>::n0;
+    for (int j = 0; j < 8; ++j) q[j] = (uint64_t)m * Consts<F>::p(j);
+    c = ((uint64_t)t[0] + (uint32_t)q[0]) >> 32;   // limb 0 becomes 0
+    for (int j = 1; j < 8; ++j) {             // low halves, shifted down
+      c += (uint64_t)t[j] + (uint32_t)q[j];
+      t[j - 1] = (uint32_t)c;
+      c >>= 32;
+    }
+    t[7] = w8 + (uint32_t)c;
+    c = 0;
+    for (int j = 0; j < 7; ++j) {             // high halves, shifted down
+      c += (uint64_t)t[j] + (uint32_t)(q[j] >> 32);
+      t[j] = (uint32_t)c;
+      c >>= 32;
+    }
+    t[7] += (uint32_t)(q[7] >> 32) + (uint32_t)c;
+#endif
   }
   Fe r;
 #pragma unroll
   for (int i = 0; i < 8; ++i) r.v[i] = t[i];
-  return cond_sub_p<F>(r);  // p < R/4: the result is < 2p, t[8] == 0
-#endif
+  return cond_sub_p<F>(r);  // p < R/4: the sum stays below 2p
 }
 
 template <int F> SPT_HD Fe zero() {
@@ -325,13 +340,15 @@ SPT_HD Point infinity() {
 // the operation sequence of the reference's Pallas `_k_padd`, 12 Montgomery
 // products with the two multiplications by b3 done as additions. One
 // branch-free formula covers generic add, doubling, inverses and infinity.
-SPT_HD Point padd(const Point& p, const Point& q) {
-  Fe t0 = mont_mul<FQ>(p.x, q.x);
-  Fe t1 = mont_mul<FQ>(p.y, q.y);
-  Fe t2 = mont_mul<FQ>(p.z, q.z);
-  Fe m3 = mont_mul<FQ>(add<FQ>(p.x, p.y), add<FQ>(q.x, q.y));
-  Fe m4 = mont_mul<FQ>(add<FQ>(p.y, p.z), add<FQ>(q.y, q.z));
-  Fe m5 = mont_mul<FQ>(add<FQ>(p.x, p.z), add<FQ>(q.x, q.z));
+// STEP: the products' rounds per loop pass (mont_mul); 2 unless the caller
+// inlines this one add alone.
+template <int STEP = 2> SPT_HD Point padd(const Point& p, const Point& q) {
+  Fe t0 = mont_mul<FQ, STEP>(p.x, q.x);
+  Fe t1 = mont_mul<FQ, STEP>(p.y, q.y);
+  Fe t2 = mont_mul<FQ, STEP>(p.z, q.z);
+  Fe m3 = mont_mul<FQ, STEP>(add<FQ>(p.x, p.y), add<FQ>(q.x, q.y));
+  Fe m4 = mont_mul<FQ, STEP>(add<FQ>(p.y, p.z), add<FQ>(q.y, q.z));
+  Fe m5 = mont_mul<FQ, STEP>(add<FQ>(p.x, p.z), add<FQ>(q.x, q.z));
   Fe t3 = sub<FQ>(sub<FQ>(m3, t0), t1);
   Fe t4 = sub<FQ>(sub<FQ>(m4, t1), t2);
   Fe yc = sub<FQ>(sub<FQ>(m5, t0), t2);
@@ -345,9 +362,9 @@ SPT_HD Point padd(const Point& p, const Point& q) {
   Fe z3p = add<FQ>(t1, b3t2);
   Fe t1m = sub<FQ>(t1, b3t2);
   Point r;
-  r.x = sub<FQ>(mont_mul<FQ>(t3, t1m), mont_mul<FQ>(t4, b3y));
-  r.y = add<FQ>(mont_mul<FQ>(t1m, z3p), mont_mul<FQ>(b3y, t0_3));
-  r.z = add<FQ>(mont_mul<FQ>(z3p, t4), mont_mul<FQ>(t0_3, t3));
+  r.x = sub<FQ>(mont_mul<FQ, STEP>(t3, t1m), mont_mul<FQ, STEP>(t4, b3y));
+  r.y = add<FQ>(mont_mul<FQ, STEP>(t1m, z3p), mont_mul<FQ, STEP>(b3y, t0_3));
+  r.z = add<FQ>(mont_mul<FQ, STEP>(z3p, t4), mont_mul<FQ, STEP>(t0_3, t3));
   return r;
 }
 
@@ -369,18 +386,45 @@ SPT_HD void store_fe(uint32_t* dst, const Fe& a) {
   for (int i = 0; i < 8; ++i) dst[i] = a.v[i];
 }
 
+// A point row is 96 bytes at a 16-byte aligned address (torch allocations
+// are 256-byte aligned, rows are 96 bytes): the card moves it as six 16-byte
+// accesses.
 SPT_HD Point load_point(const uint32_t* src) {
   Point r;
+#if defined(__CUDA_ARCH__)
+  const uint4* q = reinterpret_cast<const uint4*>(src);
+  uint32_t* coord[3] = {r.x.v, r.y.v, r.z.v};
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    const uint4 v = q[i];
+    uint32_t* d = coord[i >> 1] + 4 * (i & 1);
+    d[0] = v.x;
+    d[1] = v.y;
+    d[2] = v.z;
+    d[3] = v.w;
+  }
+#else
   r.x = load_fe(src);
   r.y = load_fe(src + 8);
   r.z = load_fe(src + 16);
+#endif
   return r;
 }
 
 SPT_HD void store_point(uint32_t* dst, const Point& a) {
+#if defined(__CUDA_ARCH__)
+  uint4* q = reinterpret_cast<uint4*>(dst);
+  const uint32_t* coord[3] = {a.x.v, a.y.v, a.z.v};
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    const uint32_t* s = coord[i >> 1] + 4 * (i & 1);
+    q[i] = make_uint4(s[0], s[1], s[2], s[3]);
+  }
+#else
   store_fe(dst, a.x);
   store_fe(dst + 8, a.y);
   store_fe(dst + 16, a.z);
+#endif
 }
 
 // Y -> -Y (infinity (0:1:0) becomes (0:p-1:0), still infinity).
@@ -419,7 +463,7 @@ SPT_HD void copy16(uint32_t* dst, const uint32_t* src) {
 SPT_HD void padd_one(long i, const uint32_t* p, const uint32_t* q,
                      uint32_t* out) {
   store_point(out + 24 * i,
-              padd(load_point(p + 24 * i), load_point(q + 24 * i)));
+              padd<8>(load_point(p + 24 * i), load_point(q + 24 * i)));
 }
 
 // K3: out[i] = a[i] * b[i % nb] (Montgomery), field F.

@@ -115,27 +115,15 @@ SPT_HD void k1_stage(uint32_t* slot, const uint32_t* pts, int32_t e) {
 // The point of entry e from its slot once its copy (and every earlier one
 // but the last `pending`) has landed, negated where the entry says so.
 SPT_HD Point k1_staged_point(const uint32_t* slot, int32_t e, bool pending) {
-  Point p;
 #if defined(__CUDA_ARCH__)
   if (pending)
     asm volatile("cp.async.wait_group 1;" ::: "memory");
   else
     asm volatile("cp.async.wait_group 0;" ::: "memory");
-  const uint4* q = reinterpret_cast<const uint4*>(slot);
-  uint32_t* coord[3] = {p.x.v, p.y.v, p.z.v};
-#pragma unroll
-  for (int i = 0; i < 6; ++i) {
-    const uint4 v = q[i];
-    uint32_t* d = coord[i >> 1] + 4 * (i & 1);
-    d[0] = v.x;
-    d[1] = v.y;
-    d[2] = v.z;
-    d[3] = v.w;
-  }
 #else
   (void)pending;
-  p = load_point(slot);
 #endif
+  const Point p = load_point(slot);
   return e < 0 ? neg(p) : p;
 }
 

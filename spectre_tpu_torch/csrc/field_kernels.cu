@@ -4,8 +4,9 @@
 // (spectre_tpu/ops/field_ops.py `_mont_mul_cios`, spectre_tpu/ops/ntt.py
 // `_ntt_stages`).
 //
-// K3: one thread per element, CIOS over 8 x 32-bit limbs (the PTX carry
-// chains of bn254.cuh on the card); the second operand is read at i % nb,
+// K3: one thread per element, CIOS over 8 x 32-bit limbs (bn254.cuh: rows
+// of independent wide products, PTX carry chains on the card); the second
+// operand is read at i % nb,
 // so one launch also scales by a constant or multiplies a batch by one
 // table. Bound: memory (96 bytes per product against ~257 multiply-adds),
 // near the card's balance point.
@@ -39,6 +40,17 @@ __global__ void mont_mul_kernel(const uint32_t* __restrict__ a,
                                 uint32_t* __restrict__ out, long n) {
   const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) spt::mont_mul_one<F>(i, a, b, nb, out);
+}
+
+// One Fq product per thread, nothing else: never launched, it is there to
+// be read. chip_smoke.py counts its SASS instructions (cuobjdump -sass) as
+// the instruction count of one Montgomery product.
+__global__ void mont_mul_probe_kernel(const uint32_t* __restrict__ a,
+                                      const uint32_t* __restrict__ b,
+                                      uint32_t* __restrict__ out) {
+  const int i = threadIdx.x;
+  spt::store_fe(out + 8 * i, spt::mont_mul<spt::FQ>(spt::load_fe(a + 8 * i),
+                                                   spt::load_fe(b + 8 * i)));
 }
 
 // grid (blocks of a transform, batch); src == dst after the first pass

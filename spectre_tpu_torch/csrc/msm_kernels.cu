@@ -1,11 +1,19 @@
 // K1 (bucket accumulation) and K2 (complete projective addition): the CUDA
-// counterparts of the two Pallas kernels of spectre_tpu/ops/msm_pallas.py.
+// counterparts of the two Pallas kernels of spectre_tpu/ops/msm_pallas.py;
+// K2b (weighted bucket aggregation), the counterpart of the XLA loop over K2
+// that follows them there.
 //
 // K2 replaces `_padd_soa_call` (msm_pallas.py:222, body `_k_padd`): one
 // thread per point pair, the RCB formula of bn254.cuh in registers. Bound on
 // the H100: integer multiply throughput (12 Montgomery products, ~3100 32-bit
 // multiply-adds, per 288 bytes moved); the design moves nothing but one
-// 96-byte point per operand and the result.
+// 96-byte point per operand and the result, in 16-byte accesses.
+//
+// K2b replaces `_aggregate_buckets_soa` (msm_pallas.py:356): one block a
+// window, runs of buckets per thread and a weighted tree in shared memory
+// (aggregate.cuh). Bound: integer multiply throughput for the ~3 K adds a
+// window; held far from it by its chain of dependent adds, one block a
+// window being all the parallelism 24 windows offer.
 //
 // K1 replaces `_bucket_sums` (msm_pallas.py:399, body `_k_bucket_accumulate`).
 // The Pallas design keeps every bucket resident in VMEM and adds each point
@@ -27,6 +35,7 @@
 // so the wrapper raises on a refused launch.
 #include <cuda_runtime.h>
 
+#include "aggregate.cuh"
 #include "bn254.cuh"
 #include "bucket.cuh"
 
@@ -34,6 +43,9 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kPlanThreads = 256;
+// K2 at 128 registers a thread: 256-thread blocks measured faster than 128
+// (scripts/torch_kernel_variants.py)
+constexpr int kPaddThreads = 256;
 
 __global__ void padd_kernel(const uint32_t* __restrict__ p,
                             const uint32_t* __restrict__ q,
@@ -115,6 +127,23 @@ __global__ void __launch_bounds__(spt::K1_THREADS, 3)
   if (t == 0) spt::k1_root(blk, &nodes[0], bstart, out, pieces);
 }
 
+// K2b: one block per window (bodies and design in aggregate.cuh); the
+// block's W and D points in dynamic shared memory, 24 KB at 128 threads.
+__global__ void __launch_bounds__(spt::K2B_THREADS, 1)
+    k2b_aggregate_kernel(const uint32_t* __restrict__ sums, int nb,
+                         uint32_t* __restrict__ out) {
+  extern __shared__ uint4 agg_smem[];
+  spt::Point* W = reinterpret_cast<spt::Point*>(agg_smem);
+  spt::Point* D = W + blockDim.x;
+  const int T = blockDim.x, t = threadIdx.x;
+  spt::k2b_leaf(blockIdx.x, t, nb, nb / T, sums, W, D);
+  for (int d = 1; d < T; d <<= 1) {
+    __syncthreads();
+    spt::k2b_merge(t, d, 2 * d == T, W, D);
+  }
+  if (t == 0) spt::store_point(out + 24 * (long)blockIdx.x, W[0]);
+}
+
 // K1d: one warp per key.
 __global__ void k1_pieces_kernel(const int32_t* __restrict__ bstart,
                                  int nkeys,
@@ -160,9 +189,20 @@ int allow_smem(K kernel, size_t bytes) {
 extern "C" int spt_padd(const void* p, const void* q, void* out, long n,
                         void* stream) {
   if (n > 0)
-    padd_kernel<<<blocks_for(n, kThreads), kThreads, 0,
+    padd_kernel<<<blocks_for(n, kPaddThreads), kPaddThreads, 0,
                   (cudaStream_t)stream>>>(
         (const uint32_t*)p, (const uint32_t*)q, (uint32_t*)out, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int spt_k2b_aggregate(const void* sums, long nwin, int nb,
+                                 void* out, void* stream) {
+  const int T = spt::k2b_threads(nb);
+  const size_t smem = 2 * (size_t)T * sizeof(spt::Point);
+  if (int rc = allow_smem(k2b_aggregate_kernel, smem)) return rc;
+  if (nwin > 0)
+    k2b_aggregate_kernel<<<(unsigned)nwin, T, smem, (cudaStream_t)stream>>>(
+        (const uint32_t*)sums, nb, (uint32_t*)out);
   return (int)cudaGetLastError();
 }
 

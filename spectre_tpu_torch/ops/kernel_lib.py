@@ -1,8 +1,9 @@
 """Build, load and count the port's CUDA kernels.
 
 The sources live in `spectre_tpu_torch/csrc/`: `bn254.cuh` (the shared
-field and curve arithmetic), `bucket.cuh` and `ntt.cuh` (the per-block
-bodies of K1 and K4) and one `.cu` file per library with a plain C
+field and curve arithmetic), `bucket.cuh`, `aggregate.cuh` and `ntt.cuh`
+(the per-block bodies of K1, K2b and K4) and one `.cu` file per library
+with a plain C
 interface. At first use each library is compiled by `nvcc` for `sm_90a` into
 `build/torch_kernels/` at the repository root (a directory git ignores),
 every source in its own `nvcc` process, all started together, and loaded
@@ -19,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from dataclasses import dataclass
@@ -38,6 +40,7 @@ _VP, _LONG, _INT = ctypes.c_void_p, ctypes.c_long, ctypes.c_int
 LIBRARIES = {
     "msm_kernels": ("msm_kernels.cu", {
         "spt_padd": [_VP, _VP, _VP, _LONG, _VP],
+        "spt_k2b_aggregate": [_VP, _LONG, _INT, _VP, _VP],
         "spt_k1_count": [_VP, _LONG, _LONG, _INT, _LONG, _LONG, _VP, _VP],
         "spt_k1_scatter": [_VP, _VP, _LONG, _LONG, _INT, _LONG, _LONG, _VP, _VP,
                            _VP],
@@ -49,7 +52,7 @@ LIBRARIES = {
         "spt_ntt_pass": [_VP, _VP, _VP, _LONG, _INT, _INT, _INT, _INT, _VP],
     }),
 }
-HEADERS = ("bn254.cuh", "bucket.cuh", "ntt.cuh")
+HEADERS = ("aggregate.cuh", "bn254.cuh", "bucket.cuh", "ntt.cuh")
 
 
 @dataclass
@@ -57,27 +60,29 @@ class KernelInfo:
     name: str
     source: str       # path in the repository
     replaces: str     # the TPU kernel it replaces, or what it adds
+    symbol: str       # the __global__ function, as a profiler names it
     launches: int = 0
 
 
 _MSM_CU = "spectre_tpu_torch/csrc/msm_kernels.cu"
+_FIELD_CU = "spectre_tpu_torch/csrc/field_kernels.cu"
 _K1_REPLACES = "spectre_tpu/ops/msm_pallas.py:399"
 
 # K1 is four kernels behind one wrapper (ops/msm_kernels.py bucket_sums)
-KERNELS = {
-    "K1a_bucket_count": KernelInfo("K1a_bucket_count", _MSM_CU, _K1_REPLACES),
-    "K1b_bucket_scatter": KernelInfo("K1b_bucket_scatter", _MSM_CU, _K1_REPLACES),
-    "K1c_bucket_walk": KernelInfo("K1c_bucket_walk", _MSM_CU, _K1_REPLACES),
-    "K1d_bucket_pieces": KernelInfo("K1d_bucket_pieces", _MSM_CU, _K1_REPLACES),
-    "K2_padd": KernelInfo(
-        "K2_padd", _MSM_CU, "spectre_tpu/ops/msm_pallas.py:222"),
-    "K3_mont_mul": KernelInfo(
-        "K3_mont_mul", "spectre_tpu_torch/csrc/field_kernels.cu",
-        "spectre_tpu/ops/field_ops.py:136 (XLA, no Pallas kernel)"),
-    "K4_ntt": KernelInfo(
-        "K4_ntt", "spectre_tpu_torch/csrc/field_kernels.cu",
-        "spectre_tpu/ops/ntt.py:460 (XLA, no Pallas kernel)"),
-}
+KERNELS = {k.name: k for k in (
+    KernelInfo("K1a_bucket_count", _MSM_CU, _K1_REPLACES, "k1_count_kernel"),
+    KernelInfo("K1b_bucket_scatter", _MSM_CU, _K1_REPLACES, "k1_scatter_kernel"),
+    KernelInfo("K1c_bucket_walk", _MSM_CU, _K1_REPLACES, "k1_walk_kernel"),
+    KernelInfo("K1d_bucket_pieces", _MSM_CU, _K1_REPLACES, "k1_pieces_kernel"),
+    KernelInfo("K2_padd", _MSM_CU, "spectre_tpu/ops/msm_pallas.py:222", "padd_kernel"),
+    KernelInfo("K2b_bucket_aggregate", _MSM_CU,
+               "spectre_tpu/ops/msm_pallas.py:356 (XLA over K2, no Pallas kernel of its own)",
+               "k2b_aggregate_kernel"),
+    KernelInfo("K3_mont_mul", _FIELD_CU,
+               "spectre_tpu/ops/field_ops.py:136 (XLA, no Pallas kernel)", "mont_mul_kernel"),
+    KernelInfo("K4_ntt", _FIELD_CU,
+               "spectre_tpu/ops/ntt.py:460 (XLA, no Pallas kernel)", "ntt_pass_kernel"),
+)}
 
 
 def reset_launch_counts() -> None:
@@ -139,6 +144,41 @@ def build_all() -> dict:
                          for n in failed)
         raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
     return {name: _target(name) for name in LIBRARIES}
+
+
+def ptxas_registers(log_path: str) -> dict:
+    """{mangled kernel name: registers a thread} from a library's build log
+    (`-Xptxas -v`)."""
+    regs, entry = {}, None
+    with open(log_path) as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                entry = m.group(1)
+            m = re.search(r"Used (\d+) registers", line)
+            if m and entry:
+                regs[entry] = int(m.group(1))
+    return regs
+
+
+def sass_opcodes(so_path: str) -> dict:
+    """{mangled kernel name: {opcode: count}} of a built library, read with
+    `cuobjdump -sass` (NOPs left out)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", so_path], capture_output=True, text=True,
+                          check=True).stdout
+    out, fn = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = {}
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if m and fn is not None and not m.group(1).startswith("NOP"):
+            op = m.group(1)
+            out[fn][op] = out[fn].get(op, 0) + 1
+    return out
 
 
 def library(name: str):

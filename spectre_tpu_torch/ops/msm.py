@@ -1,5 +1,5 @@
 """Pippenger MSM over BN254 G1 on the device: signed digits, K1 bucket sums,
-weighted aggregation and window combine through K2.
+K2b weighted aggregation, and the window combine on the host.
 
 The port of the reference's Pallas pipeline (`spectre_tpu/ops/msm.py`
 `msm` with SPECTRE_MSM_IMPL=pallas, `msm_pallas.msm_soa`) in its vanilla
@@ -91,8 +91,9 @@ def msm_aos32(points: torch.Tensor, scalars: torch.Tensor, c: int | None = None)
     nwin = num_windows(c)
     digits = signed_digit_stream(scalars, c, nwin)
     negs = torch.zeros((1, n), dtype=torch.int32, device=points.device)
-    sums = MK.buckets_soa(MK.bucket_sums_aos32(points, digits, negs, c), nwin, 1 << (c - 1))
-    return MK.combine_windows(MK.aggregate_buckets(sums, c), c)
+    nb = 1 << (c - 1)
+    sums = MK.bucket_sums_aos32(points, digits, negs, c)
+    return MK.combine_windows(MK.aggregate_buckets_aos32(sums, nwin, nb), c)
 
 
 def msm_base(base: torch.Tensor, scalars_mont: torch.Tensor, c: int | None = None):

@@ -1,6 +1,6 @@
-"""Kernels K1 (bucket accumulation) and K2 (complete projective addition)
-of the Pippenger MSM, each with its plain PyTorch version; the weighted
-bucket aggregation built on K2, and the window combine.
+"""Kernels K1 (bucket accumulation), K2 (complete projective addition) and
+K2b (weighted bucket aggregation) of the Pippenger MSM, each with its plain
+PyTorch version, and the window combine.
 
 K2 replaces `spectre_tpu/ops/msm_pallas.py::_padd_soa_call` (the
 `pallas_call` at :222, kernel body `_k_padd`). CUDA: csrc/msm_kernels.cu
@@ -31,9 +31,20 @@ random ones. No host sync, no sort from a library. Bound: integer
 multiply throughput, one complete add per nonzero digit less one per
 bucket; the gathers of 96-byte points in bucket order are the memory side.
 
+K2b replaces `msm_pallas.py::_aggregate_buckets_soa` (:356, an XLA loop
+over K2: per digit bit a pairwise tree over the buckets with that bit set,
+then a double-and-add over the bits; 32 K2 launches, 270 K adds at c = 11).
+It computes sum_b b * B_b per window in one launch, one block per window
+(csrc/msm_kernels.cu, bodies and design in csrc/aggregate.cuh): each thread
+walks a run of buckets keeping running sums, and a tree in shared memory
+merges the runs with their weights, ~3 K adds a window at c = 11. Bound:
+integer multiply throughput for those adds; with one block a window the
+card is far from it, held by the chain of ~31 dependent adds a window.
+
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
-launches its kernel or raises. `padd_soa_plain` and `bucket_sums_plain`
-run on any device, for the tests and chip_smoke.py.
+launches its kernel or raises. `padd_soa_plain`, `bucket_sums_plain` and
+`aggregate_buckets_plain` run on any device, for the tests and
+chip_smoke.py.
 """
 
 from __future__ import annotations
@@ -49,7 +60,7 @@ ROWS = ec.ROWS
 
 
 # ---------------------------------------------------------------------------
-# SoA layout helpers (reference: msm_pallas.to_soa / from_soa / inf_soa)
+# SoA layout helpers (reference: msm_pallas.to_soa / from_soa)
 # ---------------------------------------------------------------------------
 
 def to_soa(points: torch.Tensor) -> torch.Tensor:
@@ -61,11 +72,6 @@ def to_soa(points: torch.Tensor) -> torch.Tensor:
 def from_soa(arr: torch.Tensor) -> torch.Tensor:
     """[48, N] SoA -> [N, 3, 16] AoS."""
     return arr.reshape(3, NL, -1).permute(2, 0, 1).contiguous()
-
-
-def inf_soa(n: int, device) -> torch.Tensor:
-    """Projective infinity (0:1:0) as [48, n]."""
-    return ec.aos32_to_soa16(ec.inf_aos32(1, device)).repeat(1, n)
 
 
 # ---------------------------------------------------------------------------
@@ -380,50 +386,86 @@ def bucket_sums_aos32(pts: torch.Tensor, digits: torch.Tensor, negs: torch.Tenso
 
 
 # ---------------------------------------------------------------------------
-# weighted bucket aggregation and window combine (K2)
+# K2b: weighted bucket aggregation
 # ---------------------------------------------------------------------------
 
-def _tree_sum(cur: torch.Tensor, padd) -> torch.Tensor:
-    """[48, W, k] -> [48, W]: pairwise tree over the last axis."""
-    while cur.shape[2] > 1:
-        k = cur.shape[2]
-        half = k // 2
-        w = cur.shape[1]
-        merged = padd(cur[:, :, :half].reshape(ROWS, w * half).contiguous(),
-                      cur[:, :, half:2 * half].reshape(ROWS, w * half).contiguous()
-                      ).reshape(ROWS, w, half)
-        cur = torch.cat([merged, cur[:, :, 2 * half:]], dim=2) if k % 2 else merged
-    return cur[:, :, 0]
+K2B_THREADS = 128        # as in csrc/aggregate.cuh
 
 
-def aggregate_buckets(bucket_sums_soa: torch.Tensor, c: int, padd=padd_soa) -> torch.Tensor:
-    """sum_b b * B_b per window: [nwin, 48, nb] (column j = bucket j + 1)
-    -> [48, nwin]. Bit decomposition as in the reference: for every digit
-    bit j at once, a pairwise tree over the buckets whose weight has bit j
-    set (one K2 call per level for all bits and windows), then a
-    high-to-low double-and-add over the c bit sums."""
-    nwin, _, nb = bucket_sums_soa.shape
-    dev = bucket_sums_soa.device
-    b = bucket_sums_soa.permute(1, 0, 2)                       # [48, nwin, nb]
-    weights = torch.arange(1, nb + 1, device=dev)
-    bits = torch.arange(c, device=dev)
-    mask = ((weights[None, :] >> bits[:, None]) & 1).bool()    # [c, nb]
-    inf1 = inf_soa(1, dev)[:, :, None, None]                   # [48, 1, 1, 1]
-    sel = torch.where(mask[None, None], b[:, :, None, :], inf1)  # [48, nwin, c, nb]
-    bit_sums = _tree_sum(sel.reshape(ROWS, nwin * c, nb), padd).reshape(ROWS, nwin, c)
-    acc = inf_soa(nwin, dev)
-    for j in range(c - 1, -1, -1):
-        acc = padd(acc, acc)
-        acc = padd(acc, bit_sums[:, :, j].contiguous())
-    return acc
+def aggregate_geometry(nb: int) -> tuple[int, int]:
+    """(threads of a window's block, buckets a thread) for nb buckets, a
+    power of two: T = min(128, nb), L = nb / T (csrc/aggregate.cuh)."""
+    if nb < 1 or nb & (nb - 1):
+        raise ValueError(f"aggregate: {nb} buckets is not a power of two")
+    T = min(K2B_THREADS, nb)
+    return T, nb // T
 
+
+def aggregate_buckets_aos32(sums: torch.Tensor, nwin: int, nb: int) -> torch.Tensor:
+    """K2b: sum_{b=1}^{nb} b * B_b per window. sums AoS32 [nwin * nb, 24]
+    as `bucket_sums_aos32` returns them (row w * nb + j = bucket j + 1 of
+    window w) -> AoS32 [nwin, 24]. One block per window on a CUDA tensor;
+    the plain version, which makes the same adds in the same order, on a
+    CPU tensor."""
+    aggregate_geometry(nb)
+    if sums.shape != (nwin * nb, 24):
+        raise ValueError(f"aggregate: expected [{nwin * nb}, 24], got {tuple(sums.shape)}")
+    if not sums.is_cuda:
+        return aggregate_buckets_plain(sums, nwin, nb)
+    KL.require(sums, "aggregate sums", torch.int32, ndim=2, last=24)
+    out = torch.empty((nwin, 24), dtype=torch.int32, device=sums.device)
+    lib = KL.library("msm_kernels")
+    KL.KERNELS["K2b_bucket_aggregate"].launches += 1
+    KL.check_launch(lib.spt_k2b_aggregate(sums.data_ptr(), nwin, nb, out.data_ptr(),
+                                          KL.stream_of(sums)), "K2b_bucket_aggregate")
+    return out
+
+
+def aggregate_buckets_plain(sums: torch.Tensor, nwin: int, nb: int) -> torch.Tensor:
+    """Plain version of K2b in torch ops through `ec.padd16`, any device:
+    each thread's run walked from the top (R += B, W += R), D = L * R, then
+    the block's tree W_t = (W_t + W_{t+d}) + D_{t+d}, D_t = 2 (D_t +
+    D_{t+d}), all threads of all windows at once. The kernel's adds in the
+    kernel's order: the two agree limb for limb in projective form."""
+    T, L = aggregate_geometry(nb)
+    rows = ec.aos32_to_rows16(sums).reshape(nwin * T, L, ROWS)
+    r = rows[:, L - 1]
+    w = r
+    for j in range(L - 2, -1, -1):
+        r = _padd_rows16(r, rows[:, j])
+        w = _padd_rows16(w, r)
+    for _ in range(L.bit_length() - 1):
+        r = _padd_rows16(r, r)
+    W = w.reshape(nwin, T, ROWS).clone()
+    D = r.reshape(nwin, T, ROWS).clone()
+    d = 1
+    while d < T:
+        left = torch.arange(0, T, 2 * d, device=sums.device)
+        new_w = _padd_rows16(_padd_rows16(_flat(W[:, left]), _flat(W[:, left + d])),
+                             _flat(D[:, left + d]))
+        if 2 * d < T:
+            s = _padd_rows16(_flat(D[:, left]), _flat(D[:, left + d]))
+            D[:, left] = _padd_rows16(s, s).reshape(nwin, -1, ROWS)
+        W[:, left] = new_w.reshape(nwin, -1, ROWS)
+        d *= 2
+    return ec.rows16_to_aos32(W[:, 0])
+
+
+def _flat(rows: torch.Tensor) -> torch.Tensor:
+    return rows.reshape(-1, ROWS)
+
+
+# ---------------------------------------------------------------------------
+# window combine
+# ---------------------------------------------------------------------------
 
 def combine_windows(window_sums: torch.Tensor, c: int):
-    """sum_w 2^(c w) W_w -> affine (Fq, Fq) | None. [48, nwin] window sums
-    cross to the host once and the c doublings and one add per window run
-    there in exact affine arithmetic: 24 points, a few milliseconds, where
-    the reference's device loop is a serial chain of 264 one-point adds."""
-    pts = ec.decode_points(ec.soa16_to_aos32(window_sums))
+    """sum_w 2^(c w) W_w -> affine (Fq, Fq) | None. The AoS32 [nwin, 24]
+    window sums cross to the host once and the c doublings and one add per
+    window run there in exact affine arithmetic: 24 points, a few
+    milliseconds, where the reference's device loop is a serial chain of
+    264 one-point adds."""
+    pts = ec.decode_points(window_sums)
     g1 = bn254.g1_curve
     acc = None
     for w in reversed(pts):

@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from spectre_tpu_torch.fields import bn254
-from spectre_tpu_torch.ops import ec, field_ops as F, kernel_lib as KL
+from spectre_tpu_torch.ops import ec, field_ops as F, kernel_lib as KL, limbs as L
 from spectre_tpu_torch.ops import msm as M, msm_kernels as MK, ntt as N
 
 
@@ -36,6 +36,7 @@ def _two_threads():
 
 HARNESS = r"""
 #include <vector>
+#include "aggregate.cuh"
 #include "bn254.cuh"
 #include "bucket.cuh"
 #include "ntt.cuh"
@@ -77,7 +78,7 @@ void h_k1_scatter(const int32_t* digits, const int32_t* negs, long nwin, long n,
 void h_k1_walk(const uint32_t* pts, const int32_t* entries, const int32_t* bstart, int nkeys,
                long max_entries, uint32_t* out, uint32_t* pieces) {
   std::vector<K1Node> nodes(K1_THREADS);
-  uint32_t stage[48];
+  uint32_t stage[K1_STAGE_WORDS];
   const long nblocks = (max_entries + K1_BLOCK_ENTRIES - 1) / K1_BLOCK_ENTRIES;
   for (long blk = 0; blk < nblocks; ++blk) {
     if (blk * K1_BLOCK_ENTRIES >= bstart[nkeys]) continue;
@@ -102,6 +103,17 @@ void h_k1_pieces(const int32_t* bstart, int nkeys, const uint32_t* pieces, uint3
     for (int off = 1; off < active; off <<= 1)
       for (int l = 0; l + off < active; l += 2 * off) acc[l] = padd(acc[l], acc[l + off]);
     store_point(out + 24 * (long)key, acc[0]);
+  }
+}
+// K2b: every window's block: the leaves, then each tree level's threads
+void h_k2b(const uint32_t* sums, long nwin, int nb, uint32_t* out) {
+  const int T = k2b_threads(nb);
+  std::vector<Point> W(T), D(T);
+  for (long w = 0; w < nwin; ++w) {
+    for (int t = 0; t < T; ++t) k2b_leaf(w, t, nb, nb / T, sums, W.data(), D.data());
+    for (int d = 1; d < T; d <<= 1)
+      for (int t = 0; t < T; ++t) k2b_merge(t, d, 2 * d == T, W.data(), D.data());
+    store_point(out + 24 * w, W[0]);
   }
 }
 // K4: one pass over every (batch row, block), the block's threads in order
@@ -140,6 +152,7 @@ def lib(tmp_path_factory):
     h.h_k1_walk.argtypes = [vp, vp, vp, it, lg, vp, vp]
     h.h_k1_pieces.argtypes = [vp, it, vp, vp]
     h.h_ntt_pass.argtypes = [vp, vp, vp, lg, it, it, it, it]
+    h.h_k2b.argtypes = [vp, lg, it, vp]
     return h
 
 
@@ -168,16 +181,25 @@ def test_k1_geometry_matches_header():
 
 @pytest.mark.parametrize("field", ["fr", "fq"])
 def test_mont_mul_body(lib, field):
+    """The product's rows and carry chains (the card runs the same chains in
+    PTX) on every pair of the edge values 0, 1, p - 1, R mod p, p - R mod p
+    and on random values, against the plain version and the integer oracle
+    a * b / 2^256 mod p."""
     ctx = F.fr_ctx() if field == "fr" else F.fq_ctx()
     r = random.Random(1)
-    va = [0, 1, ctx.p - 1, ctx.r_mod_p] + [r.randrange(ctx.p) for _ in range(60)]
-    vb = [ctx.p - 1, ctx.r_mod_p, 0, 1] + [r.randrange(ctx.p) for _ in range(60)]
-    a, b = F.from_ints(ctx, va, "cpu"), F.from_ints(ctx, vb, "cpu")
-    for bb in (b, b[:1]):
+    edge = [0, 1, ctx.p - 1, ctx.r_mod_p, ctx.p - ctx.r_mod_p]
+    va = [x for x in edge for _ in edge] + [r.randrange(ctx.p) for _ in range(200)]
+    vb = edge * len(edge) + [r.randrange(ctx.p) for _ in range(200)]
+    raw = lambda v: F.tensor_from_u64(L.ints_to_limbs(v), "cpu")  # noqa: E731
+    a, b = raw(va), raw(vb)
+    rinv = pow(1 << 256, -1, ctx.p)
+    for bb, wb in ((b, vb), (b[:1], vb[:1] * len(va))):
         out = torch.empty_like(a)
         lib.h_mont_mul(a.data_ptr(), bb.data_ptr(), bb.shape[0], out.data_ptr(),
                        a.shape[0], ctx.field_id)
         assert torch.equal(out, F.mont_mul_plain(ctx, a, bb))
+        got = L.limbs_to_ints(F.tensor_to_u64(out))
+        assert got == [x * y * rinv % ctx.p for x, y in zip(va, wb)]
 
 
 def _points(n, seed):
@@ -310,6 +332,35 @@ def test_k1_bodies_bucket_over_many_blocks(lib):
             acc = g1.add(acc, g1.mul(host[k], m))
         want.append(acc if sign > 0 else g1.neg(acc))
     assert ec.decode_points(out) == want
+
+
+@pytest.mark.parametrize("nwin,nb", [(3, 1), (2, 2), (2, 8), (1, 256), (2, 512), (1, 2048)])
+def test_k2b_body_matches_plain(lib, nwin, nb):
+    """K2b's leaf and tree bodies, every window's block thread by thread,
+    against its plain version limb for limb (projective): one bucket a
+    window, fewer buckets than threads (one each), and runs of 2, 4 and 16
+    buckets a thread; projective bucket sums (Z != 1) with empty ones."""
+    base = _points(16, 10)
+    pts = base[torch.arange(nwin * nb) % 16]
+    sums = MK.padd_aos32(pts, torch.roll(pts, 3, 0))
+    sums[::5] = ec.inf_aos32(1, "cpu")
+    out = torch.empty((nwin, 24), dtype=torch.int32)
+    lib.h_k2b(sums.data_ptr(), nwin, nb, out.data_ptr())
+    want = MK.aggregate_buckets_plain(sums, nwin, nb)
+    assert torch.equal(out, want)
+    g1, host = bn254.g1_curve, ec.decode_points(sums)
+    for w in range(nwin):
+        acc = None
+        for j in range(nb):
+            acc = g1.add(acc, g1.mul(host[w * nb + j], j + 1) if host[w * nb + j] else None)
+        assert ec.decode_points(out[w:w + 1]) == [acc]
+
+
+def test_k2b_geometry_matches_header():
+    text = open(os.path.join(KL.CSRC, "aggregate.cuh")).read()
+    assert int(re.search(r"K2B_THREADS = (\d+);", text).group(1)) == MK.K2B_THREADS
+    assert [MK.aggregate_geometry(nb) for nb in (1, 8, 256, 1024)] == \
+        [(1, 1), (8, 1), (128, 2), (128, 8)]
 
 
 def test_ntt_butterfly_body(lib):

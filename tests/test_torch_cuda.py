@@ -74,6 +74,21 @@ def test_k2_padd_edge_cases(dev):
     assert torch.equal(MK.padd_soa(lhs, rhs), MK.padd_soa_plain(lhs, rhs))
 
 
+@pytest.mark.parametrize("nwin,nb", [(3, 1), (2, 8), (2, 512), (24, 1024), (1, 4096)])
+def test_k2b_aggregate(dev, nwin, nb):
+    """K2b, one launch, against its plain version limb for limb: one bucket
+    a window, fewer buckets than threads, and runs of 4, 8 and 32 buckets a
+    thread, on projective sums with empty buckets."""
+    base = _points(64, dev, 8)
+    pts = base[torch.arange(nwin * nb, device=dev) % 64]
+    sums = MK.padd_aos32(pts, torch.roll(pts, 5, 0))
+    sums[::7] = ec.inf_aos32(1, dev)
+    before = KL.KERNELS["K2b_bucket_aggregate"].launches
+    got = MK.aggregate_buckets_aos32(sums, nwin, nb)
+    assert KL.KERNELS["K2b_bucket_aggregate"].launches == before + 1
+    assert torch.equal(got, MK.aggregate_buckets_plain(sums, nwin, nb))
+
+
 @pytest.mark.parametrize("n", [256, 1000, 5003])
 @pytest.mark.parametrize("case", ["random", "all-equal", "all-zero"])
 def test_k1_bucket_sums(dev, case, n):

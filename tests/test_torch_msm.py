@@ -1,10 +1,11 @@
-"""The port's EC and MSM ops on the CPU (plain versions of K1 and K2)
+"""The port's EC and MSM ops on the CPU (plain versions of K1, K2 and K2b)
 against the JAX reference and the host curve.
 
 K2 plain is compared limb for limb with the reference's real `pallas_call`
 (`msm_pallas.padd_soa`, interpret mode off-TPU); K1 plain with a host
-bucket oracle after affine normalization; the MSM with the host curve and
-the reference's CpuBackend. Exact comparisons throughout.
+bucket oracle after affine normalization; K2b plain with the reference's
+aggregation and the host sum; the MSM with the host curve and the
+reference's CpuBackend. Exact comparisons throughout.
 """
 
 import numpy as np
@@ -159,6 +160,50 @@ class TestK1Plain:
         from spectre_tpu.ops import msm as RM
         for logn in (5, 7, 12, 16, 18, 21):
             assert M.default_window_pallas(1 << logn) == RM.default_window_pallas(1 << logn)
+
+
+class TestK2bPlain:
+    """K2b's plain version (the kernel's order of adds) against the
+    reference's bit-decomposition aggregation `_aggregate_buckets_soa`
+    (its `padd_soa` calls run the real `pallas_call` in interpret mode),
+    over the reference's layout with the weight-0 bucket prepended, and
+    against the host sum b * B_b; affine after normalization."""
+
+    @pytest.mark.parametrize("c,nwin,case", [(4, 3, "random"), (5, 2, "random"),
+                                             (4, 2, "empty"), (5, 3, "all-equal")])
+    def test_matches_reference_and_host(self, c, nwin, case):
+        nb = 1 << (c - 1)
+        if case == "random":       # projective sums, every fourth bucket empty
+            pts = [None if i % 4 == 1 else p for i, p in enumerate(_points(nwin * nb, 14))]
+            sums = MK.padd_aos32(ec.encode_points(pts, "cpu"),
+                                 ec.encode_points(pts[1:] + pts[:1], "cpu"))
+        elif case == "empty":
+            sums = ec.inf_aos32(nwin * nb, "cpu")
+        else:
+            sums = ec.encode_points(_points(1, 15) * (nwin * nb), "cpu")
+        got = ec.decode_points(MK.aggregate_buckets_plain(sums, nwin, nb))
+        soa = ec.aos32_to_soa16(sums).reshape(48, nwin, nb).numpy().astype(np.uint32)
+        ref = MP._aggregate_buckets_soa(MP._with_zero_bucket(jnp.asarray(soa)), c)
+        want = REC.decode_points(MP.from_soa(ref))
+        assert [None if p is None else (int(p[0]), int(p[1])) for p in got] == \
+            [None if p is None else (int(p[0]), int(p[1])) for p in want]
+        host = ec.decode_points(sums)
+        oracle = []
+        for w in range(nwin):
+            acc = None
+            for j in range(nb):
+                acc = g1.add(acc, g1.mul(host[w * nb + j], j + 1) if host[w * nb + j] else None)
+            oracle.append(acc)
+        assert got == oracle
+
+    def test_wrapper_checks_its_input(self):
+        sums = ec.inf_aos32(12, "cpu")
+        with pytest.raises(ValueError):
+            MK.aggregate_buckets_aos32(sums, 2, 6)          # not a power of two
+        with pytest.raises(ValueError):
+            MK.aggregate_buckets_aos32(sums, 2, 4)          # 12 rows, not 8
+        assert torch.equal(MK.aggregate_buckets_aos32(sums[:8], 2, 4),
+                           MK.aggregate_buckets_plain(sums[:8], 2, 4))
 
 
 class TestMsm:
