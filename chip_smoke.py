@@ -2,8 +2,8 @@
 """Run spectre_tpu_torch's stage-1 prove on one CUDA GPU, and hold each of
 its kernels against its plain PyTorch version.
 
-    python3 chip_smoke.py           # the sync-step testnet shape, k = 21
-    python3 chip_smoke.py --k 19    # the same columns on fewer rows
+    python3 chip_smoke.py           # both paths, full size
+    python3 chip_smoke.py --k 19    # the flex slice on fewer rows
 
 Phases, each of which ends the run with a non-zero exit code if it fails:
   device   the GPU's name and power limit (nvidia-smi)
@@ -33,6 +33,16 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
            must be > 0 (all but K2, which the prove does not launch: the
            slice runs it only to make the SRS, and not where the SRS is
            read from params/)
+  committee-kernels
+           K1 and K2b at n = 2^18 random scalars, K4 at [4, 2^18] and as a
+           2^18 -> 2^20 coset LDE (the committee prove's geometry): equal to
+           their plain versions; timed
+  committee
+           the CommitteeUpdateCircuit at build/committee_update_testnet_18
+           .pinning.json (512 pubkeys, k=18, 2070 SHA slots): witness,
+           keygen with the k=18 SRS cut from the k=21 one, prove, verify;
+           the instances equal get_instances, a flipped instance fails; the
+           prove's launch count of every kernel on its path must be > 0
 
 It prints one JSON line of kernel records, then the device line
 {"ok": true, "device": {...}} last. It imports neither jax nor spectre_tpu.
@@ -50,6 +60,10 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PINNING = os.path.join(REPO, "build", "sync_step_testnet_21.pinning.json")
+COMMITTEE_K = 18
+# the kernels the stage-1 prove launches (K2 only makes the SRS)
+PROVE_KERNELS = ("K1a_bucket_count", "K1b_bucket_scatter", "K1c_bucket_walk",
+                 "K1d_bucket_pieces", "K2b_bucket_aggregate", "K3_mont_mul", "K4_ntt")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 at
 # 3.35 TB/s; 67 TFLOP/s of float32 FMA outside the tensor cores, i.e. 33.5 T
@@ -192,6 +206,163 @@ def random_fr(torch, n: int, gen, device):
                       dtype=torch.int64, device=device)
     x[:, 3] &= (1 << 61) - 1
     return x
+
+
+def committee_kernels(torch, dev, gen, seed: int) -> dict:
+    """K1, K2b and K4 against their plain versions at the committee prove's
+    geometry (n = 2^18 commitments, the 2^18 -> 2^20 coset LDE), timed.
+    Returns {kernel: record}."""
+    from spectre_tpu_torch.fields import bn254
+    from spectre_tpu_torch.ops import ec, field_ops as F, msm as M, msm_kernels as MK, ntt as N
+    from spectre_tpu_torch.plonk.domain import COSET_GEN
+    from spectre_tpu_torch.plonk.srs import g1_powers_device
+
+    fr = F.fr_ctx()
+    n = 1 << COMMITTEE_K
+    out = {}
+    pts = g1_powers_device(random.Random(seed + 1).randrange(1, bn254.R), n, dev)
+    c = M.default_window_pallas(n)
+    nwin, nb = M.num_windows(c), 1 << (c - 1)
+    digits = M.signed_digit_stream(random_fr(torch, n, gen, dev), c, nwin)
+    negs = torch.zeros((1, n), dtype=torch.int32, device=dev)
+    soa = ec.aos32_to_soa16(pts)
+    got = MK.bucket_sums(soa, digits, negs, c)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = MK.bucket_sums_plain(soa, digits, negs, c)
+    torch.cuda.synchronize()
+    k1_plain = (time.perf_counter() - t0) * 1e3
+    err = limb_err(F, normalized_buckets(ec, got), normalized_buckets(ec, want))
+    require(err == 0, "K1 equals its plain version at n = 2^18")
+    _, bstart, _ = MK.bucket_plan_plain(digits, negs, c)
+    bounds = k1_bounds(torch, MK, digits, bstart, n, nwin * nb, MK.plan_blocks(n)[1])
+    k1_bound = bound_ms(sum(b[2] for b in bounds.values()), sum(b[3] for b in bounds.values()))
+    k1_ms = time_ms(torch, lambda: MK.bucket_sums_aos32(pts, digits, negs, c), reps=5)
+    out["K1"] = dict(ms=k1_ms, plain_ms=k1_plain, bound_ms=k1_bound[0], bound_by=k1_bound[1],
+                     max_abs_err=err, shape=f"n=2^18 c={c} nwin={nwin}, random scalars")
+    del got, want, soa
+
+    sums = MK.bucket_sums_aos32(pts, digits, negs, c)
+    err = limb_err(F, MK.aggregate_buckets_aos32(sums, nwin, nb),
+                   MK.aggregate_buckets_plain(sums, nwin, nb))
+    require(err == 0, "K2b equals its plain version at n = 2^18")
+    need = nwin * 2 * (nb - 1)
+    bm, by = bound_ms(nwin * nb * 96 + nwin * 96, need * IMAD_PER_PADD)
+    out["K2b"] = dict(
+        ms=time_ms(torch, lambda: MK.aggregate_buckets_aos32(sums, nwin, nb), reps=10),
+        plain_ms=time_ms(torch, lambda: MK.aggregate_buckets_plain(sums, nwin, nb), reps=1),
+        bound_ms=bm, bound_by=by, max_abs_err=err, shape=f"nwin={nwin} nb={nb} (c={c})")
+    del sums, pts, digits
+
+    tables = N.Twiddles(dev)
+    logn = COMMITTEE_K
+    x = F.to_mont(fr, random_fr(torch, 4 << logn, gen, dev)).reshape(4, 1 << logn, 4)
+    tw = tables.twiddles(bn254.fr_root_of_unity(logn), 1 << logn)
+    err_b = limb_err(F, N.ntt_passes(x, tw), N.ntt_stages_plain(x, tw, tables))
+    require(err_b == 0, "K4 equals the plain NTT at [4, 2^18]")
+    bb = ntt_bound_ms(4, logn)
+    # the coset LDE of one 2^18 column onto 2^20 rows: K3 twists, K4 transforms
+    coeffs = x[0]
+    w_ext = bn254.fr_root_of_unity(logn + 2)
+    lde = N.coset_lde(coeffs, w_ext, COSET_GEN, 4 << logn, tables)
+    tw_ext = tables.twiddles(w_ext, 4 << logn)
+
+    def lde_plain():
+        padded = torch.zeros((1, 4 << logn, 4), dtype=torch.int64, device=dev)
+        padded[0, :1 << logn] = F.mont_mul_plain(fr, coeffs, tables.powers(COSET_GEN, 1 << logn))
+        return N.ntt_stages_plain(padded, tw_ext, tables)[0]
+
+    err_l = limb_err(F, lde, lde_plain())
+    require(err_l == 0, "the coset LDE (K3 + K4) equals its plain version at 2^18 -> 2^20")
+    bl = ntt_bound_ms(1, logn + 2)
+    out["K4"] = dict(
+        ms=time_ms(torch, lambda: N.ntt_passes(x, tw), reps=10),
+        plain_ms=time_ms(torch, lambda: N.ntt_stages_plain(x, tw, tables), reps=1),
+        bound_ms=bb[0], bound_by=bb[1], max_abs_err=max(err_b, err_l),
+        shape="[4, 2^18]",
+        coset_lde_2e18_to_2e20=dict(
+            ms=time_ms(torch, lambda: N.coset_lde(coeffs, w_ext, COSET_GEN, 4 << logn, tables),
+                       reps=10),
+            plain_ms=time_ms(torch, lde_plain, reps=1), bound_ms=bl[0], bound_by=bl[1]))
+    log("committee-kernels: " + json.dumps(out))
+    return out
+
+
+def committee_path(torch, dev, seed: int) -> dict:
+    """The CommitteeUpdateCircuit at its pinned testnet shape, through the
+    entry points a user calls: witness, keygen, prove, verify. Returns the
+    phase seconds, the prove's phases, peak memory and launch counts."""
+    from spectre_tpu_torch import spec as SPEC
+    from spectre_tpu_torch.fields import bn254
+    from spectre_tpu_torch.models import CommitteeUpdateCircuit as CU
+    from spectre_tpu_torch.ops import kernel_lib as KL
+    from spectre_tpu_torch.plonk.prover import PhaseTimer
+    from spectre_tpu_torch.plonk.srs import PARAMS_DIR, SRS
+    from spectre_tpu_torch.witness import default_committee_update_args
+
+    spec, phases = SPEC.TESTNET, {}
+    t0 = time.perf_counter()
+    args = default_committee_update_args(spec)
+    phases["args"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ctx = CU.build_context(args, spec, device=dev)
+    phases["witness"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pin = CU.pinning(spec, COMMITTEE_K, ctx)
+    cfg = pin.config
+    require((cfg.k, cfg.num_advice, cfg.num_sha_slots, len(args.pubkeys_compressed))
+            == (COMMITTEE_K, 22, 2070, 512), "the pinned committee shape")
+    phases["pinning"] = time.perf_counter() - t0
+    log(f"committee: {len(args.pubkeys_compressed)} pubkeys, k={cfg.k} advice={cfg.num_advice} "
+        f"lookup={cfg.lookup_tables} fixed={cfg.num_fixed} sha_slots={cfg.num_sha_slots} "
+        f"({len(ctx.sha_slots)} used); {json.dumps(ctx.stats())}")
+    bigger = [k for k in range(COMMITTEE_K + 1, 27)
+              if os.path.exists(os.path.join(PARAMS_DIR, f"kzg_bn254_{k}.srs"))]
+    t0 = time.perf_counter()
+    srs = SRS.load_or_setup(COMMITTEE_K, device=dev)
+    phases["srs"] = time.perf_counter() - t0
+    log(f"  srs: k={srs.k}, " + (f"cut from the cached k={bigger[0]} file" if bigger
+                                 else "set up on the card (no larger cached file)"))
+
+    torch.cuda.synchronize()
+    KL.reset_launch_counts()
+    t0 = time.perf_counter()
+    pk = CU.create_pk(srs, spec, COMMITTEE_K, args, device=dev, ctx=ctx)
+    torch.cuda.synchronize()
+    phases["keygen"] = time.perf_counter() - t0
+    keygen_counts = KL.launch_counts()
+
+    timer = PhaseTimer(torch.device(dev))
+    r = random.Random(seed)
+    KL.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    proof = CU.prove(pk, srs, args, spec, device=dev, ctx=ctx,
+                     blinding_rng=lambda: r.randrange(bn254.R), timer=timer)
+    phases["prove"] = time.perf_counter() - t0
+    prove_counts = KL.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    instances = CU.get_instances(args, spec)
+    require(instances == [av.value for av in ctx.instance_cells],
+            "the circuit's instances equal get_instances")
+    t0 = time.perf_counter()
+    ok = CU.verify(pk.vk, srs, instances, proof, device=dev)
+    phases["verify"] = time.perf_counter() - t0
+    require(ok, "the committee proof verifies")
+    flipped = list(instances)
+    flipped[0] ^= 1
+    require(not CU.verify(pk.vk, srs, flipped, proof, device=dev),
+            "a flipped instance is rejected")
+    for name in PROVE_KERNELS:
+        require(prove_counts[name] > 0, f"{name} launched in the committee prove")
+    log(f"  phases (s): " + json.dumps({k: round(v, 3) for k, v in phases.items()}))
+    log(f"  prove phases (s): " + json.dumps({k: round(v, 3) for k, v in timer.seconds.items()}))
+    log(f"  proof {len(proof)} bytes, verified, flipped instance rejected; instances "
+        f"{[hex(v) for v in instances]}; peak device memory {peak:.1f} GiB")
+    log(f"  launches: keygen {json.dumps(keygen_counts)}, prove {json.dumps(prove_counts)}")
+    return dict(phases=phases, prove_phases=timer.seconds, peak_gib=peak,
+                keygen_launches=keygen_counts, prove_launches=prove_counts)
 
 
 def main(argv=None) -> int:
@@ -499,9 +670,18 @@ def main(argv=None) -> int:
     log(f"  prove phases (s): " + json.dumps({k: round(v, 3) for k, v in timer.seconds.items()}))
     log(f"  proof {len(proof)} bytes, verified; peak device memory {peak:.1f} GiB")
     log(f"  launches: {json.dumps(counts)}")
-    for name, cnt in counts.items():
-        if name != "K2_padd":
-            require(cnt > 0, f"{name} launched on the slice's path")
+    for name in PROVE_KERNELS:
+        require(counts[name] > 0, f"{name} launched on the slice's path")
+    del pk, proof, fc, srs, bk, timer
+    torch.cuda.empty_cache()
+
+    # --- committee-kernels, committee ------------------------------------------
+    geometry = committee_kernels(torch, dev, gen, args.seed)
+    for name, key in (("K1c_bucket_walk", "K1"), ("K2b_bucket_aggregate", "K2b"),
+                      ("K4_ntt", "K4")):
+        records[name]["committee_geometry"] = geometry[key]
+    torch.cuda.empty_cache()
+    committee = committee_path(torch, dev, args.seed)
 
     kernels = []
     for name, info in KL.KERNELS.items():
@@ -509,6 +689,8 @@ def main(argv=None) -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": info.source,
             "replaces": info.replaces, "launches": counts[name],
+            "committee_launches": committee["prove_launches"][name],
+            "committee_keygen_launches": committee["keygen_launches"][name],
             **{key: rec.pop(key) for key in ("max_abs_err", "ms", "plain_ms",
                                              "bound_ms", "bound_by")},
             "library_ms": None, **rec})

@@ -3,14 +3,17 @@
 
     python3 scripts/torch_prove_profile.py            # k = 21 (sync-step testnet shape)
     python3 scripts/torch_prove_profile.py --k 19
+    python3 scripts/torch_prove_profile.py --circuit committee
 
-Builds the kernels, sets up the SRS and the key for the seeded flex-gate
-witness at the pinned shape of build/sync_step_testnet_21.pinning.json,
-proves once untraced (per-phase seconds), then once more under
-torch.profiler. Prints the device's busy and idle share of the traced
-prove, per-phase seconds, the device time and launches of each of the
-port's kernels, the top device rows by time, then the same as one JSON
-line. Exits non-zero without CUDA.
+Builds the kernels, sets up the SRS and the key, proves once untraced
+(per-phase seconds, peak device memory), then once more under
+torch.profiler. The circuit is the seeded flex-gate witness at the pinned
+shape of build/sync_step_testnet_21.pinning.json, or (--circuit committee)
+the CommitteeUpdateCircuit at build/committee_update_testnet_18.pinning.json
+(512 pubkeys, k=18, witness from default_committee_update_args). Prints the
+device's busy and idle share of the traced prove, per-phase seconds, the
+device time and launches of each of the port's kernels, the top device rows
+by time, then the same as one JSON line. Exits non-zero without CUDA.
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--k", type=int, default=None)
+    ap.add_argument("--k", type=int, default=None, help="rows of the flex circuit")
+    ap.add_argument("--circuit", choices=("flex", "committee"), default="flex")
     ap.add_argument("--seed", type=int, default=1)
     args = ap.parse_args(argv)
 
@@ -54,22 +58,37 @@ def main(argv=None) -> int:
     print(f"gpu: {smi}", flush=True)
     KL.build_all()
     dev = torch.device("cuda")
-    cfg = config_from_pinning(os.path.join(REPO, "build", "sync_step_testnet_21.pinning.json"),
-                              args.k)
-    fc = flex_circuit(cfg, seed=args.seed)
     bk = TorchBackend(dev)
-    srs = SRS.unsafe_setup(cfg.k, device=dev)
-    pk = keygen(srs, cfg, fc.fixed, fc.selectors, fc.copies, bk)
+    if args.circuit == "committee":
+        from spectre_tpu_torch import spec as SPEC
+        from spectre_tpu_torch.models import CommitteeUpdateCircuit as CU
+        from spectre_tpu_torch.witness import default_committee_update_args
+
+        cu_args = default_committee_update_args(SPEC.TESTNET)
+        ctx = CU.build_context(cu_args, SPEC.TESTNET, device=dev)
+        cfg = CU.pinning(SPEC.TESTNET, 18, ctx).config
+        srs = SRS.load_or_setup(cfg.k, device=dev)
+        pk = CU.create_pk(srs, SPEC.TESTNET, cfg.k, cu_args, device=dev, ctx=ctx)
+        asg = ctx.assignment(cfg)
+    else:
+        cfg = config_from_pinning(os.path.join(REPO, "build", "sync_step_testnet_21.pinning.json"),
+                                  args.k)
+        fc = flex_circuit(cfg, seed=args.seed)
+        srs = SRS.unsafe_setup(cfg.k, device=dev)
+        pk = keygen(srs, cfg, fc.fixed, fc.selectors, fc.copies, bk)
+        asg = fc.assignment
 
     def one_prove(timer):
         r = random.Random(args.seed)
-        return prove(pk, srs, fc.assignment, bk, timer=timer,
+        return prove(pk, srs, asg, bk, timer=timer,
                      blinding_rng=lambda: r.randrange(bn254.R))
 
     timer = PhaseTimer(dev)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     one_prove(timer)
     untraced = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -93,15 +112,17 @@ def main(argv=None) -> int:
                    "count": sum(n for _, n, key in rows if info.symbol in key)}
             for name, info in KL.KERNELS.items()}
     out = {
-        "gpu": smi, "k": cfg.k, "prove_s_untraced": untraced, "prove_s_traced": traced,
+        "gpu": smi, "circuit": args.circuit, "k": cfg.k, "prove_s_untraced": untraced,
+        "prove_s_traced": traced, "peak_device_gib": peak_gib,
         "device_busy_s": busy_us / 1e6, "device_busy_share": busy_us / 1e6 / traced,
         "phases_s": timer.seconds,
         "kernels": ours,
         "top": [{"device_ms": us / 1e3, "count": n, "name": name[:120]}
                 for us, n, name in rows[:25]],
     }
-    print(f"prove {untraced:.3f} s untraced, {traced:.3f} s traced; device busy "
-          f"{busy_us / 1e6:.3f} s ({100 * out['device_busy_share']:.1f}% of the traced prove)")
+    print(f"{args.circuit} k={cfg.k}: prove {untraced:.3f} s untraced (peak device memory "
+          f"{peak_gib:.1f} GiB), {traced:.3f} s traced; device busy {busy_us / 1e6:.3f} s "
+          f"({100 * out['device_busy_share']:.1f}% of the traced prove)")
     print("phases (s): " + json.dumps({k: round(v, 3) for k, v in timer.seconds.items()}))
     for name, r in ours.items():
         print(f"  {r['device_ms']:10.1f} ms {r['count']:7d}  {name}")

@@ -3,11 +3,18 @@
 The PyTorch + CUDA port of the JAX package `spectre_tpu`, which stays in the
 repository as the reference. Layout:
 
-    fields/   exact host arithmetic (BN254 fields, curves, pairing)
+    fields/   exact host arithmetic (BN254 fields, curves, pairing; BLS12-381 G1)
     ops/      device arithmetic: Montgomery field ops, complete EC add, the
-              Pippenger MSM (kernels K1/K2), NTTs (kernels K3/K4)
-    csrc/     the CUDA C++ sources of the four kernels (sm_90a)
-    plonk/    SRS, keygen, prover, verifier of the PLONKish proof system
+              Pippenger MSM (kernels K1/K2/K2b), NTTs (K3/K4); host SHA-256
+              and Poseidon
+    csrc/     the CUDA C++ sources of the kernels (sm_90a)
+    plonk/    SRS, keygen, prover, verifier of the PLONKish proof system,
+              with the wide SHA-256 region
+    builder/  the circuit builder: context, gate, range, SHA-256, Poseidon chips
+    gadgets/  SSZ merkleization and the committee's Poseidon commitment
+    witness/  the circuits' arguments; a seeded flex-gate witness
+    models/   the app circuits (CommitteeUpdateCircuit)
+    utils/    pinning files, checksum sidecars
     convert.py  the reference's numpy/int objects -> the port's objects
 
 Entry points take `device=` and default to "cuda"; with no GPU they raise

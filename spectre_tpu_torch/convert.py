@@ -59,8 +59,6 @@ def proving_key(ref_pk, device) -> ProvingKey:
     Montgomery form, value lists likewise, commitments become port points."""
     ref_vk = ref_pk.vk
     cfg = circuit_config(ref_vk.config)
-    if cfg.num_sha_slots:
-        raise NotImplementedError("SHA-region keys are not ported yet")
     fr = F.fr_ctx()
     n = cfg.n
 
@@ -76,14 +74,20 @@ def proving_key(ref_pk, device) -> ProvingKey:
         selector_commits=[g1_point(p) for p in ref_vk.selector_commits],
         fixed_commits=[g1_point(p) for p in ref_vk.fixed_commits],
         sigma_commits=[g1_point(p) for p in ref_vk.sigma_commits],
-        table_commits=[g1_point(p) for p in ref_vk.table_commits])
+        table_commits=[g1_point(p) for p in ref_vk.table_commits],
+        sha_selector_commits=([g1_point(p) for p in ref_vk.sha_selector_commits]
+                              if cfg.num_sha_slots else None),
+        sha_k_commit=g1_point(ref_vk.sha_k_commit) if cfg.num_sha_slots else None)
     tab_std = [F.tensor_from_u64(column_std(c, n), device) for c in ref_pk.table_values]
     return ProvingKey(
         vk, coeffs(ref_pk.selector_polys), coeffs(ref_pk.fixed_polys),
         coeffs(ref_pk.sigma_polys), coeffs(ref_pk.table_polys),
         vals(ref_pk.selector_values), vals(ref_pk.fixed_values),
         vals(ref_pk.sigma_values),
-        [F.from_std(fr, t, device) for t in tab_std], tab_std)
+        [F.from_std(fr, t, device) for t in tab_std], tab_std,
+        sha_selector_polys=(coeffs(ref_pk.sha_selector_polys)
+                            if cfg.num_sha_slots else None),
+        sha_k_poly=coeffs([ref_pk.sha_k_poly])[0] if cfg.num_sha_slots else None)
 
 
 def proving_key_arrays(pk: ProvingKey) -> dict:
@@ -118,4 +122,5 @@ def assignment(ref_asg) -> Assignment:
         advice=list(ref_asg.advice), lookup_advice=list(ref_asg.lookup_advice),
         fixed=list(ref_asg.fixed), selectors=list(ref_asg.selectors),
         instances=[list(map(int, col)) for col in ref_asg.instances],
-        copies=list(ref_asg.copies))
+        copies=list(ref_asg.copies), sha_bit=ref_asg.sha_bit,
+        sha_word=ref_asg.sha_word)

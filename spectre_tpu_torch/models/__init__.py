@@ -1,0 +1,6 @@
+"""Application circuits (the port's copy of the committee-update part of
+`spectre_tpu/models/`): written against the builder chips, proved by the
+port's prover on its device."""
+
+from .app_circuit import AppCircuit  # noqa: F401
+from .committee_update import CommitteeUpdateCircuit  # noqa: F401

@@ -9,6 +9,14 @@ plus lookup arguments binding the lookup-advice columns to table columns.
 Column order (global permutation indexing):
     [gate advice][lookup advice][fixed][sha word][instance]
 
+The wide SHA-256 region (`num_sha_slots > 0`): per block slot of
+SHA_SLOT_ROWS rows, SHA_BIT_COLS bit columns (outside the permutation) hold
+the w/a/e bit ladders and the addition carries, and SHA_WORD_COLS word
+columns (in the permutation) hold h_in/h_out, the input words and the
+pinned activity flag, copy-linked into the main region. Every identity is
+homogeneous in the advice (the round constant enters as fixed_K * act), so
+all-zero unused slots satisfy them (expressions.sha_expressions).
+
 Columns may be given as lists of ints, 1-D numpy integer arrays, or
 [n, 4] uint64 standard-form limb arrays; `column_std` normalizes them. The
 sigma construction is vectorized numpy on the host and the lookup
@@ -25,16 +33,51 @@ import torch
 
 from ..fields import bn254
 from ..ops import limbs as L
+from ..ops.sha256 import K as SHA_K
 
 R = bn254.R
 
 ZK_ROWS = 5
 PERM_CHUNK = 2  # columns per permutation grand-product (degree 4 budget)
 NUM_H_CHUNKS = 3
-# the wide SHA-256 region's column counts: part of the circuit shape (and of
-# the vk digest); proving it is later work, so the port refuses sha slots
-SHA_BIT_COLS = 104
-SHA_WORD_COLS = 10
+
+# --- the wide SHA-256 region ---
+SHA_BIT_COLS = 104      # w[32] | a[32] | e[32] | carries[8]
+SHA_WORD_COLS = 10      # h state words [8] | input words | act flag
+SHA_SLOT_ROWS = 72      # 4 seed + 64 rounds + 1 output (+3 spare)
+SHA_SEED_ROW = 3
+SHA_OUT_ROW = 68
+SHA_NUM_SELECTORS = 7   # bit, seed, round, sched, inp, out, act-chain
+SHA_W, SHA_A, SHA_E, SHA_CARRY = 0, 32, 64, 96
+# act lives in a word column (permutation-enabled) so the chip pins it to
+# the constant 1 on used slots: an unpinned act could be zeroed to prove a
+# K-less hash variant
+SHA_ACT_WORD = 9
+
+
+def sha_selector_columns(cfg: "CircuitConfig") -> tuple[np.ndarray, np.ndarray]:
+    """The SHA region's fixed content: the 7 selector columns [7, n] and
+    the round-constant column [n], uint64, patterned per slot (the
+    reference's `sha_selector_columns`, built in bulk)."""
+    n, nsl = cfg.n, cfg.num_sha_slots
+    if nsl and (nsl - 1) * SHA_SLOT_ROWS + SHA_OUT_ROW >= cfg.usable_rows:
+        raise ValueError("sha slot exceeds usable rows")
+    slot = np.zeros((SHA_NUM_SELECTORS, SHA_SLOT_ROWS), dtype=np.uint64)
+    slot[0, :SHA_OUT_ROW + 1] = 1                 # q_bit rows 0..68
+    slot[1, SHA_SEED_ROW] = 1                     # q_seed
+    slot[2, 4:68] = 1                             # q_round rows 4..67
+    slot[3, 20:68] = 1                            # q_sched rows 20..67
+    slot[4, 4:20] = 1                             # q_inp rows 4..19
+    slot[5, SHA_OUT_ROW] = 1                      # q_out
+    slot[6, 1:SHA_OUT_ROW + 1] = 1                # q_act rows 1..68
+    kslot = np.zeros(SHA_SLOT_ROWS, dtype=np.uint64)
+    kslot[4:68] = SHA_K
+    sel = np.zeros((SHA_NUM_SELECTORS, n), dtype=np.uint64)
+    kcol = np.zeros(n, dtype=np.uint64)
+    rows = nsl * SHA_SLOT_ROWS
+    sel[:, :rows] = np.tile(slot, nsl)
+    kcol[:rows] = np.tile(kslot, nsl)
+    return sel, kcol
 
 
 @dataclass(frozen=True)
@@ -94,6 +137,9 @@ class CircuitConfig:
     def col_fixed(self, j):
         return self.num_advice + self.num_lookup_advice + j
 
+    def col_sha_word(self, j):
+        return self.num_advice + self.num_lookup_advice + self.num_fixed + j
+
     def col_instance(self, j):
         return (self.num_advice + self.num_lookup_advice + self.num_fixed
                 + self.num_sha_word + j)
@@ -104,9 +150,6 @@ class CircuitConfig:
         return "range"
 
     def validate(self):
-        if self.num_sha_slots:
-            raise NotImplementedError(
-                "the wide SHA-256 region is not ported yet (num_sha_slots > 0)")
         if self.lookup_bits >= self.k or (1 << self.lookup_bits) > self.usable_rows:
             raise ValueError("table must fit the usable rows")
         if self.num_instance < 1:
@@ -119,8 +162,11 @@ class CircuitConfig:
 
 @dataclass
 class Assignment:
-    """Witness-side circuit assignment. copies: list of ((col_a, row_a),
-    (col_b, row_b)) equality constraints in the global column indexing."""
+    """Witness-side circuit assignment. copies: ((col_a, row_a), (col_b,
+    row_b)) equality constraints in the global column indexing, as a list
+    of pairs or an [m, 4] integer array of (col_a, row_a, col_b, row_b)
+    rows. sha_bit / sha_word: the SHA region's columns, numpy [104, n] bits
+    and [10, n] 32-bit words (None without SHA slots)."""
 
     config: CircuitConfig
     advice: list            # [num_advice] columns of n values
@@ -129,6 +175,8 @@ class Assignment:
     selectors: list         # [num_advice] 0/1 columns
     instances: list         # [num_instance][<= usable] ints
     copies: list = field(default_factory=list)
+    sha_bit: object = None
+    sha_word: object = None
 
     def instance_column(self, j) -> np.ndarray:
         col = np.zeros((self.config.n, 4), dtype=np.uint64)
@@ -197,36 +245,37 @@ def sigma_targets(cfg: CircuitConfig, copies) -> tuple[np.ndarray, np.ndarray]:
     m = cfg.num_perm_columns
     u = cfg.usable_rows
 
-    nxt: dict = {}
-    cyc: dict = {}
-    members: dict = {}
-    for (ca, ra), (cb, rb) in copies:
-        if not (0 <= ca < m and 0 <= cb < m):
+    cp = np.asarray(copies, dtype=np.int64).reshape(-1, 4)
+    if cp.size:
+        if (cp[:, 0].min() < 0 or cp[:, 2].min() < 0
+                or cp[:, 0].max() >= m or cp[:, 2].max() >= m):
             raise ValueError("copy column out of range")
-        if not (ra < u and rb < u):
+        if cp[:, 1].max() >= u or cp[:, 3].max() >= u:
             raise ValueError("copy constraint in blinding rows")
-        a = ca * n + ra
-        b = cb * n + rb
-        for x in (a, b):
-            if x not in nxt:
-                nxt[x] = x
-                cyc[x] = x
-                members[x] = [x]
+    # the cells the copies touch, as flat indices j * n + i renumbered
+    # 0..k-1 (a cell no copy touches is its own cycle); the merge below only
+    # compares cycle sizes, so the numbering does not change its result
+    flat = np.concatenate([cp[:, 0] * n + cp[:, 1], cp[:, 2] * n + cp[:, 3]])
+    cells, ids = np.unique(flat, return_inverse=True)
+    nxt = list(range(cells.shape[0]))
+    cyc = list(range(cells.shape[0]))
+    members: dict = {}
+    for a, b in zip(ids[:cp.shape[0]].tolist(), ids[cp.shape[0]:].tolist()):
         ia, ib = cyc[a], cyc[b]
         if ia == ib:
             continue
-        if len(members[ia]) < len(members[ib]):
-            ia, ib = ib, ia
-        for cell in members[ib]:
+        ma = members.get(ia) or [ia]
+        mb = members.pop(ib, None) or [ib]
+        if len(ma) < len(mb):
+            ia, ib, ma, mb = ib, ia, mb, ma
+            members.pop(ib, None)
+        for cell in mb:
             cyc[cell] = ia
-        members[ia].extend(members.pop(ib))
+        ma.extend(mb)
+        members[ia] = ma
         nxt[a], nxt[b] = nxt[b], nxt[a]
-
     tgt = np.arange(m * n, dtype=np.int64)
-    if nxt:
-        keys = np.fromiter(nxt.keys(), dtype=np.int64, count=len(nxt))
-        vals = np.fromiter(nxt.values(), dtype=np.int64, count=len(nxt))
-        tgt[keys] = vals
+    tgt[cells] = cells[np.array(nxt, dtype=np.int64)]
     return tgt // n, tgt % n
 
 

@@ -13,7 +13,9 @@ import torch
 from ..fields import bn254
 from ..ops import field_ops as F
 from .backend import TorchBackend
-from .constraint_system import (CircuitConfig, NUM_H_CHUNKS, column_std,
+from .constraint_system import (CircuitConfig, NUM_H_CHUNKS, SHA_A, SHA_ACT_WORD,
+                                SHA_CARRY, SHA_E, SHA_NUM_SELECTORS, SHA_OUT_ROW,
+                                SHA_SEED_ROW, SHA_W, column_std, sha_selector_columns,
                                 sigma_targets, table_column)
 from .domain import DELTA, Domain, get_domain
 from .srs import SRS
@@ -32,6 +34,8 @@ class VerifyingKey:
     fixed_commits: list
     sigma_commits: list
     table_commits: list    # one per lookup-advice column (cfg.table_id(j))
+    sha_selector_commits: list = None   # the SHA region's 7 selectors
+    sha_k_commit: object = None         # its round-constant column
 
     @property
     def domain(self) -> Domain:
@@ -45,7 +49,9 @@ class VerifyingKey:
                        cfg.num_sha_slots)).encode())
         h.update(repr(cfg.lookup_tables).encode())
         for pt in (self.selector_commits + self.fixed_commits
-                   + self.sigma_commits + self.table_commits):
+                   + self.sigma_commits + self.table_commits
+                   + (self.sha_selector_commits or [])
+                   + ([self.sha_k_commit] if cfg.num_sha_slots else [])):
             h.update(bn254.g1_to_bytes(pt))
         return h.digest()
 
@@ -55,6 +61,8 @@ class VerifyingKey:
         cfg = self.config
         keys = [("adv", j) for j in range(cfg.num_advice)]
         keys += [("ladv", j) for j in range(cfg.num_lookup_advice)]
+        keys += [("shb", j) for j in range(cfg.num_sha_bit)]
+        keys += [("shw", j) for j in range(cfg.num_sha_word)]
         for j in range(cfg.num_lookup_advice):
             keys.append(("pA", j))
             keys.append(("pT", j))
@@ -76,6 +84,10 @@ class VerifyingKey:
             out[("fix", j)] = c
         for j, c in enumerate(self.sigma_commits):
             out[("sig", j)] = c
+        for j, c in enumerate(self.sha_selector_commits or []):
+            out[("shq", j)] = c
+        if self.config.num_sha_slots:
+            out[("shk", 0)] = self.sha_k_commit
         return out
 
     def query_plan(self):
@@ -105,13 +117,36 @@ class VerifyingKey:
             plan.append((("sig", j), 0))
         for j in range(cfg.num_lookup_advice):
             plan.append((("tab", j), 0))
+        if cfg.num_sha_slots:
+            for i in range(32):                       # w bits
+                for rot in (0, -2, -7, -15, -16):
+                    plan.append((("shb", SHA_W + i), rot))
+            for i in range(32):                       # a bits
+                for rot in (0, -1, -2, -3, -4):
+                    plan.append((("shb", SHA_A + i), rot))
+            for i in range(32):                       # e bits
+                for rot in (0, -1, -2, -3, -4):
+                    plan.append((("shb", SHA_E + i), rot))
+            for i in range(8):                        # carries
+                plan.append((("shb", SHA_CARRY + i), 0))
+            back = SHA_SEED_ROW - SHA_OUT_ROW
+            for j in range(8):
+                plan.append((("shw", j), 0))
+                plan.append((("shw", j), back))
+            plan.append((("shw", 8), 0))
+            plan.append((("shw", SHA_ACT_WORD), 0))   # act flag
+            plan.append((("shw", SHA_ACT_WORD), -1))
+            for sel in range(SHA_NUM_SELECTORS):
+                plan.append((("shq", sel), 0))
+            plan.append((("shk", 0), 0))
         for i in range(NUM_H_CHUNKS):
             plan.append((("h", i), 0))
         return plan
 
     def assert_rotation_injective(self):
         """Distinct rotation tags of the query plan must be distinct points
-        omega^rot x (the reference's check)."""
+        omega^rot x (the reference's check): the SHA region's -65 and its
+        ladder rotations down to -16 against ROT_LAST among them."""
         dom = self.domain
         seen = {}
         for _key, rot in self.query_plan():
@@ -147,6 +182,8 @@ class ProvingKey:
     sigma_values: list
     table_values: list         # device tensors, one per lookup-advice column
     table_std: list            # [n, 4] int64 standard limbs, same device
+    sha_selector_polys: list = None
+    sha_k_poly: object = None
 
 
 def build_sigma(cfg: CircuitConfig, copies, bk: TorchBackend) -> list:
@@ -192,10 +229,17 @@ def keygen(srs: SRS, cfg: CircuitConfig, fixed_columns: list, selectors: list,
     tab_polys = dict(zip(tab_ids, dom.lagrange_to_coeff_many(
         [tab_vals[t] for t in tab_ids], bk)))
 
+    sha_polys = []
+    if cfg.num_sha_slots:
+        sha_sel, sha_k = sha_selector_columns(cfg)
+        sha_polys = dom.lagrange_to_coeff_many(
+            [bk.from_std(column_std(c, n)) for c in (*sha_sel, sha_k)], bk)
+
     pts = kzg.commit_many(srs, sel_polys + fix_polys + sig_polys
-                          + [tab_polys[t] for t in tab_ids], bk)
-    ns, nf, ng = len(sel_polys), len(fix_polys), len(sig_polys)
-    tab_commit = dict(zip(tab_ids, pts[ns + nf + ng:]))
+                          + [tab_polys[t] for t in tab_ids] + sha_polys, bk)
+    ns, nf, ng, nt = len(sel_polys), len(fix_polys), len(sig_polys), len(tab_ids)
+    tab_commit = dict(zip(tab_ids, pts[ns + nf + ng:ns + nf + ng + nt]))
+    sha_commits = pts[ns + nf + ng + nt:]
     col_tabs = [cfg.table_id(j) for j in range(cfg.num_lookup_advice)]
     vk = VerifyingKey(
         config=cfg,
@@ -203,11 +247,15 @@ def keygen(srs: SRS, cfg: CircuitConfig, fixed_columns: list, selectors: list,
         fixed_commits=pts[ns:ns + nf],
         sigma_commits=pts[ns + nf:ns + nf + ng],
         table_commits=[tab_commit[t] for t in col_tabs],
+        sha_selector_commits=sha_commits[:-1] if sha_commits else None,
+        sha_k_commit=sha_commits[-1] if sha_commits else None,
     )
     vk.assert_rotation_injective()
     return ProvingKey(vk, sel_polys, fix_polys, sig_polys,
                       [tab_polys[t] for t in col_tabs],
                       sel_vals, fix_vals, sigma_vals,
                       [tab_vals[t] for t in col_tabs],
-                      [tab_std[t] for t in col_tabs])
+                      [tab_std[t] for t in col_tabs],
+                      sha_selector_polys=sha_polys[:-1] if sha_polys else None,
+                      sha_k_poly=sha_polys[-1] if sha_polys else None)
 

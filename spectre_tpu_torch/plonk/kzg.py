@@ -4,7 +4,8 @@
 Prover side: every quotient ((p - r)/Z_S, L/(X - u)) is computed pointwise
 on the evaluation domain (the divisor never vanishes there because the open
 points are random), so the whole multiopen is elementwise device ops, NTTs
-and one MSM per witness commitment. Verifier side: host arithmetic.
+and one MSM per witness commitment. Verifier side: host arithmetic, its
+commitments summed by one host MSM.
 """
 
 from __future__ import annotations
@@ -163,7 +164,6 @@ def shplonk_open(srs: SRS, domain: Domain, entries: list[OpenEntry], transcript,
 def shplonk_accumulate(srs: SRS, entries: list[OpenEntry], transcript):
     """Verifier scalar/MSM work without the pairing: returns (w2, f + u w2)
     with e(f + u w2, [1]_2) == e(w2, [tau]_2)."""
-    g1 = bn254.g1_curve
     v = transcript.challenge()
     w1 = transcript.read_point()
     u = transcript.challenge()
@@ -175,17 +175,94 @@ def shplonk_accumulate(srs: SRS, entries: list[OpenEntry], transcript):
             if p not in all_points:
                 all_points.append(p)
 
-    f_acc = None
+    # F + u W2 = sum v^k Z_rest(u) C_k - [sum v^k Z_rest(u) r_k(u)] G
+    #            - Z_T(u) W1 + u W2, as one host MSM
+    pts, scalars = [], []
     e_scalar = 0
     vk = 1
     for e in entries:
         z_rest = _z_eval([p for p in all_points if p not in e.points], u)
         r_u = _horner(_interp(e.points, e.evals), u)
         w = vk * z_rest % R
-        f_acc = g1.add(f_acc, g1.mul(e.commitment, w))
+        pts.append(e.commitment)
+        scalars.append(w)
         e_scalar = (e_scalar + w * r_u) % R
         vk = vk * v % R
     z_t_u = _z_eval(all_points, u)
-    f_acc = g1.add(f_acc, g1.neg(g1.mul(bn254.G1_GEN, e_scalar)))
-    f_acc = g1.add(f_acc, g1.neg(g1.mul(w1, z_t_u)))
-    return w2, g1.add(f_acc, g1.mul(w2, u))
+    pts += [bn254.G1_GEN, w1, w2]
+    scalars += [-e_scalar % R, -z_t_u % R, u]
+    return w2, host_msm(pts, scalars)
+
+
+# -- the verifier's MSM on the host: Pippenger over Jacobian coordinates in
+# plain ints (y^2 = x^3 + 3), no inversion but the last --
+
+_Q = bn254.P
+_INF = (1, 1, 0)
+
+
+def _jdouble(p):
+    x, y, z = p
+    if z == 0 or y == 0:
+        return _INF
+    a = x * x % _Q
+    b = y * y % _Q
+    c = b * b % _Q
+    d = 2 * ((x + b) * (x + b) - a - c) % _Q
+    e = 3 * a % _Q
+    x3 = (e * e - 2 * d) % _Q
+    return x3, (e * (d - x3) - 8 * c) % _Q, 2 * y * z % _Q
+
+
+def _jadd(p, q):
+    if p[2] == 0:
+        return q
+    if q[2] == 0:
+        return p
+    x1, y1, z1 = p
+    x2, y2, z2 = q
+    z1z1 = z1 * z1 % _Q
+    z2z2 = z2 * z2 % _Q
+    u1 = x1 * z2z2 % _Q
+    u2 = x2 * z1z1 % _Q
+    s1 = y1 * z2 * z2z2 % _Q
+    s2 = y2 * z1 * z1z1 % _Q
+    if u1 == u2:
+        return _jdouble(p) if s1 == s2 else _INF
+    h = u2 - u1
+    i = 4 * h * h % _Q
+    j = h * i % _Q
+    r = 2 * (s2 - s1) % _Q
+    v = u1 * i % _Q
+    x3 = (r * r - j - 2 * v) % _Q
+    return (x3, (r * (v - x3) - 2 * s1 * j) % _Q,
+            ((z1 + z2) * (z1 + z2) - z1z1 - z2z2) * h % _Q)
+
+
+def host_msm(points: list, scalars: list):
+    """sum s_i P_i for affine host points (None = infinity) and int
+    scalars -> affine point or None. Exact: the same group element as
+    `g1_curve.msm`, in a fraction of its time."""
+    c = 5
+    pairs = [((int(p[0]), int(p[1]), 1), int(s) % R)
+             for p, s in zip(points, scalars) if p is not None and int(s) % R]
+    acc = _INF
+    for w in range(-(-R.bit_length() // c) - 1, -1, -1):
+        for _ in range(c):
+            acc = _jdouble(acc)
+        buckets = [_INF] * (1 << c)
+        for p, s in pairs:
+            d = (s >> (w * c)) & ((1 << c) - 1)
+            if d:
+                buckets[d] = _jadd(buckets[d], p)
+        run = total = _INF
+        for b in range((1 << c) - 1, 0, -1):
+            run = _jadd(run, buckets[b])
+            total = _jadd(total, run)
+        acc = _jadd(acc, total)
+    x, y, z = acc
+    if z == 0:
+        return None
+    zi = pow(z, -1, _Q)
+    zi2 = zi * zi % _Q
+    return (bn254.Fq(x * zi2 % _Q), bn254.Fq(y * zi2 * zi % _Q))

@@ -187,6 +187,9 @@ def prove(pk: ProvingKey, srs: SRS, assignment: Assignment, bk=None,
 
     adv_host = [blind(v) for v in assignment.advice]
     ladv_host = [blind(v) for v in assignment.lookup_advice]
+    # the SHA region's bit and word columns: numpy rows, blinded in bulk
+    shb_host = [blind(assignment.sha_bit[j]) for j in range(cfg.num_sha_bit)]
+    shw_host = [blind(assignment.sha_word[j]) for j in range(cfg.num_sha_word)]
     values: dict = {}     # key -> lagrange values (device)
     polys: dict = {}      # key -> coefficients (device)
 
@@ -198,6 +201,9 @@ def prove(pk: ProvingKey, srs: SRS, assignment: Assignment, bk=None,
 
     commit_cols([(("adv", j), bk.from_std(v)) for j, v in enumerate(adv_host)]
                 + [(("ladv", j), bk.from_std(v)) for j, v in enumerate(ladv_host)])
+    commit_cols([(("shb", j), bk.from_std(v)) for j, v in enumerate(shb_host)])
+    commit_cols([(("shw", j), bk.from_std(v)) for j, v in enumerate(shw_host)])
+    del shb_host, shw_host
 
     # --- 2. lookup permuted columns ---
     timer.start("lookup_permute")
@@ -222,7 +228,7 @@ def prove(pk: ProvingKey, srs: SRS, assignment: Assignment, bk=None,
 
     def col_values(key):
         kind, j = key
-        if kind in ("adv", "ladv"):
+        if kind in ("adv", "ladv", "shw"):
             return values[key]
         if kind == "fix":
             return pk.fixed_values[j]
@@ -276,8 +282,11 @@ def prove(pk: ProvingKey, srs: SRS, assignment: Assignment, bk=None,
         kind, j = key
         if key in polys:
             return polys[key]
+        if kind == "shk":
+            return pk.sha_k_poly
         return {"q": pk.selector_polys, "fix": pk.fixed_polys,
-                "sig": pk.sigma_polys, "tab": pk.table_polys}[kind][j]
+                "sig": pk.sigma_polys, "tab": pk.table_polys,
+                "shq": pk.sha_selector_polys}[kind][j]
 
     h_coeffs = _quotient(cfg, dom, bk, poly_for, beta, gamma, y)
     # deg h <= 3n - 4: a nonzero top chunk means the division by the

@@ -20,6 +20,7 @@ import torch
 from ..device import resolve
 from ..fields import bn254
 from ..ops import ec, field_ops as F, msm_kernels as MK
+from ..utils import artifacts
 
 R = bn254.R
 
@@ -106,14 +107,29 @@ class SRS:
     @classmethod
     def load_or_setup(cls, k: int, directory: str | None = None,
                       device=None) -> "SRS":
+        """The cached `kzg_bn254_<k>.srs`; else the prefix of a larger
+        cached one (the powers of one tau), written as the k file; else a
+        fresh `unsafe_setup`, written."""
         directory = directory or PARAMS_DIR
         os.makedirs(directory, exist_ok=True)
         path = os.path.join(directory, f"kzg_bn254_{k}.srs")
         if os.path.exists(path):
             return cls.read(path)
+        for bigger in range(k + 1, 27):
+            bp = os.path.join(directory, f"kzg_bn254_{bigger}.srs")
+            if os.path.exists(bp):
+                srs = cls.read(bp).truncate(k)
+                srs.write(path)
+                return srs
         srs = cls.unsafe_setup(k, device=device)
         srs.write(path)
         return srs
+
+    def truncate(self, k: int) -> "SRS":
+        """The first 2^k powers (a copy): the SRS of the same tau at k."""
+        if k > self.k:
+            raise ValueError(f"cannot truncate a 2^{self.k} SRS to 2^{k}")
+        return SRS(k, self.g1_powers[:1 << k].copy(), self.g2_gen, self.g2_tau)
 
     # -- serialization: header || g1 limbs || g2 points (uncompressed BE) --
     def to_bytes(self) -> bytes:
@@ -122,15 +138,18 @@ class SRS:
                 + bn254.g2_to_bytes(self.g2_gen) + bn254.g2_to_bytes(self.g2_tau))
 
     def write(self, path: str):
-        tmp = f"{path}.{os.getpid()}.tmp"
-        with open(tmp, "wb") as f:
-            f.write(self.to_bytes())
-        os.replace(tmp, path)
+        """The file, and its `<path>.sha256` sidecar for `read` to check."""
+        raw = self.to_bytes()
+        artifacts.atomic_write(path, raw)
+        artifacts.write_sidecar(path, raw)
 
     @classmethod
     def read(cls, path: str) -> "SRS":
+        """Raises artifacts.ArtifactCorrupt if the file no longer matches
+        its sidecar (a file without one loads as it is)."""
         with open(path, "rb") as f:
             raw = f.read()
+        artifacts.verify_sidecar(path, raw)
         if raw[:8] != b"SPTSRS02":
             raise ValueError("bad or stale SRS file")
         k = int.from_bytes(raw[8:12], "little")

@@ -1,12 +1,12 @@
 """A seeded, satisfying flex-gate witness for a pinned circuit shape.
 
-Stands in for the real circuit builders (the StepCircuit needs the builder
-chips, BLS12-381 and SHA-256 of later slices) so the prove runs at a
-pinned production shape: every gate-advice column is filled with vertical
-gates q (a + b c - d) = 0 on rows 4j..4j+3, every lookup-advice column with
-random members of its table, and a few thousand copy constraints chain gate
-outputs into later gate inputs, across columns and into the lookup, fixed
-and instance columns. Columns are numpy uint64 arrays, built in bulk.
+Stands in for the StepCircuit (which needs the BLS12-381 chips of a later
+slice) so the prove runs at the sync-step pinned shape: every gate-advice
+column is filled with vertical gates q (a + b c - d) = 0 on rows
+4j..4j+3, every lookup-advice column with random members of its table, and
+a few thousand copy constraints chain gate outputs into later gate inputs,
+across columns and into the lookup, fixed and instance columns. Columns are
+numpy uint64 arrays, built in bulk.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from .plonk.constraint_system import Assignment, CircuitConfig, table_column
+from ..plonk.constraint_system import Assignment, CircuitConfig, table_column
 
 
 def config_from_pinning(path: str, k: int | None = None) -> CircuitConfig:
