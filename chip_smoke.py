@@ -43,6 +43,13 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
            keygen with the k=18 SRS cut from the k=21 one, prove, verify;
            the instances equal get_instances, a flipped instance fails; the
            prove's launch count of every kernel on its path must be > 0
+  step     the StepCircuit at build/sync_step_testnet_21.pinning.json (512
+           pubkeys, k=21, 16 advice, 3 lookup columns, lookup_bits 18):
+           args, witness, Pinning.check against the tracked file, the k=21
+           SRS of the slice, keygen, prove, verify; the instances equal
+           get_instances, a flipped instance fails, args with a wrong
+           signature fail the native pre-check; the prove's launch count of
+           every kernel on its path must be > 0
 
 It prints one JSON line of kernel records, then the device line
 {"ok": true, "device": {...}} last. It imports neither jax nor spectre_tpu.
@@ -61,6 +68,7 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 PINNING = os.path.join(REPO, "build", "sync_step_testnet_21.pinning.json")
 COMMITTEE_K = 18
+STEP_K = 21
 # the kernels the stage-1 prove launches (K2 only makes the SRS)
 PROVE_KERNELS = ("K1a_bucket_count", "K1b_bucket_scatter", "K1c_bucket_walk",
                  "K1d_bucket_pieces", "K2b_bucket_aggregate", "K3_mont_mul", "K4_ntt")
@@ -288,46 +296,51 @@ def committee_kernels(torch, dev, gen, seed: int) -> dict:
     return out
 
 
-def committee_path(torch, dev, seed: int) -> dict:
-    """The CommitteeUpdateCircuit at its pinned testnet shape, through the
-    entry points a user calls: witness, keygen, prove, verify. Returns the
-    phase seconds, the prove's phases, peak memory and launch counts."""
+def circuit_path(torch, dev, seed: int, circuit, k: int, make_args, shape,
+                 describe, flip: int, check_args=None) -> dict:
+    """One application circuit at its pinned testnet shape, through the
+    entry points a user calls: args, witness, pinning (Pinning.check against
+    the tracked file), SRS, keygen, prove, verify. shape(cfg, args) is the
+    tuple the pinned shape must give, with describe as its name; flip, the
+    instance flipped for the negative verify; check_args(spec), an extra
+    check of the args. Returns the phase seconds, the prove's phases, peak
+    memory and launch counts."""
     from spectre_tpu_torch import spec as SPEC
     from spectre_tpu_torch.fields import bn254
-    from spectre_tpu_torch.models import CommitteeUpdateCircuit as CU
     from spectre_tpu_torch.ops import kernel_lib as KL
     from spectre_tpu_torch.plonk.prover import PhaseTimer
     from spectre_tpu_torch.plonk.srs import PARAMS_DIR, SRS
-    from spectre_tpu_torch.witness import default_committee_update_args
 
-    spec, phases = SPEC.TESTNET, {}
+    spec, phases, name = SPEC.TESTNET, {}, circuit.name
+    require(os.path.exists(circuit.pinning_path(spec, k)),
+            f"the tracked {name} pinning file is present")
     t0 = time.perf_counter()
-    args = default_committee_update_args(spec)
+    args = make_args(spec)
     phases["args"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    ctx = CU.build_context(args, spec, device=dev)
+    ctx = circuit.build_context(args, spec, device=dev)
     phases["witness"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    pin = CU.pinning(spec, COMMITTEE_K, ctx)
-    cfg = pin.config
-    require((cfg.k, cfg.num_advice, cfg.num_sha_slots, len(args.pubkeys_compressed))
-            == (COMMITTEE_K, 22, 2070, 512), "the pinned committee shape")
+    cfg = circuit.pinning(spec, k, ctx).config
     phases["pinning"] = time.perf_counter() - t0
-    log(f"committee: {len(args.pubkeys_compressed)} pubkeys, k={cfg.k} advice={cfg.num_advice} "
-        f"lookup={cfg.lookup_tables} fixed={cfg.num_fixed} sha_slots={cfg.num_sha_slots} "
-        f"({len(ctx.sha_slots)} used); {json.dumps(ctx.stats())}")
-    bigger = [k for k in range(COMMITTEE_K + 1, 27)
-              if os.path.exists(os.path.join(PARAMS_DIR, f"kzg_bn254_{k}.srs"))]
+    require(shape(cfg, args), f"the pinned {name} shape ({describe})")
+    log(f"{name}: {describe}, k={cfg.k} advice={cfg.num_advice} lookup={cfg.lookup_tables} "
+        f"lookup_bits={cfg.lookup_bits} fixed={cfg.num_fixed} sha_slots={cfg.num_sha_slots}; "
+        f"break points equal the pinning's; {json.dumps(ctx.stats())}")
+    if check_args is not None:
+        check_args(spec)
+    cached = [j for j in range(k, 27)
+              if os.path.exists(os.path.join(PARAMS_DIR, f"kzg_bn254_{j}.srs"))]
     t0 = time.perf_counter()
-    srs = SRS.load_or_setup(COMMITTEE_K, device=dev)
+    srs = SRS.load_or_setup(k, device=dev)
     phases["srs"] = time.perf_counter() - t0
-    log(f"  srs: k={srs.k}, " + (f"cut from the cached k={bigger[0]} file" if bigger
-                                 else "set up on the card (no larger cached file)"))
+    log(f"  srs: k={srs.k}, " + (f"from the cached k={cached[0]} file" if cached
+                                 else "set up on the card (no cached file)"))
 
     torch.cuda.synchronize()
     KL.reset_launch_counts()
     t0 = time.perf_counter()
-    pk = CU.create_pk(srs, spec, COMMITTEE_K, args, device=dev, ctx=ctx)
+    pk = circuit.create_pk(srs, spec, k, args, device=dev, ctx=ctx)
     torch.cuda.synchronize()
     phases["keygen"] = time.perf_counter() - t0
     keygen_counts = KL.launch_counts()
@@ -337,32 +350,73 @@ def committee_path(torch, dev, seed: int) -> dict:
     KL.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    proof = CU.prove(pk, srs, args, spec, device=dev, ctx=ctx,
-                     blinding_rng=lambda: r.randrange(bn254.R), timer=timer)
+    proof = circuit.prove(pk, srs, args, spec, device=dev, ctx=ctx,
+                          blinding_rng=lambda: r.randrange(bn254.R), timer=timer)
     phases["prove"] = time.perf_counter() - t0
     prove_counts = KL.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
-    instances = CU.get_instances(args, spec)
+    instances = circuit.get_instances(args, spec)
     require(instances == [av.value for av in ctx.instance_cells],
             "the circuit's instances equal get_instances")
     t0 = time.perf_counter()
-    ok = CU.verify(pk.vk, srs, instances, proof, device=dev)
+    ok = circuit.verify(pk.vk, srs, instances, proof, device=dev)
     phases["verify"] = time.perf_counter() - t0
-    require(ok, "the committee proof verifies")
+    require(ok, f"the {name} proof verifies")
     flipped = list(instances)
-    flipped[0] ^= 1
-    require(not CU.verify(pk.vk, srs, flipped, proof, device=dev),
+    flipped[flip] ^= 1
+    require(not circuit.verify(pk.vk, srs, flipped, proof, device=dev),
             "a flipped instance is rejected")
-    for name in PROVE_KERNELS:
-        require(prove_counts[name] > 0, f"{name} launched in the committee prove")
-    log(f"  phases (s): " + json.dumps({k: round(v, 3) for k, v in phases.items()}))
-    log(f"  prove phases (s): " + json.dumps({k: round(v, 3) for k, v in timer.seconds.items()}))
+    for kernel in PROVE_KERNELS:
+        require(prove_counts[kernel] > 0, f"{kernel} launched in the {name} prove")
+    log(f"  phases (s): " + json.dumps({key: round(v, 3) for key, v in phases.items()}))
+    log(f"  prove phases (s): " + json.dumps({key: round(v, 3)
+                                             for key, v in timer.seconds.items()}))
     log(f"  proof {len(proof)} bytes, verified, flipped instance rejected; instances "
         f"{[hex(v) for v in instances]}; peak device memory {peak:.1f} GiB")
     log(f"  launches: keygen {json.dumps(keygen_counts)}, prove {json.dumps(prove_counts)}")
     return dict(phases=phases, prove_phases=timer.seconds, peak_gib=peak,
                 keygen_launches=keygen_counts, prove_launches=prove_counts)
+
+
+def committee_path(torch, dev, seed: int) -> dict:
+    """The CommitteeUpdateCircuit at build/committee_update_testnet_18
+    .pinning.json: 512 pubkeys, k=18, 22 advice columns, 2070 SHA slots."""
+    from spectre_tpu_torch.models import CommitteeUpdateCircuit
+    from spectre_tpu_torch.witness import default_committee_update_args
+
+    return circuit_path(
+        torch, dev, seed, CommitteeUpdateCircuit, COMMITTEE_K, default_committee_update_args,
+        lambda cfg, a: (cfg.k, cfg.num_advice, cfg.num_sha_slots,
+                        len(a.pubkeys_compressed)) == (COMMITTEE_K, 22, 2070, 512),
+        "512 pubkeys, k=18, 22 advice, 2070 SHA slots", flip=0)
+
+
+def step_path(torch, dev, seed: int) -> dict:
+    """The StepCircuit at build/sync_step_testnet_21.pinning.json: 512
+    pubkeys, k=21, 16 advice and 3 lookup columns, lookup_bits 18; args
+    with a wrong signature must fail the native pre-check."""
+    from spectre_tpu_torch.fields import bls12_381 as bls
+    from spectre_tpu_torch.models import StepCircuit
+    from spectre_tpu_torch.witness import default_sync_step_args
+
+    def wrong_signature_refused(spec):
+        bad = default_sync_step_args(spec)
+        bad.signature_compressed = bls.g2_compress(bls.g2_curve.mul(bls.G2_GEN, 123))
+        try:
+            StepCircuit.build_context(bad, spec, device=dev)
+            refused = False
+        except ValueError as e:
+            refused = "aggregate signature invalid" in str(e)
+        require(refused, "args with a wrong signature fail the native pre-check")
+        log("  a wrong signature fails the native pre-check")
+
+    return circuit_path(
+        torch, dev, seed, StepCircuit, STEP_K, default_sync_step_args,
+        lambda cfg, a: (cfg.k, cfg.num_advice, cfg.num_lookup_advice, cfg.lookup_bits,
+                        len(a.pubkeys_uncompressed)) == (STEP_K, 16, 3, 18, 512),
+        "512 pubkeys, k=21, 16 advice, 3 lookup columns, lookup_bits 18", flip=1,
+        check_args=wrong_signature_refused)
 
 
 def main(argv=None) -> int:
@@ -555,6 +609,17 @@ def main(argv=None) -> int:
         total = bound_ms(sum(b[2] for b in bounds.values()), sum(b[3] for b in bounds.values()))
         if name == "random":
             k1_random_sums = MK.bucket_sums_aos32(pts, digits, negs, c)
+            # the one library call of each plan kernel's function, on the
+            # keys of these digits: K1a's histogram, K1b's stable sort
+            w_idx, p_idx = torch.nonzero(digits, as_tuple=True)
+            keys = w_idx * nb + digits[w_idx, p_idx].to(torch.int64).abs() - 1
+            bins = keys * nblk + p_idx // P
+            library = {
+                "K1a_bucket_count": time_ms(
+                    torch, lambda: torch.bincount(bins, minlength=nkeys * nblk), reps=3),
+                "K1b_bucket_scatter": time_ms(
+                    torch, lambda: torch.argsort(keys, stable=True), reps=3)}
+            del w_idx, p_idx, keys, bins
         k1[name] = dict(ms=wrapper_ms, plain_ms=plain_ms, bound_ms=total[0], bound_by=total[1],
                         adds=int(bstart[-1]) - int((bstart[1:] > bstart[:-1]).sum()),
                         max_abs_err=err, kernels={
@@ -570,6 +635,10 @@ def main(argv=None) -> int:
                           bound_by=rnd["bound_by"], max_abs_err=k1_errs[k],
                           shape=f"n=2^21 c={c} nwin={nwin}, random scalars",
                           cases={name: v["kernels"][k] for name, v in k1.items()})
+    for k, call in (("K1a_bucket_count", "torch.bincount"),
+                    ("K1b_bucket_scatter", "torch.argsort(stable=True)")):
+        records[k]["library_ms"] = library[k]
+        records[k]["library_call"] = f"{call} on the bucket keys of the random case's digits"
     records["K1d_bucket_pieces"]["plain_note"] = (
         "the plain walk covers K1c and K1d together: its time is K1c's plain_ms")
     records["K1c_bucket_walk"]["wrapper_cases"] = {
@@ -682,6 +751,8 @@ def main(argv=None) -> int:
         records[name]["committee_geometry"] = geometry[key]
     torch.cuda.empty_cache()
     committee = committee_path(torch, dev, args.seed)
+    torch.cuda.empty_cache()
+    step = step_path(torch, dev, args.seed)
 
     kernels = []
     for name, info in KL.KERNELS.items():
@@ -691,9 +762,11 @@ def main(argv=None) -> int:
             "replaces": info.replaces, "launches": counts[name],
             "committee_launches": committee["prove_launches"][name],
             "committee_keygen_launches": committee["keygen_launches"][name],
+            "step_launches": step["prove_launches"][name],
+            "step_keygen_launches": step["keygen_launches"][name],
             **{key: rec.pop(key) for key in ("max_abs_err", "ms", "plain_ms",
                                              "bound_ms", "bound_by")},
-            "library_ms": None, **rec})
+            "library_ms": rec.pop("library_ms", None), **rec})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,13 +4,16 @@
     python3 scripts/torch_prove_profile.py            # k = 21 (sync-step testnet shape)
     python3 scripts/torch_prove_profile.py --k 19
     python3 scripts/torch_prove_profile.py --circuit committee
+    python3 scripts/torch_prove_profile.py --circuit step
 
 Builds the kernels, sets up the SRS and the key, proves once untraced
 (per-phase seconds, peak device memory), then once more under
 torch.profiler. The circuit is the seeded flex-gate witness at the pinned
 shape of build/sync_step_testnet_21.pinning.json, or (--circuit committee)
 the CommitteeUpdateCircuit at build/committee_update_testnet_18.pinning.json
-(512 pubkeys, k=18, witness from default_committee_update_args). Prints the
+(512 pubkeys, k=18, witness from default_committee_update_args), or
+(--circuit step) the StepCircuit at the same k=21 pinning (512 pubkeys,
+witness from default_sync_step_args). Prints the
 device's busy and idle share of the traced prove, per-phase seconds, the
 device time and launches of each of the port's kernels, the top device rows
 by time, then the same as one JSON line. Exits non-zero without CUDA.
@@ -32,7 +35,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--k", type=int, default=None, help="rows of the flex circuit")
-    ap.add_argument("--circuit", choices=("flex", "committee"), default="flex")
+    ap.add_argument("--circuit", choices=("flex", "committee", "step"), default="flex")
     ap.add_argument("--seed", type=int, default=1)
     args = ap.parse_args(argv)
 
@@ -59,16 +62,20 @@ def main(argv=None) -> int:
     KL.build_all()
     dev = torch.device("cuda")
     bk = TorchBackend(dev)
-    if args.circuit == "committee":
+    if args.circuit in ("committee", "step"):
         from spectre_tpu_torch import spec as SPEC
-        from spectre_tpu_torch.models import CommitteeUpdateCircuit as CU
-        from spectre_tpu_torch.witness import default_committee_update_args
+        from spectre_tpu_torch.models import CommitteeUpdateCircuit, StepCircuit
+        from spectre_tpu_torch.witness import (default_committee_update_args,
+                                               default_sync_step_args)
 
-        cu_args = default_committee_update_args(SPEC.TESTNET)
-        ctx = CU.build_context(cu_args, SPEC.TESTNET, device=dev)
-        cfg = CU.pinning(SPEC.TESTNET, 18, ctx).config
+        circuit, k, make_args = {
+            "committee": (CommitteeUpdateCircuit, 18, default_committee_update_args),
+            "step": (StepCircuit, 21, default_sync_step_args)}[args.circuit]
+        c_args = make_args(SPEC.TESTNET)
+        ctx = circuit.build_context(c_args, SPEC.TESTNET, device=dev)
+        cfg = circuit.pinning(SPEC.TESTNET, k, ctx).config
         srs = SRS.load_or_setup(cfg.k, device=dev)
-        pk = CU.create_pk(srs, SPEC.TESTNET, cfg.k, cu_args, device=dev, ctx=ctx)
+        pk = circuit.create_pk(srs, SPEC.TESTNET, cfg.k, c_args, device=dev, ctx=ctx)
         asg = ctx.assignment(cfg)
     else:
         cfg = config_from_pinning(os.path.join(REPO, "build", "sync_step_testnet_21.pinning.json"),
