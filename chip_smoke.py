@@ -26,7 +26,18 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
            bucket sums and on K1's own output: equal limb for limb; timed
   msm      the full MSM at n = 2^21 against the host sum of a 2^10 prefix,
            and linear in its scalars
-  devices  a K=6 circuit proved on the GPU and on the CPU gives the same bytes
+  K1-fixed K1's fixed-base form at the step's geometry: 2^21 base points and
+           random scalars, GLV-split on the card (2^22 expanded points, c=13,
+           10 windows), the window table built by the port (K2 doublings, K3
+           for phi): equal to its plain version (at full size) after affine
+           normalization, its plan kernels to theirs; the wrapper, its plan
+           and its walk timed beside the shared form on the same digits;
+           the split's device time and launches, the table's seconds, bytes
+           and launches; the cross-window K2 fold and K2b over one window of
+           4096 buckets (equal to its plain version); the fixed and glv MSMs
+           equal the vanilla MSM
+  devices  a K=6 circuit proved on the GPU and on the CPU gives the same
+           bytes, vanilla and under SPECTRE_MSM_MODE=fixed
   slice    SRS -> keygen -> prove -> verify at the pinned shape of
            build/sync_step_testnet_21.pinning.json with a seeded flex-gate
            witness; launch counts of every kernel on the prove's path
@@ -49,7 +60,11 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
            SRS of the slice, keygen, prove, verify; the instances equal
            get_instances, a flipped instance fails, args with a wrong
            signature fail the native pre-check; the prove's launch count of
-           every kernel on its path must be > 0
+           every kernel on its path must be > 0; then the same witness, key
+           and blinding seed proved under SPECTRE_MSM_MODE=glv+signed and
+           =fixed: each proof equal to the vanilla proof byte for byte and
+           verified, the fixed form and K2 launched in the fixed prove, no
+           fixed-base degrade
 
 It prints one JSON line of kernel records, then the device line
 {"ok": true, "device": {...}} last. It imports neither jax nor spectre_tpu.
@@ -58,6 +73,7 @@ It prints one JSON line of kernel records, then the device line
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import random
@@ -69,9 +85,18 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PINNING = os.path.join(REPO, "build", "sync_step_testnet_21.pinning.json")
 COMMITTEE_K = 18
 STEP_K = 21
-# the kernels the stage-1 prove launches (K2 only makes the SRS)
-PROVE_KERNELS = ("K1a_bucket_count", "K1b_bucket_scatter", "K1c_bucket_walk",
-                 "K1d_bucket_pieces", "K2b_bucket_aggregate", "K3_mont_mul", "K4_ntt")
+# K1's shared-base form, and its fixed-base form (its own scatter, K1_fixed)
+SHARED_K1 = ("K1a_bucket_count", "K1b_bucket_scatter", "K1c_bucket_walk",
+             "K1d_bucket_pieces")
+FIXED_K1 = ("K1a_bucket_count", "K1_fixed", "K1c_bucket_walk", "K1d_bucket_pieces")
+# the kernels the stage-1 prove launches in each MSM mode: vanilla and
+# glv+signed do not launch K2 (the slice runs it only to make the SRS), the
+# fixed mode launches it for its window table and cross-window fold
+PROVE_KERNELS = (*SHARED_K1, "K2b_bucket_aggregate", "K3_mont_mul", "K4_ntt")
+MODE_KERNELS = {"vanilla": PROVE_KERNELS, "glv+signed": PROVE_KERNELS,
+                "fixed": (*FIXED_K1, "K2_padd", "K2b_bucket_aggregate", "K3_mont_mul",
+                          "K4_ntt")}
+STEP_MODES = ("glv+signed", "fixed")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 at
 # 3.35 TB/s; 67 TFLOP/s of float32 FMA outside the tensor cores, i.e. 33.5 T
@@ -140,11 +165,15 @@ def k2b_work(MK, nwin: int, nb: int) -> tuple[int, int]:
     return nwin * (T * leaf + tree), leaf + 2 * levels
 
 
-def k1_bounds(torch, MK, digits, bstart, n: int, nkeys: int, nblk: int) -> dict:
+def k1_bounds(torch, MK, digits, bstart, n: int, nkeys: int, nblk: int,
+              fixed: bool = False) -> dict:
     """Per K1 kernel (bound ms, by, bytes, IMAD) for this run's digits:
     each input read once and each output written once; the adds are one
     per entry less one per nonempty bucket, those of the buckets that cross
-    walk blocks split off to K1d."""
+    walk blocks split off to K1d. The walk reads the points: the n of a
+    shared base once each (96 n bytes), or, in the fixed-base form, the
+    E distinct table rows its entries name (96 E bytes: each (window,
+    point) has its own row)."""
     nwin = digits.shape[0]
     b = bstart.to(torch.int64)
     E = int(b[-1])
@@ -155,10 +184,12 @@ def k1_bounds(torch, MK, digits, bstart, n: int, nkeys: int, nblk: int) -> dict:
     pieces = int(torch.where(multi, last - first + 1, 0).sum())
     d_adds = pieces - int(multi.sum())
     c_adds = E - int(nonempty.sum()) - d_adds
+    rows = E if fixed else (n if E else 0)
     sizes = {
         "K1a_bucket_count": (4 * nwin * n + 4 * nkeys * nblk, 0),
-        "K1b_bucket_scatter": (4 * nwin * n + 4 * n + 4 * nkeys * nblk + 4 * E, 0),
-        "K1c_bucket_walk": (4 * E + (96 * n if E else 0) + 4 * (nkeys + 1)
+        "K1_fixed" if fixed else "K1b_bucket_scatter": (
+            4 * nwin * n + 4 * n + 4 * nkeys * nblk + 4 * E, 0),
+        "K1c_bucket_walk": (4 * E + 96 * rows + 4 * (nkeys + 1)
                             + 96 * int(nonempty.sum()), c_adds * IMAD_PER_PADD),
         "K1d_bucket_pieces": (96 * (pieces + nkeys) + 4 * (nkeys + 1), d_adds * IMAD_PER_PADD),
     }
@@ -182,7 +213,35 @@ def bucket_multiset_err(torch, got, want, bstart) -> int:
 
 def profile_kernels(torch, fn, names: dict, reps: int) -> dict:
     """Device ms per call of fn() of each kernel in names ({record:
-    substring of its profiler name}), under torch.profiler."""
+    substring of its profiler name}), under torch.profiler. The profiler
+    now and then drops a kernel's events: a kernel it did not see is
+    profiled again, up to three traces, before the phase fails."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    got = {}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = {k: 0.0 for k in names}
+        for ev in prof.key_averages():
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            for k, sub in names.items():
+                if sub in ev.key:
+                    us[k] += ev.self_device_time_total
+        got.update({k: v / reps / 1e3 for k, v in us.items() if v and k not in got})
+        if len(got) == len(names):
+            return got
+    require(False, f"the profiler saw {sorted(set(names) - set(got))} run")
+
+
+def device_profile(torch, fn, reps: int = 2) -> tuple[float, float]:
+    """(device ms, device operations) per call of fn() under torch.profiler:
+    every kernel, copy and fill it puts on the card."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -191,16 +250,23 @@ def profile_kernels(torch, fn, names: dict, reps: int) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = {k: 0.0 for k in names}
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        for k, sub in names.items():
-            if sub in ev.key:
-                us[k] += ev.self_device_time_total
-    missing = [k for k, v in us.items() if v == 0]
-    require(not missing, f"the profiler saw {missing} run")
-    return {k: v / reps / 1e3 for k, v in us.items()}
+    evs = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
+    return (sum(ev.self_device_time_total for ev in evs) / reps / 1e3,
+            sum(ev.count for ev in evs) / reps)
+
+
+@contextlib.contextmanager
+def msm_mode(mode: str):
+    """SPECTRE_MSM_MODE=mode for the block's duration."""
+    old = os.environ.get("SPECTRE_MSM_MODE")
+    os.environ["SPECTRE_MSM_MODE"] = mode
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("SPECTRE_MSM_MODE")
+        else:
+            os.environ["SPECTRE_MSM_MODE"] = old
 
 
 def require(cond: bool, what: str) -> None:
@@ -296,18 +362,168 @@ def committee_kernels(torch, dev, gen, seed: int) -> dict:
     return out
 
 
+def k1_fixed_phase(torch, dev, gen, pts) -> dict:
+    """K1's fixed-base form at the step's geometry: the 2^21 points of pts
+    and random scalars, GLV-split on the card, their window table built by
+    the port. Returns the K1_fixed record."""
+    from spectre_tpu_torch.fields import bn254
+    from spectre_tpu_torch.ops import ec, field_ops as F, glv, kernel_lib as KL, limbs as L
+    from spectre_tpu_torch.ops import msm as M, msm_kernels as MK
+
+    n = pts.shape[0]
+    nbits = glv.glv_bits()
+    c = M.default_window_pallas(2 * n, signed=True)
+    nwin, nb = M.num_windows(c, nbits), 1 << (c - 1)
+    N, nkeys = 2 * n, nwin * nb
+    require((c, nwin, nbits) == (13, 10, 126), "the step's fixed-base geometry (c=13, 10 windows)")
+    sc = random_fr(torch, n, gen, dev)
+
+    # the GLV split on the card, against the host oracle on a prefix
+    split_dev_ms, split_ops = device_profile(torch, lambda: M.glv_scalars(sc))
+    split_ms = time_ms(torch, lambda: M.glv_scalars(sc), reps=3)
+    mags, negs = M.glv_scalars(sc)
+    ks = L.limbs_to_ints(F.tensor_to_u64(sc[:512]))
+    a1, a2, n1, n2 = glv.decompose_batch(ks)
+    got_mag = mags.cpu().numpy()
+    got_neg = negs[0].cpu().numpy() != 0
+    require((got_mag[:, :512].T == a1).all() and (got_mag[:, n:n + 512].T == a2).all()
+            and (got_neg[:512] == n1).all() and (got_neg[n:n + 512] == n2).all(),
+            "the GLV split on the card equals the host decomposition")
+    digits = M.signed_digits(mags, c, nwin)
+    del mags
+
+    # the window table: c doublings a window through K2, phi by K3
+    KL.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    table = M.build_window_table(pts, c, nwin)
+    torch.cuda.synchronize()
+    table_s = time.perf_counter() - t0
+    table_launches = {k: v for k, v in KL.launch_counts().items() if v}
+    g1 = bn254.g1_curve
+    p0 = ec.decode_points(pts[:1])[0]
+    corner = ec.decode_points(table[[0, 0, nwin - 1, nwin - 1], [0, n, 0, n]])
+    shift = g1.mul(p0, 1 << (c * (nwin - 1)))
+    require(corner == [p0, g1.mul(p0, glv.lam()), shift, g1.mul(shift, glv.lam())],
+            "the window table's rows are 2^(c w) [P ; phi(P)]")
+    table_bytes = table.numel() * table.element_size()
+    require(table_bytes == M.fixed_table_device_bytes(n, c, nbits), "the table's bytes")
+
+    # the kernel against its plain version, at full size
+    got = MK.bucket_sums_fixed_aos32(table, digits, negs, c)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    counts, bstart, entries_plain = MK.bucket_plan_plain(digits, negs, c, fixed=True)
+    want = MK.bucket_walk_plain(table.reshape(-1, 24), entries_plain, bstart)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = limb_err(F, ec.normalize_std(got), ec.normalize_std(want))
+    require(err == 0, "K1's fixed form equals its plain version after normalization")
+    got_counts, _, entries = MK.bucket_plan(digits, negs, c, fixed=True)
+    e_err = bucket_multiset_err(torch, entries, entries_plain, bstart)
+    require(torch.equal(got_counts, counts), "K1a (fixed form) equals its plain counts")
+    require(e_err == 0, "K1_fixed places each bucket's entries as the plain sort")
+    E = int(bstart[-1])
+    require(int((entries[:E].long() & 0x7FFFFFFF).max()) >= (nwin - 1) * N,
+            "the fixed form's entries reach the last window's rows")
+    del want, entries, entries_plain, counts
+
+    # the wrapper, and its plan (K1a, scan, K1_fixed) and walk (K1c, K1d)
+    # apart, by CUDA events: on the H100 machine the profiler has dropped
+    # this phase's kernels and given them half or twice their time
+    rows = table.reshape(-1, 24)
+    wrapper_ms = time_ms(torch, lambda: MK.bucket_sums_fixed_aos32(table, digits, negs, c),
+                         reps=3)
+    _, bstart_f, entries_f = MK.bucket_plan(digits, negs, c, fixed=True)
+    plan_ms = time_ms(torch, lambda: MK.bucket_plan(digits, negs, c, fixed=True), reps=3)
+    walk_ms = time_ms(torch, lambda: MK.bucket_walk(rows, entries_f, bstart_f), reps=3)
+    del entries_f
+    P, nblk = MK.plan_blocks(N)
+    bounds = k1_bounds(torch, MK, digits, bstart, N, nkeys, nblk, fixed=True)
+    total = bound_ms(sum(b[2] for b in bounds.values()), sum(b[3] for b in bounds.values()))
+    w_idx, p_idx = torch.nonzero(digits, as_tuple=True)
+    keys = w_idx * nb + digits[w_idx, p_idx].to(torch.int64).abs() - 1
+    library = time_ms(torch, lambda: torch.argsort(keys, stable=True), reps=3)
+    del w_idx, p_idx, keys
+    # the glv mode's shared form on the same digits, over [P ; phi(P)]
+    base2 = table[0]
+    glv_ms = time_ms(torch, lambda: MK.bucket_sums_aos32(base2, digits, negs, c), reps=3)
+    _, bstart_s, entries_s = MK.bucket_plan(digits, negs, c)
+    glv_plan_ms = time_ms(torch, lambda: MK.bucket_plan(digits, negs, c), reps=3)
+    glv_walk_ms = time_ms(torch, lambda: MK.bucket_walk(base2, entries_s, bstart_s), reps=3)
+    del entries_s, bstart_s
+
+    # the cross-window fold (K2) and K2b over one window of nb buckets
+    fold_ms = time_ms(torch, lambda: MK.fold_windows_aos32(got, nwin, nb), reps=5)
+    merged = MK.fold_windows_aos32(got, nwin, nb)
+    k2b_err = limb_err(F, MK.aggregate_buckets_aos32(merged, 1, nb),
+                       MK.aggregate_buckets_plain(merged, 1, nb))
+    require(k2b_err == 0, "K2b over one window of 4096 buckets equals its plain version")
+    k2b1_ms = time_ms(torch, lambda: MK.aggregate_buckets_aos32(merged, 1, nb), reps=10)
+    adds, chain = k2b_work(MK, 1, nb)
+    k2b1_bound = bound_ms(nb * 96 + 96, 2 * (nb - 1) * IMAD_PER_PADD)
+    del got, merged, table, digits, base2, rows
+
+    # the whole MSM per mode on these scalars: the same point
+    scm = F.to_mont(F.fr_ctx(), sc)
+    want_pt = M.msm_base(pts, scm, mode="vanilla")
+    msm_s = {}
+    for mode in ("glv+signed", "fixed"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pt = M.msm_base(pts, scm, mode=mode, base_key="chip-smoke-k1-fixed")
+        msm_s[mode] = time.perf_counter() - t0
+        require(pt == want_pt, f"the {mode} MSM equals the vanilla MSM at n = 2^21")
+    M.clear_tables()
+    torch.cuda.empty_cache()
+
+    rec = dict(
+        ms=wrapper_ms, plain_ms=plain_ms, bound_ms=total[0], bound_by=total[1],
+        max_abs_err=max(err, e_err), library_ms=library,
+        library_call="torch.argsort(stable=True) on the fixed form's bucket keys",
+        shape=f"2^{n.bit_length() - 1} points GLV-expanded to N=2^{N.bit_length() - 1}, "
+              f"c={c}, {nwin} windows, random scalars; the plain version at full size",
+        note="the fixed-base form's four launches (K1a, the K1_fixed scatter, K1c, K1d) "
+             "together; its launch count is the scatter's",
+        entries=E, adds=E - int((bstart[1:] > bstart[:-1]).sum()),
+        plan_ms=plan_ms, walk_ms=walk_ms,
+        kernels={k: dict(bound_ms=bounds[k][0], bound_by=bounds[k][1]) for k in FIXED_K1},
+        glv_shared_form=dict(ms=glv_ms, plan_ms=glv_plan_ms, walk_ms=glv_walk_ms),
+        glv_split=dict(ms=split_ms, device_ms=split_dev_ms, device_ops=split_ops),
+        table=dict(seconds=table_s, bytes=table_bytes,
+                   reference_bytes=M.fixed_table_bytes(n, c, nbits),
+                   budget_bytes=M.TABLES.budget, launches=table_launches),
+        fold_ms=fold_ms,
+        k2b_one_window=dict(ms=k2b1_ms, bound_ms=k2b1_bound[0], bound_by=k2b1_bound[1],
+                            adds=adds, dependent_adds=chain, max_abs_err=k2b_err),
+        msm_seconds=msm_s)
+    log(f"K1-fixed: equal to its plain version at full size; wrapper {wrapper_ms:.3f} ms "
+        f"(plain {plain_ms:.0f} ms, bound {total[0]:.3f} ms by {total[1]}), {E} entries; "
+        f"plan (K1a, scan, K1_fixed) {plan_ms:.3f} ms, walk (K1c, K1d) {walk_ms:.3f} ms "
+        f"(K1c bound {bounds['K1c_bucket_walk'][0]:.3f}); glv shared form on the same digits "
+        f"{glv_ms:.3f} ms: plan {glv_plan_ms:.3f}, walk {glv_walk_ms:.3f}")
+    log(f"  GLV split: {split_ms:.3f} ms ({split_dev_ms:.3f} ms of device time in "
+        f"{split_ops:.0f} device operations); table {table_s:.3f} s, {table_bytes} bytes "
+        f"(reference count {rec['table']['reference_bytes']}, budget {M.TABLES.budget}), "
+        f"launches {json.dumps(table_launches)}; fold {fold_ms:.3f} ms; K2b one window "
+        f"{k2b1_ms:.3f} ms (bound {k2b1_bound[0]:.4f}); MSM s {json.dumps(msm_s)}")
+    return rec
+
+
 def circuit_path(torch, dev, seed: int, circuit, k: int, make_args, shape,
-                 describe, flip: int, check_args=None) -> dict:
+                 describe, flip: int, check_args=None, modes=()) -> dict:
     """One application circuit at its pinned testnet shape, through the
     entry points a user calls: args, witness, pinning (Pinning.check against
     the tracked file), SRS, keygen, prove, verify. shape(cfg, args) is the
     tuple the pinned shape must give, with describe as its name; flip, the
     instance flipped for the negative verify; check_args(spec), an extra
-    check of the args. Returns the phase seconds, the prove's phases, peak
-    memory and launch counts."""
+    check of the args; modes, the MSM modes whose proofs of the same
+    witness, key and blinding seed must equal the vanilla proof. Returns the
+    phase seconds, the prove's phases, peak memory and launch counts, and
+    per mode the same of its prove."""
     from spectre_tpu_torch import spec as SPEC
     from spectre_tpu_torch.fields import bn254
-    from spectre_tpu_torch.ops import kernel_lib as KL
+    from spectre_tpu_torch.ops import kernel_lib as KL, msm as M
     from spectre_tpu_torch.plonk.prover import PhaseTimer
     from spectre_tpu_torch.plonk.srs import PARAMS_DIR, SRS
 
@@ -375,8 +591,42 @@ def circuit_path(torch, dev, seed: int, circuit, k: int, make_args, shape,
     log(f"  proof {len(proof)} bytes, verified, flipped instance rejected; instances "
         f"{[hex(v) for v in instances]}; peak device memory {peak:.1f} GiB")
     log(f"  launches: keygen {json.dumps(keygen_counts)}, prove {json.dumps(prove_counts)}")
+
+    by_mode = {}
+    for mode in modes:
+        M.clear_tables()
+        torch.cuda.empty_cache()
+        timer_m = PhaseTimer(torch.device(dev))
+        r = random.Random(seed)
+        degraded = M.COUNTERS["msm_fixed_degraded"]
+        torch.cuda.synchronize()
+        KL.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with msm_mode(mode):
+            proof_m = circuit.prove(pk, srs, args, spec, device=dev, ctx=ctx,
+                                    blinding_rng=lambda: r.randrange(bn254.R), timer=timer_m)
+        torch.cuda.synchronize()
+        prove_s = time.perf_counter() - t0
+        counts_m = KL.launch_counts()
+        peak_m = torch.cuda.max_memory_allocated() / 2 ** 30
+        table_bytes = M.lru_stats()["bytes"]
+        require(proof_m == proof, f"the {mode} {name} proof equals the vanilla proof byte for byte")
+        require(circuit.verify(pk.vk, srs, instances, proof_m, device=dev),
+                f"the {mode} {name} proof verifies")
+        require(M.COUNTERS["msm_fixed_degraded"] == degraded,
+                f"no fixed-base degrade in the {mode} prove")
+        for kernel in MODE_KERNELS[mode]:
+            require(counts_m[kernel] > 0, f"{kernel} launched in the {mode} {name} prove")
+        log(f"  {mode}: prove {prove_s:.3f} s, equal to the vanilla proof, verified; phases "
+            + json.dumps({key: round(v, 3) for key, v in timer_m.seconds.items()})
+            + f"; peak {peak_m:.1f} GiB, tables {table_bytes} bytes; launches "
+            + json.dumps({key: v for key, v in counts_m.items() if v}))
+        by_mode[mode] = dict(prove_s=prove_s, prove_phases=timer_m.seconds, peak_gib=peak_m,
+                             table_bytes=table_bytes, launches=counts_m)
+    M.clear_tables()
     return dict(phases=phases, prove_phases=timer.seconds, peak_gib=peak,
-                keygen_launches=keygen_counts, prove_launches=prove_counts)
+                keygen_launches=keygen_counts, prove_launches=prove_counts, modes=by_mode)
 
 
 def committee_path(torch, dev, seed: int) -> dict:
@@ -416,7 +666,7 @@ def step_path(torch, dev, seed: int) -> dict:
         lambda cfg, a: (cfg.k, cfg.num_advice, cfg.num_lookup_advice, cfg.lookup_bits,
                         len(a.pubkeys_uncompressed)) == (STEP_K, 16, 3, 18, 512),
         "512 pubkeys, k=21, 16 advice, 3 lookup columns, lookup_bits 18", flip=1,
-        check_args=wrong_signature_refused)
+        check_args=wrong_signature_refused, modes=STEP_MODES)
 
 
 def main(argv=None) -> int:
@@ -445,7 +695,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     fr, fq = F.fr_ctx(), F.fq_ctx()
     # K1's four kernels and the name each has in a profiler trace
-    k1_kernels = {k: v.symbol for k, v in KL.KERNELS.items() if k.startswith("K1")}
+    k1_kernels = {k: KL.KERNELS[k].symbol for k in SHARED_K1}
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     records = {}
 
@@ -456,6 +706,17 @@ def main(argv=None) -> int:
     log(f"gpu: {smi}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    # the fixed-base table budget: the reference's rule (SPECTRE_MSM_TABLE_MB,
+    # else min(8 GiB, a quarter of host RAM)) must hold the step's table
+    need = M.fixed_table_bytes(1 << STEP_K, M.default_window_pallas(2 << STEP_K, signed=True),
+                               126)
+    if M.TABLES.budget < need:
+        os.environ["SPECTRE_MSM_TABLE_MB"] = str(-(-need >> 20))
+        M.TABLES.budget = M.table_budget_bytes()
+        log(f"msm table budget: host RAM puts the rule under the step's table; "
+            f"SPECTRE_MSM_TABLE_MB set to {os.environ['SPECTRE_MSM_TABLE_MB']}")
+    log(f"msm table budget {M.TABLES.budget} bytes; the step's table {need} bytes by the "
+        f"reference's count, {need // 2} in the port's layout")
 
     # --- build -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -689,7 +950,12 @@ def main(argv=None) -> int:
     require(M.msm_base(pts, pre) == host, "MSM of a 2^10 prefix equals the host sum")
     require(g1.add(M.msm_base(pts, pre), M.msm_base(pts, rest)) == full, "MSM is linear")
     log(f"msm: n=2^21 {msm_s * 1e3:.1f} ms; prefix equals host sum; linear")
-    del soa, sc, pre, rest, pts
+    del soa, sc, pre, rest
+    torch.cuda.empty_cache()
+
+    # --- K1-fixed --------------------------------------------------------------
+    records["K1_fixed"] = k1_fixed_phase(torch, dev, gen, pts)
+    del pts
 
     # --- devices: one circuit, GPU and CPU, same proof bytes ------------------
     small = CircuitConfig(k=6, num_advice=2, num_lookup_advice=1, num_fixed=1,
@@ -703,7 +969,21 @@ def main(argv=None) -> int:
         proofs[d] = prove(pk6, s6, fc.assignment, device=d,
                           blinding_rng=lambda: r.randrange(bn254.R))
     require(proofs["cuda"] == proofs["cpu"], "GPU and CPU proofs are byte-identical")
-    log("devices: K=6 proof bytes equal on cuda and cpu")
+    for d in ("cuda", "cpu"):
+        s6 = SRS.unsafe_setup(6, device=d)
+        pk6 = keygen(s6, small, fc.fixed, fc.selectors, fc.copies, device=d)
+        r = random.Random(args.seed)
+        KL.reset_launch_counts()
+        with msm_mode("fixed"):
+            fixed_proof = prove(pk6, s6, fc.assignment, device=d,
+                                blinding_rng=lambda: r.randrange(bn254.R))
+        require(fixed_proof == proofs["cuda"], f"the fixed-mode K=6 proof on {d} equals "
+                                               "the vanilla proof")
+        if d == "cuda":
+            require(KL.launch_counts()["K1_fixed"] > 0, "the fixed form launched at K=6")
+    M.clear_tables()
+    log("devices: K=6 proof bytes equal on cuda and cpu, vanilla and under "
+        "SPECTRE_MSM_MODE=fixed")
 
     # --- slice ---------------------------------------------------------------
     cfg = config_from_pinning(PINNING, args.k)
@@ -757,9 +1037,13 @@ def main(argv=None) -> int:
     kernels = []
     for name, info in KL.KERNELS.items():
         rec = dict(records[name])
+        by_mode = {mode: v["launches"][name] for mode, v in step["modes"].items()}
         kernels.append({
             "name": name, "route": "cuda", "source": info.source,
-            "replaces": info.replaces, "launches": counts[name],
+            "replaces": info.replaces,
+            # the fixed form's path is the fixed-mode step prove
+            "launches": by_mode["fixed"] if name == "K1_fixed" else counts[name],
+            "step_launches_by_mode": by_mode,
             "committee_launches": committee["prove_launches"][name],
             "committee_keygen_launches": committee["keygen_launches"][name],
             "step_launches": step["prove_launches"][name],

@@ -17,6 +17,9 @@ witness from default_sync_step_args). Prints the
 device's busy and idle share of the traced prove, per-phase seconds, the
 device time and launches of each of the port's kernels, the top device rows
 by time, then the same as one JSON line. Exits non-zero without CUDA.
+The MSMs run in the mode SPECTRE_MSM_MODE names (vanilla by default); under
+fixed, the untraced prove builds the window table and the traced one
+reuses it.
 """
 
 from __future__ import annotations
@@ -48,7 +51,7 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from spectre_tpu_torch.fields import bn254
-    from spectre_tpu_torch.ops import kernel_lib as KL
+    from spectre_tpu_torch.ops import kernel_lib as KL, msm as MSM
     from spectre_tpu_torch.plonk.backend import TorchBackend
     from spectre_tpu_torch.plonk.keygen import keygen
     from spectre_tpu_torch.plonk.prover import PhaseTimer, prove
@@ -119,7 +122,8 @@ def main(argv=None) -> int:
                    "count": sum(n for _, n, key in rows if info.symbol in key)}
             for name, info in KL.KERNELS.items()}
     out = {
-        "gpu": smi, "circuit": args.circuit, "k": cfg.k, "prove_s_untraced": untraced,
+        "gpu": smi, "circuit": args.circuit, "k": cfg.k, "msm_mode": MSM.msm_mode(),
+        "prove_s_untraced": untraced,
         "prove_s_traced": traced, "peak_device_gib": peak_gib,
         "device_busy_s": busy_us / 1e6, "device_busy_share": busy_us / 1e6 / traced,
         "phases_s": timer.seconds,
@@ -127,7 +131,8 @@ def main(argv=None) -> int:
         "top": [{"device_ms": us / 1e3, "count": n, "name": name[:120]}
                 for us, n, name in rows[:25]],
     }
-    print(f"{args.circuit} k={cfg.k}: prove {untraced:.3f} s untraced (peak device memory "
+    print(f"{args.circuit} k={cfg.k} msm mode {out['msm_mode']}: prove {untraced:.3f} s "
+          f"untraced (peak device memory "
           f"{peak_gib:.1f} GiB), {traced:.3f} s traced; device busy {busy_us / 1e6:.3f} s "
           f"({100 * out['device_busy_share']:.1f}% of the traced prove)")
     print("phases (s): " + json.dumps({k: round(v, 3) for k, v in timer.seconds.items()}))

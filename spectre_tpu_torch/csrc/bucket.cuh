@@ -6,7 +6,9 @@
 //
 // A (window w, point i) pair with digit d != 0 goes to bucket key
 // K = w * nb + |d| - 1 as the entry i | sign << 31, sign = (d < 0) xor
-// negs[i]. The four steps:
+// negs[i] (in the fixed-base form, where each window reads its own table,
+// the entry (w * n + i) | sign << 31; nothing after the scatter tells the
+// two forms apart). The four steps:
 //
 //   K1a count    per (window, block of P points) histogram of the keys in
 //                shared memory, written to counts[K * nblk + block]; an
@@ -63,15 +65,21 @@ SPT_HD void k1_count_points(int w, long i0, long i1, long tid, long nthr,
 }
 
 // Place the entries of window w, points [i0, i1), at cursor[|d| - 1]++.
+// The entry names point row w * stride + i: stride 0 for a base shared by
+// every window, n for the fixed-base form, whose [nwin * n, 24] table holds
+// window w's own points T[w] at rows [w * n, (w + 1) * n). The wrapper
+// keeps nwin * n below 2^31, so the row fits beside the sign bit.
 SPT_HD void k1_scatter_points(int w, long i0, long i1, long tid, long nthr,
                               const int32_t* digits, const int32_t* negs,
-                              long n, int32_t* cursor, int32_t* entries) {
+                              long n, long stride, int32_t* cursor,
+                              int32_t* entries) {
+  const uint32_t row0 = (uint32_t)(w * stride);
   for (long i = i0 + tid; i < i1; i += nthr) {
     const int d = digits[w * n + i];
     if (d == 0) continue;
     const uint32_t sign = (uint32_t)((d < 0) != (negs[i] != 0));
     const int pos = SPT_ATOMIC_ADD(&cursor[iabs(d) - 1], 1);
-    entries[pos] = (int32_t)((uint32_t)i | (sign << 31));
+    entries[pos] = (int32_t)((row0 + (uint32_t)i) | (sign << 31));
   }
 }
 

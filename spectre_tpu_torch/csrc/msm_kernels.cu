@@ -15,7 +15,11 @@
 // window; held far from it by its chain of dependent adds, one block a
 // window being all the parallelism 24 windows offer.
 //
-// K1 replaces `_bucket_sums` (msm_pallas.py:399, body `_k_bucket_accumulate`).
+// K1 replaces `_bucket_sums` (msm_pallas.py:399, body `_k_bucket_accumulate`)
+// in both its forms: a base shared by every window (`_bucket_windows_jit`
+// :439) and the fixed-base window tables (`_bucket_fixed_jit` :460), where
+// window w reads its own points T[w] = 2^(c w) [P ; phi(P)]. The forms
+// differ only in K1b's entries (k1_scatter_kernel, k1_scatter_fixed_kernel).
 // The Pallas design keeps every bucket resident in VMEM and adds each point
 // into all 2^(c-1) bucket columns; neither carries over to a 227 KB block.
 // Here four kernels (bodies and design in bucket.cuh) sort the (window,
@@ -71,11 +75,11 @@ __global__ void k1_count_kernel(const int32_t* __restrict__ digits, long n,
 }
 
 // K1b: the same grid; each block's cursors start at its scanned offsets.
-__global__ void k1_scatter_kernel(const int32_t* __restrict__ digits,
-                                  const int32_t* __restrict__ negs, long n,
-                                  int nb, long P, long nblk,
-                                  const int32_t* __restrict__ offs,
-                                  int32_t* __restrict__ entries) {
+__device__ void k1_scatter_block(const int32_t* __restrict__ digits,
+                                 const int32_t* __restrict__ negs, long n,
+                                 int nb, long P, long nblk, long stride,
+                                 const int32_t* __restrict__ offs,
+                                 int32_t* __restrict__ entries) {
   extern __shared__ int32_t cursor[];
   const int w = blockIdx.y;
   const long pb = blockIdx.x;
@@ -84,7 +88,27 @@ __global__ void k1_scatter_kernel(const int32_t* __restrict__ digits,
   __syncthreads();
   const long i0 = pb * P, i1 = i0 + P < n ? i0 + P : n;
   spt::k1_scatter_points(w, i0, i1, threadIdx.x, blockDim.x, digits, negs, n,
-                         cursor, entries);
+                         stride, cursor, entries);
+}
+
+// shared base: every window's entries name rows of the one base
+__global__ void k1_scatter_kernel(const int32_t* __restrict__ digits,
+                                  const int32_t* __restrict__ negs, long n,
+                                  int nb, long P, long nblk,
+                                  const int32_t* __restrict__ offs,
+                                  int32_t* __restrict__ entries) {
+  k1_scatter_block(digits, negs, n, nb, P, nblk, 0, offs, entries);
+}
+
+// fixed base (msm_pallas.py:460 `_bucket_fixed_jit`): window w's entries
+// name rows w * n + i of the [nwin * n, 24] window table. A kernel of its
+// own so that a profile and the launch counts tell the two forms apart.
+__global__ void k1_scatter_fixed_kernel(const int32_t* __restrict__ digits,
+                                        const int32_t* __restrict__ negs,
+                                        long n, int nb, long P, long nblk,
+                                        const int32_t* __restrict__ offs,
+                                        int32_t* __restrict__ entries) {
+  k1_scatter_block(digits, negs, n, nb, P, nblk, n, offs, entries);
 }
 
 __device__ spt::Point shfl_down_point(const spt::Point& p, int off) {
@@ -216,13 +240,16 @@ extern "C" int spt_k1_count(const void* digits, long nwin, long n, int nb,
   return (int)cudaGetLastError();
 }
 
+// fixed != 0: the fixed-base form's scatter (entries w * n + i)
 extern "C" int spt_k1_scatter(const void* digits, const void* negs, long nwin,
                               long n, int nb, long P, long nblk,
-                              const void* offs, void* entries, void* stream) {
+                              const void* offs, void* entries, int fixed,
+                              void* stream) {
   const size_t smem = (size_t)nb * sizeof(int32_t);
-  if (int rc = allow_smem(k1_scatter_kernel, smem)) return rc;
-  k1_scatter_kernel<<<dim3((unsigned)nblk, (unsigned)nwin), kPlanThreads,
-                      smem, (cudaStream_t)stream>>>(
+  const auto kernel = fixed ? k1_scatter_fixed_kernel : k1_scatter_kernel;
+  if (int rc = allow_smem(kernel, smem)) return rc;
+  kernel<<<dim3((unsigned)nblk, (unsigned)nwin), kPlanThreads, smem,
+           (cudaStream_t)stream>>>(
       (const int32_t*)digits, (const int32_t*)negs, n, nb, P, nblk,
       (const int32_t*)offs, (int32_t*)entries);
   return (int)cudaGetLastError();

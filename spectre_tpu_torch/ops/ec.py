@@ -27,6 +27,7 @@ import torch
 
 from ..fields import bn254
 from . import field_ops as F
+from . import glv
 
 NL = F.NLIMBS
 ROWS = 3 * NL
@@ -139,6 +140,23 @@ def normalize_std(aos: torch.Tensor) -> torch.Tensor:
     ax = F.from_mont(ctx, F.mont_mul(ctx, x, zi))
     ay = F.from_mont(ctx, F.mont_mul(ctx, y, zi))
     return torch.cat([ax, ay], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# the GLV endomorphism
+# ---------------------------------------------------------------------------
+
+def endo(aos: torch.Tensor) -> torch.Tensor:
+    """phi(X:Y:Z) = (beta X : Y : Z) on AoS32 points [..., 24] (the
+    reference's `ec.endo`): one Fq product of every X by beta, K3 on a CUDA
+    tensor with beta read as its one-row second operand. phi fixes infinity
+    (beta 0 = 0) and keeps points on the curve, so the complete formulas
+    cover its images as they cover the base."""
+    flat = aos.reshape(-1, 24)
+    fq = _fq()
+    bx = F.mont_mul(fq, flat[:, :8].contiguous().view(torch.int64),
+                    F.const(fq, glv.beta(), aos.device))
+    return torch.cat([bx.view(torch.int32), flat[:, 8:]], dim=1).reshape(aos.shape)
 
 
 # ---------------------------------------------------------------------------

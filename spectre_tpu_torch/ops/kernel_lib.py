@@ -43,7 +43,7 @@ LIBRARIES = {
         "spt_k2b_aggregate": [_VP, _LONG, _INT, _VP, _VP],
         "spt_k1_count": [_VP, _LONG, _LONG, _INT, _LONG, _LONG, _VP, _VP],
         "spt_k1_scatter": [_VP, _VP, _LONG, _LONG, _INT, _LONG, _LONG, _VP, _VP,
-                           _VP],
+                           _INT, _VP],
         "spt_k1_walk": [_VP, _VP, _VP, _INT, _LONG, _VP, _VP, _VP],
         "spt_k1_pieces": [_VP, _INT, _VP, _VP, _VP],
     }),
@@ -68,10 +68,15 @@ _MSM_CU = "spectre_tpu_torch/csrc/msm_kernels.cu"
 _FIELD_CU = "spectre_tpu_torch/csrc/field_kernels.cu"
 _K1_REPLACES = "spectre_tpu/ops/msm_pallas.py:399"
 
-# K1 is four kernels behind one wrapper (ops/msm_kernels.py bucket_sums)
+# K1 is four kernels behind one wrapper (ops/msm_kernels.py bucket_sums). Its
+# fixed-base form (bucket_sums_fixed) runs K1a, K1c and K1d as they are and
+# its own scatter, K1_fixed, counted apart from the shared form's K1b.
 KERNELS = {k.name: k for k in (
     KernelInfo("K1a_bucket_count", _MSM_CU, _K1_REPLACES, "k1_count_kernel"),
     KernelInfo("K1b_bucket_scatter", _MSM_CU, _K1_REPLACES, "k1_scatter_kernel"),
+    KernelInfo("K1_fixed", _MSM_CU,
+               "spectre_tpu/ops/msm_pallas.py:399 (fixed-base form, via "
+               "_bucket_fixed_jit :460)", "k1_scatter_fixed_kernel"),
     KernelInfo("K1c_bucket_walk", _MSM_CU, _K1_REPLACES, "k1_walk_kernel"),
     KernelInfo("K1d_bucket_pieces", _MSM_CU, _K1_REPLACES, "k1_pieces_kernel"),
     KernelInfo("K2_padd", _MSM_CU, "spectre_tpu/ops/msm_pallas.py:222", "padd_kernel"),

@@ -31,6 +31,16 @@ random ones. No host sync, no sort from a library. Bound: integer
 multiply throughput, one complete add per nonzero digit less one per
 bucket; the gathers of 96-byte points in bucket order are the memory side.
 
+K1's fixed-base form replaces the same `pallas_call` with points
+[nwin, 48, N] (`_bucket_fixed_jit` :460, `msm_bucket_fixed` :492): window w
+reads its own table T[w] = 2^(c w) [P ; phi(P)]. It runs the same four
+kernels on the table flattened to [nwin * N, 24], with its own scatter
+(K1_fixed) whose entries name row w * N + i instead of i; the walk gathers
+from the table as it gathers from a shared base. Each entry is then a row
+read once, so the gathers move 96 bytes an entry where the shared base is
+read with reuse; the adds, one per entry, still bound it. The cross-window
+merge after it is a K2 tree (`fold_windows_aos32`).
+
 K2b replaces `msm_pallas.py::_aggregate_buckets_soa` (:356, an XLA loop
 over K2: per digit bit a pairwise tree over the buckets with that bit set,
 then a double-and-add over the bits; 32 K2 launches, 270 K adds at c = 11).
@@ -42,9 +52,9 @@ integer multiply throughput for those adds; with one block a window the
 card is far from it, held by the chain of ~31 dependent adds a window.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
-launches its kernel or raises. `padd_soa_plain`, `bucket_sums_plain` and
-`aggregate_buckets_plain` run on any device, for the tests and
-chip_smoke.py.
+launches its kernel or raises. `padd_soa_plain`, `bucket_sums_plain`,
+`bucket_sums_fixed_plain` and `aggregate_buckets_plain` run on any device,
+for the tests and chip_smoke.py.
 """
 
 from __future__ import annotations
@@ -164,17 +174,20 @@ def bucket_offsets(counts: torch.Tensor, nkeys: int, nblk: int):
     return offs, bstart.contiguous()
 
 
-def bucket_scatter_plain(digits: torch.Tensor, negs: torch.Tensor, nb: int) -> torch.Tensor:
-    """Plain version of K1b: the entries point | sign << 31 of the nonzero
-    digits, sorted by key w * nb + |d| - 1 (by point inside a key), in an
-    int32 [nwin * n] whose first E slots are used."""
+def bucket_scatter_plain(digits: torch.Tensor, negs: torch.Tensor, nb: int,
+                         stride: int = 0) -> torch.Tensor:
+    """Plain version of K1b: the entries row | sign << 31 of the nonzero
+    digits, row = w * stride + point (stride 0 for a shared base, n for the
+    fixed-base form's window table), sorted by key w * nb + |d| - 1 (by
+    point inside a key), in an int32 [nwin * n] whose first E slots are
+    used."""
     nwin, n = digits.shape
     w_idx, p_idx = torch.nonzero(digits, as_tuple=True)
     d = digits[w_idx, p_idx].to(torch.int64)
     keys = w_idx * nb + d.abs() - 1
     sign = (d < 0) ^ (negs[0, p_idx] != 0)
     order = torch.argsort(keys, stable=True)
-    e = p_idx[order] | (sign[order].to(torch.int64) << 31)
+    e = (w_idx[order] * stride + p_idx[order]) | (sign[order].to(torch.int64) << 31)
     out = torch.zeros(nwin * n, dtype=torch.int32, device=digits.device)
     out[:e.shape[0]] = (e - ((e >> 31) << 32)).to(torch.int32)
     return out
@@ -197,14 +210,15 @@ def bucket_walk_plain(pts: torch.Tensor, entries: torch.Tensor,
     rank = torch.arange(ckey.numel(), device=dev) - (torch.cumsum(nch, 0) - nch)[ckey]
     cstart = starts[ckey] + rank * size
     clen = torch.clamp(starts[ckey] + counts[ckey] - cstart, max=size)
-    rows = ec.aos32_to_rows16(pts)                              # [n, 48]
     acc = ec.aos32_to_rows16(ec.inf_aos32(ckey.shape[0], dev))
     for j in range(size):
         act = torch.nonzero(clen > j, as_tuple=True)[0]
         if act.numel() == 0:
             break
         e = entries[cstart[act] + j].to(torch.int64)
-        pt = ec.cneg16(e < 0, rows[e & 0x7FFFFFFF].t())         # [48, A]
+        # only the gathered rows widen to 16-bit limbs: a fixed-base table
+        # of 2^22 points x 10 windows would take 16 GB as int64 limbs
+        pt = ec.cneg16(e < 0, ec.aos32_to_rows16(pts[e & 0x7FFFFFFF]).t())   # [48, A]
         acc[act] = ec.padd16(acc[act].t(), pt).t()
     sums, keys = _fold(acc, ckey, _padd_rows16)
     out = ec.inf_aos32(nkeys, dev)
@@ -292,29 +306,31 @@ def bucket_sums_plain(points: torch.Tensor, digits: torch.Tensor,
     return buckets_soa(sums, digits.shape[0], 1 << (c - 1))
 
 
-def bucket_plan_plain(digits: torch.Tensor, negs: torch.Tensor, c: int):
-    """Plain version of K1a, the scan and K1b: (counts, bstart, entries),
-    the entries in a stable sort by key. Any device."""
+def bucket_plan_plain(digits: torch.Tensor, negs: torch.Tensor, c: int,
+                      fixed: bool = False):
+    """Plain version of K1a, the scan and K1b (K1_fixed's scatter where
+    `fixed`): (counts, bstart, entries), the entries in a stable sort by
+    key. Any device."""
     nwin, n = digits.shape
     nb = 1 << (c - 1)
     P, nblk = plan_blocks(n)
     counts = bucket_counts_plain(digits, nb, P)
     _, bstart = bucket_offsets(counts, nwin * nb, nblk)
-    return counts, bstart, bucket_scatter_plain(digits, negs, nb)
+    return counts, bstart, bucket_scatter_plain(digits, negs, nb, n if fixed else 0)
 
 
-def _bucket_sums_aos32_plain(pts, digits, negs, c):
-    _, bstart, entries = bucket_plan_plain(digits, negs, c)
+def _bucket_sums_aos32_plain(pts, digits, negs, c, fixed=False):
+    _, bstart, entries = bucket_plan_plain(digits, negs, c, fixed)
     return bucket_walk_plain(pts, entries, bstart)
 
 
-def bucket_plan(digits: torch.Tensor, negs: torch.Tensor, c: int):
+def bucket_plan(digits: torch.Tensor, negs: torch.Tensor, c: int, fixed: bool = False):
     """The entries of the nonzero digits sorted by bucket key: (counts,
     bstart, entries) as `bucket_plan_plain` defines them (the order inside
-    a bucket is free). K1a, the scan and K1b on a CUDA tensor; the plain
-    version on a CPU tensor."""
+    a bucket is free). K1a, the scan and K1b (K1_fixed's scatter where
+    `fixed`) on a CUDA tensor; the plain version on a CPU tensor."""
     if not digits.is_cuda:
-        return bucket_plan_plain(digits, negs, c)
+        return bucket_plan_plain(digits, negs, c, fixed)
     nwin, n = digits.shape
     nb = 1 << (c - 1)
     nkeys = nwin * nb
@@ -333,10 +349,11 @@ def bucket_plan(digits: torch.Tensor, negs: torch.Tensor, c: int):
                                      counts.data_ptr(), stream), "K1a_bucket_count")
     offs, bstart = bucket_offsets(counts, nkeys, nblk)
     entries = torch.empty(max(nwin * n, 1), dtype=torch.int32, device=dev)
-    KL.KERNELS["K1b_bucket_scatter"].launches += 1
+    scatter = "K1_fixed" if fixed else "K1b_bucket_scatter"
+    KL.KERNELS[scatter].launches += 1
     KL.check_launch(lib.spt_k1_scatter(digits.data_ptr(), negs.data_ptr(), nwin, n, nb,
                                        P, nblk, offs.data_ptr(), entries.data_ptr(),
-                                       stream), "K1b_bucket_scatter")
+                                       int(fixed), stream), scatter)
     return counts, bstart, entries
 
 
@@ -383,6 +400,86 @@ def bucket_sums_aos32(pts: torch.Tensor, digits: torch.Tensor, negs: torch.Tenso
         return _bucket_sums_aos32_plain(pts, digits, negs, c)
     _, bstart, entries = bucket_plan(digits, negs, c)
     return bucket_walk(pts, entries, bstart)
+
+
+# ---------------------------------------------------------------------------
+# K1, fixed-base form
+# ---------------------------------------------------------------------------
+
+def _check_fixed_inputs(table, digits):
+    """The fixed form's own checks on an AoS32 table [nwin, N, 24]."""
+    if table.dim() != 3 or table.shape[2] != 24:
+        raise ValueError(f"fixed table: expected [nwin, N, 24], got {tuple(table.shape)}")
+    nwin, N = table.shape[0], table.shape[1]
+    if digits.shape != (nwin, N):
+        raise ValueError(f"digits: expected [{nwin}, {N}], got {tuple(digits.shape)}")
+    if nwin * N >= 1 << 31:
+        raise ValueError(f"fixed table of {nwin} x {N} rows: an entry holds a row below 2^31")
+
+
+def bucket_sums_fixed_aos32(table: torch.Tensor, digits: torch.Tensor,
+                            negs: torch.Tensor, c: int) -> torch.Tensor:
+    """K1's fixed-base form (the reference's `_bucket_sums` with points
+    [nwin, 48, N], driven by `_bucket_fixed_jit`): window w adds its own
+    points table[w] (T[w] = 2^(c w) [P ; phi(P)]) into its buckets. table
+    AoS32 [nwin, N, 24], digits [nwin, N] int32, negs [1, N] int32 ->
+    bucket sums AoS32 [nwin * 2^(c-1), 24] as `bucket_sums_aos32` lays them
+    out. On a CUDA tensor K1a, the scan, K1_fixed's scatter (entries
+    w * N + i), K1c and K1d; the plain version on a CPU tensor."""
+    _check_fixed_inputs(table, digits)
+    rows = table.reshape(-1, 24)
+    if not table.is_cuda:
+        return _bucket_sums_aos32_plain(rows, digits, negs, c, fixed=True)
+    _, bstart, entries = bucket_plan(digits, negs, c, fixed=True)
+    return bucket_walk(rows, entries, bstart)
+
+
+def to_soa_windows(table: torch.Tensor) -> torch.Tensor:
+    """AoS32 window tables [nwin, N, 24] -> [nwin, 48, N] SoA16 (the
+    reference's `to_soa_windows` layout)."""
+    return torch.stack([ec.aos32_to_soa16(t) for t in table])
+
+
+def _fixed_soa_to_aos32(table, digits, negs, c):
+    if table.dim() != 3:
+        raise ValueError(f"fixed table: expected [nwin, 48, N], got {tuple(table.shape)}")
+    _check_bucket_inputs(table[0], digits, negs, c)
+    aos = torch.stack([ec.soa16_to_aos32(t) for t in table])
+    _check_fixed_inputs(aos, digits)
+    return aos
+
+
+def bucket_sums_fixed(table: torch.Tensor, digits: torch.Tensor, negs: torch.Tensor,
+                      c: int) -> torch.Tensor:
+    """K1's fixed-base form in the reference's layout: table [nwin, 48, N]
+    int32 SoA window tables -> [nwin, 48, 2^(c-1)] bucket sums. Checks its
+    inputs as `bucket_sums` does, then runs `bucket_sums_fixed_aos32`."""
+    aos = _fixed_soa_to_aos32(table, digits, negs, c)
+    sums = bucket_sums_fixed_aos32(aos, digits, negs, c)
+    return buckets_soa(sums, digits.shape[0], 1 << (c - 1))
+
+
+def bucket_sums_fixed_plain(table: torch.Tensor, digits: torch.Tensor,
+                            negs: torch.Tensor, c: int) -> torch.Tensor:
+    """Plain version of K1's fixed-base form in the reference's layout, on
+    any device: the plain plan with entries w * N + i, the plain walk."""
+    aos = _fixed_soa_to_aos32(table, digits, negs, c)
+    sums = _bucket_sums_aos32_plain(aos.reshape(-1, 24), digits, negs, c, fixed=True)
+    return buckets_soa(sums, digits.shape[0], 1 << (c - 1))
+
+
+def fold_windows_aos32(sums: torch.Tensor, nwin: int, nb: int) -> torch.Tensor:
+    """The fixed form's cross-window merge (msm_pallas.py:500-508): bucket
+    b of every window summed, [nwin * nb, 24] -> [nb, 24], by a tree over
+    the windows with one K2 launch a level (halves added pairwise, an odd
+    last window carried)."""
+    acc = sums.reshape(nwin, nb, 24)
+    while acc.shape[0] > 1:
+        k, half = acc.shape[0], acc.shape[0] // 2
+        merged = padd_aos32(acc[:half].reshape(-1, 24).contiguous(),
+                            acc[half:2 * half].reshape(-1, 24).contiguous())
+        acc = torch.cat([merged.reshape(half, nb, 24), acc[2 * half:]])
+    return acc.reshape(nb, 24)
 
 
 # ---------------------------------------------------------------------------

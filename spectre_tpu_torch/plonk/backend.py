@@ -115,9 +115,11 @@ class TorchBackend:
     def coset_ilde(self, evals, omega: int, g: int):
         return NTT.coset_ilde(evals, omega, g, self.tables)
 
-    # -- MSM against a device-resident base ([N, 24] AoS32, srs.device_base) --
-    def msm(self, base: torch.Tensor, scalars: torch.Tensor):
-        return MSM.msm_base(base, scalars)
+    # -- MSM against a device-resident base ([N, 24] AoS32, srs.device_base),
+    # in the mode SPECTRE_MSM_MODE names; base_key (the SRS digest) keys the
+    # expanded base and the fixed-base table --
+    def msm(self, base: torch.Tensor, scalars: torch.Tensor, base_key=None):
+        return MSM.msm_base(base, scalars, base_key=base_key)
 
-    def msm_many(self, base: torch.Tensor, scalars_list) -> list:
-        return [MSM.msm_base(base, s) for s in scalars_list]
+    def msm_many(self, base: torch.Tensor, scalars_list, base_key=None) -> list:
+        return MSM.msm_batch(base, scalars_list, base_key=base_key)

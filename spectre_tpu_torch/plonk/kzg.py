@@ -22,17 +22,19 @@ R = bn254.R
 
 
 def commit(srs: SRS, coeffs: torch.Tensor, bk):
-    """Commit to a coefficient-form poly: MSM over the tau powers."""
+    """Commit to a coefficient-form poly: MSM over the tau powers. The SRS
+    digest names the base, so SPECTRE_MSM_MODE=fixed builds one window table
+    per SRS prefix and every commitment reuses it."""
     if coeffs.shape[0] > srs.n:
         raise ValueError("poly larger than SRS")
-    return bk.msm(srs.device_base(bk.device), coeffs)
+    return bk.msm(srs.device_base(bk.device), coeffs, base_key=srs.digest())
 
 
 def commit_many(srs: SRS, coeffs_list: list, bk) -> list:
     for c in coeffs_list:
         if c.shape[0] > srs.n:
             raise ValueError("poly larger than SRS")
-    return bk.msm_many(srs.device_base(bk.device), coeffs_list)
+    return bk.msm_many(srs.device_base(bk.device), coeffs_list, base_key=srs.digest())
 
 
 @dataclass

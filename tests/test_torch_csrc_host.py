@@ -64,13 +64,13 @@ void h_k1_count(const int32_t* digits, long nwin, long n, int nb, long P, long n
     }
 }
 void h_k1_scatter(const int32_t* digits, const int32_t* negs, long nwin, long n, int nb,
-                  long P, long nblk, const int32_t* offs, int32_t* entries) {
+                  long P, long nblk, long stride, const int32_t* offs, int32_t* entries) {
   std::vector<int32_t> cur(nb);
   for (int w = 0; w < nwin; ++w)
     for (long pb = 0; pb < nblk; ++pb) {
       for (int b = 0; b < nb; ++b) cur[b] = offs[((long)w * nb + b) * nblk + pb];
       long i1 = pb * P + P < n ? pb * P + P : n;
-      k1_scatter_points(w, pb * P, i1, 0, 1, digits, negs, n, cur.data(), entries);
+      k1_scatter_points(w, pb * P, i1, 0, 1, digits, negs, n, stride, cur.data(), entries);
     }
 }
 // K1c: every walk block: the threads' walks, the tree (the kernel's shuffle
@@ -148,7 +148,7 @@ def lib(tmp_path_factory):
     h.h_mont_mul.argtypes = [vp, vp, lg, vp, lg, it]
     h.h_padd.argtypes = [vp, vp, vp, lg]
     h.h_k1_count.argtypes = [vp, lg, lg, it, lg, lg, vp]
-    h.h_k1_scatter.argtypes = [vp, vp, lg, lg, it, lg, lg, vp, vp]
+    h.h_k1_scatter.argtypes = [vp, vp, lg, lg, it, lg, lg, lg, vp, vp]
     h.h_k1_walk.argtypes = [vp, vp, vp, it, lg, vp, vp]
     h.h_k1_pieces.argtypes = [vp, it, vp, vp]
     h.h_ntt_pass.argtypes = [vp, vp, vp, lg, it, it, it, it]
@@ -221,8 +221,9 @@ def test_padd_body_limb_for_limb(lib):
         assert torch.equal(out, MK.padd_aos32(a, b))
 
 
-def _host_k1(lib, pts, digits, negs, c):
-    """K1 through the host-compiled bodies: (counts, entries, bucket sums)."""
+def _host_k1(lib, pts, digits, negs, c, fixed=False):
+    """K1 through the host-compiled bodies: (counts, entries, bucket sums);
+    `fixed`: the fixed-base form, pts the [nwin * n, 24] window table."""
     nwin, n = digits.shape
     nb = 1 << (c - 1)
     nkeys = nwin * nb
@@ -232,7 +233,7 @@ def _host_k1(lib, pts, digits, negs, c):
     offs, bstart = MK.bucket_offsets(counts, nkeys, nblk)
     entries = torch.zeros(nwin * n, dtype=torch.int32)
     lib.h_k1_scatter(digits.data_ptr(), negs.data_ptr(), nwin, n, nb, P, nblk,
-                     offs.data_ptr(), entries.data_ptr())
+                     n if fixed else 0, offs.data_ptr(), entries.data_ptr())
     nwalk = -(-nwin * n // MK.K1_BLOCK_ENTRIES)
     out = torch.full((nkeys, 24), -1, dtype=torch.int32)      # every row must be written
     pieces = torch.zeros((max(2 * nwalk, 1), 24), dtype=torch.int32)
@@ -304,6 +305,32 @@ def test_k1_bodies_across_blocks(lib, case):
         assert int(sizes.max()) == n > 2 * MK.K1_BLOCK_ENTRIES
     if case == "all-zero":
         assert int(bstart[-1]) == 0
+
+
+@pytest.mark.parametrize("case", ["random", "all-equal"])
+def test_k1_fixed_form_bodies(lib, case):
+    """The fixed-base form: the scatter's strided entries (window w names
+    row w * n + i of the window table) and the walk gathering from the
+    [nwin * n, 24] table, against the plain fixed form; 3 windows of 5000
+    points, each window's table distinct, buckets crossing walk blocks."""
+    n, c, nwin = 5000, 4, 3
+    digits = _digits(case, nwin, n, c, 12)
+    negs = (torch.arange(n) % 3 == 0).to(torch.int32)[None]
+    table = torch.stack([_tiled_points(n, 20 + w) for w in range(nwin)])
+    nb = 1 << (c - 1)
+    P, _ = MK.plan_blocks(n)
+    counts, entries, bstart, out = _host_k1(lib, table.reshape(-1, 24), digits, negs, c,
+                                            fixed=True)
+    assert torch.equal(counts, MK.bucket_counts_plain(digits, nb, P))
+    assert torch.equal(entries, MK.bucket_scatter_plain(digits, negs, nb, n))
+    rows = entries[:int(bstart[-1])].long() & 0x7FFFFFFF
+    assert int(rows.max()) >= (nwin - 1) * n                # window 2's rows are read
+    assert not (out == -1).all(dim=1).any()
+    want = MK.bucket_sums_fixed_aos32(table, digits, negs, c)
+    assert torch.equal(_affine(out), _affine(want))
+    soa = MK.to_soa_windows(table)
+    flat = lambda t: _affine(ec.soa16_to_aos32(t.permute(1, 0, 2).reshape(48, -1)))  # noqa: E731
+    assert torch.equal(flat(MK.bucket_sums_fixed_plain(soa, digits, negs, c)), _affine(out))
 
 
 def test_k1_bodies_bucket_over_many_blocks(lib):

@@ -107,9 +107,11 @@ def test_k1_bucket_sums(dev, case, n):
     sc = F.from_mont(F.fr_ctx(), F.from_ints(F.fr_ctx(), vals, dev))
     digits = M.signed_digit_stream(sc, c, M.num_windows(c))
     negs = (torch.arange(n, device=dev) % 2).to(torch.int32)[None]
-    before = {k: KL.KERNELS[k].launches for k in KL.KERNELS if k.startswith("K1")}
+    shared = ("K1a_bucket_count", "K1b_bucket_scatter", "K1c_bucket_walk", "K1d_bucket_pieces")
+    before = {k: KL.KERNELS[k].launches for k in (*shared, "K1_fixed")}
     got = MK.bucket_sums(soa, digits, negs, c)
-    assert all(KL.KERNELS[k].launches == v + 1 for k, v in before.items())
+    assert {k: KL.KERNELS[k].launches - v for k, v in before.items()} == \
+        {**{k: 1 for k in shared}, "K1_fixed": 0}
     want = MK.bucket_sums_plain(soa, digits, negs, c)
     flat = lambda t: ec.normalize_std(ec.soa16_to_aos32(t.permute(1, 0, 2).reshape(48, -1)))  # noqa: E731
     assert torch.equal(flat(got), flat(want))
@@ -142,3 +144,49 @@ def test_msm_matches_host(dev):
     base = ec.encode_points(pts, dev)
     want = bn254.g1_curve.msm(pts, sc)
     assert M.msm_base(base, F.from_ints(F.fr_ctx(), sc, dev)) == want
+
+
+@pytest.mark.parametrize("case", ["random", "all-equal"])
+def test_k1_fixed_form(dev, case):
+    """K1's fixed-base form (window w reads its own table rows w * N + i)
+    against its plain version after normalization, one launch of each of
+    K1a, the fixed-form scatter, K1c and K1d; the shared form's scatter
+    not launched."""
+    n, c, nwin = 3000, 5, 4
+    tables = torch.stack([_points(64, dev, 30 + w)[torch.arange(n, device=dev) % 64]
+                          for w in range(nwin)])
+    g = torch.Generator(device=dev).manual_seed(12)
+    half = 1 << (c - 1)
+    digits = torch.randint(-half + 1, half + 1, (nwin, 1 if case == "all-equal" else n),
+                           generator=g, dtype=torch.int32, device=dev).expand(nwin, n)
+    digits = digits.contiguous()
+    negs = (torch.arange(n, device=dev) % 3 == 0).to(torch.int32)[None]
+    soa = MK.to_soa_windows(tables)
+    names = ("K1a_bucket_count", "K1_fixed", "K1c_bucket_walk", "K1d_bucket_pieces",
+             "K1b_bucket_scatter")
+    before = {k: KL.KERNELS[k].launches for k in names}
+    got = MK.bucket_sums_fixed(soa, digits, negs, c)
+    after = {k: KL.KERNELS[k].launches - before[k] for k in names}
+    assert after == {**{k: 1 for k in names[:4]}, "K1b_bucket_scatter": 0}
+    want = MK.bucket_sums_fixed_plain(soa, digits, negs, c)
+    flat = lambda t: ec.normalize_std(ec.soa16_to_aos32(t.permute(1, 0, 2).reshape(48, -1)))  # noqa: E731
+    assert torch.equal(flat(got), flat(want))
+
+
+@pytest.mark.parametrize("mode", ["vanilla", "glv", "glv+signed", "fixed"])
+def test_msm_modes_match_host(dev, mode):
+    """One MSM per mode on the card equals the host sum; the GLV split runs
+    on the card, and the fixed mode launches its K1 form and K2."""
+    n = 300
+    r = random.Random(17)
+    pts = [bn254.g1_curve.mul(bn254.G1_GEN, r.randrange(1, bn254.R)) for _ in range(n)]
+    sc = [r.randrange(bn254.R) for _ in range(n)]
+    sc[:3] = [0, 1, bn254.R - 1]
+    base = ec.encode_points(pts, dev)
+    before = KL.launch_counts()
+    got = M.msm_base(base, F.from_ints(F.fr_ctx(), sc, dev), mode=mode, base_key=f"test-{n}")
+    launched = {k: v - before[k] for k, v in KL.launch_counts().items()}
+    assert got == bn254.g1_curve.msm(pts, sc)
+    assert launched["K1_fixed"] == (mode == "fixed")
+    assert launched["K1b_bucket_scatter"] == (mode != "fixed")
+    assert (launched["K2_padd"] > 0) == (mode == "fixed")
