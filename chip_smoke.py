@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Run spectre_tpu_torch's stage-1 prove on one CUDA GPU, and hold each of
-its kernels against its plain PyTorch version.
+"""Run spectre_tpu_torch's stage-1 and stage-2 proves on one CUDA GPU, and
+hold each of its kernels against its plain PyTorch version.
 
-    python3 chip_smoke.py           # both paths, full size
+    python3 chip_smoke.py           # every path, full size
     python3 chip_smoke.py --k 19    # the flex slice on fewer rows
 
 Phases, each of which ends the run with a non-zero exit code if it fails:
@@ -47,11 +47,13 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
   committee-kernels
            K1 and K2b at n = 2^18 random scalars, K4 at [4, 2^18] and as a
            2^18 -> 2^20 coset LDE (the committee prove's geometry): equal to
-           their plain versions; timed
+           their plain versions, K1's plan kernels K1a and K1b to theirs;
+           timed, each of K1's four kernels under torch.profiler
   committee
            the CommitteeUpdateCircuit at build/committee_update_testnet_18
            .pinning.json (512 pubkeys, k=18, 2070 SHA slots): witness,
-           keygen with the k=18 SRS cut from the k=21 one, prove, verify;
+           keygen with the k=18 SRS cut from the k=21 one, prove under the
+           Poseidon transcript (the proof stage 2 takes), verify with it;
            the instances equal get_instances, a flipped instance fails; the
            prove's launch count of every kernel on its path must be > 0
   step     the StepCircuit at build/sync_step_testnet_21.pinning.json (512
@@ -65,6 +67,25 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
            =fixed: each proof equal to the vanilla proof byte for byte and
            verified, the fixed form and K2 launched in the fixed prove, no
            fixed-base degrade
+  aggregation-kernels
+           the same at the outer prove's geometry: K1 and K2b at n = 2^22
+           (c from default_window_pallas), K4 at [2, 2^22] and as the
+           2^22 -> 2^24 coset LDE (its own pass plan and twiddle table)
+  aggregation
+           stage 2: AggregationArgs from the committee's Poseidon proof and
+           vk; the AggregationCircuit witness (the in-circuit verifier) at
+           build/aggregation_committee_update_testnet_22.pinning.json (k=22,
+           16 advice, 2 lookup, lookup_bits 14), Pinning.check, its exposed
+           cells equal get_instances (the 12 accumulator limbs, then the
+           committee's instances); the k=22 SRS of the same tau; keygen (the
+           sigma merge in host C++), the outer prove under the Keccak
+           transcript, AggregationCircuit.verify with the deferred pairing,
+           a flipped accumulator limb rejected; seconds, peak device and host
+           memory and kernel launches of each phase. Then, recorded whichever
+           way they come out and apart from the exit code: the port's
+           verifiers on the tracked reference proofs
+           build/committee_testnet_18_poseidon.proof and
+           build/agg_committee_testnet_22_keccak.proof
 
 It prints one JSON line of kernel records, then the device line
 {"ok": true, "device": {...}} last. It imports neither jax nor spectre_tpu.
@@ -85,6 +106,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PINNING = os.path.join(REPO, "build", "sync_step_testnet_21.pinning.json")
 COMMITTEE_K = 18
 STEP_K = 21
+AGG_K = 22
 # K1's shared-base form, and its fixed-base form (its own scatter, K1_fixed)
 SHARED_K1 = ("K1a_bucket_count", "K1b_bucket_scatter", "K1c_bucket_walk",
              "K1d_bucket_pieces")
@@ -269,6 +291,36 @@ def msm_mode(mode: str):
             os.environ["SPECTRE_MSM_MODE"] = old
 
 
+def resident(torch, top: int = 6) -> str:
+    """The device memory allocated now, and the largest CUDA storages that
+    live Python tensors still hold: MiB, shape, dtype and the types of the
+    objects that refer to the tensor. A full collection runs first: a
+    phase's objects left in reference cycles keep their device tensors
+    until the cyclic GC next runs (the builders pause it while they
+    build), and would count in the next phase's peak."""
+    import gc
+    import types
+    gc.collect()
+    seen, found = {}, []
+    for obj in gc.get_objects():
+        if isinstance(obj, torch.Tensor) and obj.device.type == "cuda":
+            st = obj.untyped_storage()
+            if st.data_ptr() not in seen:
+                seen[st.data_ptr()] = st.nbytes()
+                found.append(obj)
+    found.sort(key=lambda t: -t.untyped_storage().nbytes())
+    found = found[:top]
+    desc = [f"{t.untyped_storage().nbytes() / 2 ** 20:.0f} MiB {tuple(t.shape)} "
+            f"{str(t.dtype)[6:]} held by "
+            + ",".join(sorted({type(r).__name__ for r in gc.get_referrers(t)
+                               if r is not found and not isinstance(r, types.FrameType)}))
+            for t in found]
+    del found
+    return (f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated, "
+            f"{sum(seen.values()) / 2 ** 30:.2f} GiB in {len(seen)} live tensors; largest: "
+            + "; ".join(desc))
+
+
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
@@ -282,21 +334,26 @@ def random_fr(torch, n: int, gen, device):
     return x
 
 
-def committee_kernels(torch, dev, gen, seed: int) -> dict:
-    """K1, K2b and K4 against their plain versions at the committee prove's
-    geometry (n = 2^18 commitments, the 2^18 -> 2^20 coset LDE), timed.
-    Returns {kernel: record}."""
+def geometry_kernels(torch, dev, gen, seed: int, logn: int, batch: int) -> dict:
+    """K1, K2b and K4 against their plain versions at one prove's geometry:
+    K1 on n = 2^logn random scalars at the window that prove picks
+    (default_window_pallas), its plan kernels K1a and K1b against theirs,
+    each of its four kernels timed under torch.profiler; K2b on K1's
+    buckets; K4 on a [batch, 2^logn] batch and as the 2^logn -> 2^(logn+2)
+    coset LDE (K3 twists, K4 transforms). Returns {kernel: record}."""
     from spectre_tpu_torch.fields import bn254
-    from spectre_tpu_torch.ops import ec, field_ops as F, msm as M, msm_kernels as MK, ntt as N
+    from spectre_tpu_torch.ops import (ec, field_ops as F, kernel_lib as KL, msm as M,
+                                       msm_kernels as MK, ntt as N)
     from spectre_tpu_torch.plonk.domain import COSET_GEN
     from spectre_tpu_torch.plonk.srs import g1_powers_device
 
     fr = F.fr_ctx()
-    n = 1 << COMMITTEE_K
+    n = 1 << logn
     out = {}
-    pts = g1_powers_device(random.Random(seed + 1).randrange(1, bn254.R), n, dev)
+    pts = g1_powers_device(random.Random(seed + logn).randrange(1, bn254.R), n, dev)
     c = M.default_window_pallas(n)
     nwin, nb = M.num_windows(c), 1 << (c - 1)
+    nblk = MK.plan_blocks(n)[1]
     digits = M.signed_digit_stream(random_fr(torch, n, gen, dev), c, nwin)
     negs = torch.zeros((1, n), dtype=torch.int32, device=dev)
     soa = ec.aos32_to_soa16(pts)
@@ -307,35 +364,44 @@ def committee_kernels(torch, dev, gen, seed: int) -> dict:
     torch.cuda.synchronize()
     k1_plain = (time.perf_counter() - t0) * 1e3
     err = limb_err(F, normalized_buckets(ec, got), normalized_buckets(ec, want))
-    require(err == 0, "K1 equals its plain version at n = 2^18")
-    _, bstart, _ = MK.bucket_plan_plain(digits, negs, c)
-    bounds = k1_bounds(torch, MK, digits, bstart, n, nwin * nb, MK.plan_blocks(n)[1])
+    require(err == 0, f"K1 equals its plain version at n = 2^{logn}")
+    del got, want, soa
+    counts, bstart, entries_plain = MK.bucket_plan_plain(digits, negs, c)
+    got_counts, _, entries = MK.bucket_plan(digits, negs, c)
+    require(torch.equal(got_counts, counts), f"K1a equals its plain counts at n = 2^{logn}")
+    e_err = bucket_multiset_err(torch, entries, entries_plain, bstart)
+    require(e_err == 0, f"K1b places each bucket's entries as the plain sort at n = 2^{logn}")
+    del counts, got_counts, entries, entries_plain
+    bounds = k1_bounds(torch, MK, digits, bstart, n, nwin * nb, nblk)
     k1_bound = bound_ms(sum(b[2] for b in bounds.values()), sum(b[3] for b in bounds.values()))
     k1_ms = time_ms(torch, lambda: MK.bucket_sums_aos32(pts, digits, negs, c), reps=5)
+    sub_ms = profile_kernels(torch, lambda: MK.bucket_sums_aos32(pts, digits, negs, c),
+                             {k: KL.KERNELS[k].symbol for k in SHARED_K1}, reps=2)
     out["K1"] = dict(ms=k1_ms, plain_ms=k1_plain, bound_ms=k1_bound[0], bound_by=k1_bound[1],
-                     max_abs_err=err, shape=f"n=2^18 c={c} nwin={nwin}, random scalars")
-    del got, want, soa
+                     max_abs_err=max(err, e_err), entries=int(bstart[-1]),
+                     shape=f"n=2^{logn} c={c} nwin={nwin}, random scalars",
+                     kernels={k: dict(ms=sub_ms[k], bound_ms=bounds[k][0],
+                                      bound_by=bounds[k][1]) for k in SHARED_K1})
 
     sums = MK.bucket_sums_aos32(pts, digits, negs, c)
     err = limb_err(F, MK.aggregate_buckets_aos32(sums, nwin, nb),
                    MK.aggregate_buckets_plain(sums, nwin, nb))
-    require(err == 0, "K2b equals its plain version at n = 2^18")
+    require(err == 0, f"K2b equals its plain version at n = 2^{logn}")
     need = nwin * 2 * (nb - 1)
     bm, by = bound_ms(nwin * nb * 96 + nwin * 96, need * IMAD_PER_PADD)
     out["K2b"] = dict(
         ms=time_ms(torch, lambda: MK.aggregate_buckets_aos32(sums, nwin, nb), reps=10),
         plain_ms=time_ms(torch, lambda: MK.aggregate_buckets_plain(sums, nwin, nb), reps=1),
         bound_ms=bm, bound_by=by, max_abs_err=err, shape=f"nwin={nwin} nb={nb} (c={c})")
-    del sums, pts, digits
+    del sums, pts, digits, negs, bstart
+    torch.cuda.empty_cache()
 
     tables = N.Twiddles(dev)
-    logn = COMMITTEE_K
-    x = F.to_mont(fr, random_fr(torch, 4 << logn, gen, dev)).reshape(4, 1 << logn, 4)
+    x = F.to_mont(fr, random_fr(torch, batch << logn, gen, dev)).reshape(batch, 1 << logn, 4)
     tw = tables.twiddles(bn254.fr_root_of_unity(logn), 1 << logn)
     err_b = limb_err(F, N.ntt_passes(x, tw), N.ntt_stages_plain(x, tw, tables))
-    require(err_b == 0, "K4 equals the plain NTT at [4, 2^18]")
-    bb = ntt_bound_ms(4, logn)
-    # the coset LDE of one 2^18 column onto 2^20 rows: K3 twists, K4 transforms
+    require(err_b == 0, f"K4 equals the plain NTT at [{batch}, 2^{logn}]")
+    bb = ntt_bound_ms(batch, logn)
     coeffs = x[0]
     w_ext = bn254.fr_root_of_unity(logn + 2)
     lde = N.coset_lde(coeffs, w_ext, COSET_GEN, 4 << logn, tables)
@@ -347,18 +413,22 @@ def committee_kernels(torch, dev, gen, seed: int) -> dict:
         return N.ntt_stages_plain(padded, tw_ext, tables)[0]
 
     err_l = limb_err(F, lde, lde_plain())
-    require(err_l == 0, "the coset LDE (K3 + K4) equals its plain version at 2^18 -> 2^20")
+    require(err_l == 0, f"the coset LDE (K3 + K4) equals its plain version at "
+                        f"2^{logn} -> 2^{logn + 2}")
+    del lde
     bl = ntt_bound_ms(1, logn + 2)
     out["K4"] = dict(
         ms=time_ms(torch, lambda: N.ntt_passes(x, tw), reps=10),
         plain_ms=time_ms(torch, lambda: N.ntt_stages_plain(x, tw, tables), reps=1),
         bound_ms=bb[0], bound_by=bb[1], max_abs_err=max(err_b, err_l),
-        shape="[4, 2^18]",
-        coset_lde_2e18_to_2e20=dict(
+        shape=f"[{batch}, 2^{logn}]",
+        passes={f"2^{logn}": N.ntt_plan(logn), f"2^{logn + 2}": N.ntt_plan(logn + 2)},
+        **{f"coset_lde_2e{logn}_to_2e{logn + 2}": dict(
             ms=time_ms(torch, lambda: N.coset_lde(coeffs, w_ext, COSET_GEN, 4 << logn, tables),
                        reps=10),
-            plain_ms=time_ms(torch, lde_plain, reps=1), bound_ms=bl[0], bound_by=bl[1]))
-    log("committee-kernels: " + json.dumps(out))
+            plain_ms=time_ms(torch, lde_plain, reps=1), bound_ms=bl[0], bound_by=bl[1])})
+    del x, coeffs, tables, tw, tw_ext
+    torch.cuda.empty_cache()
     return out
 
 
@@ -511,23 +581,27 @@ def k1_fixed_phase(torch, dev, gen, pts) -> dict:
 
 
 def circuit_path(torch, dev, seed: int, circuit, k: int, make_args, shape,
-                 describe, flip: int, check_args=None, modes=()) -> dict:
+                 describe, flip: int, check_args=None, modes=(), transcript_cls=None) -> dict:
     """One application circuit at its pinned testnet shape, through the
     entry points a user calls: args, witness, pinning (Pinning.check against
     the tracked file), SRS, keygen, prove, verify. shape(cfg, args) is the
     tuple the pinned shape must give, with describe as its name; flip, the
     instance flipped for the negative verify; check_args(spec), an extra
     check of the args; modes, the MSM modes whose proofs of the same
-    witness, key and blinding seed must equal the vanilla proof. Returns the
-    phase seconds, the prove's phases, peak memory and launch counts, and
-    per mode the same of its prove."""
+    witness, key and blinding seed must equal the vanilla proof;
+    transcript_cls, the prove's and the verifier's transcript (default
+    Blake2b). Returns the phase seconds, keygen's and the prove's phases,
+    peak memory and launch counts, per mode the same of its prove, and the
+    proof with its vk, SRS and instances."""
     from spectre_tpu_torch import spec as SPEC
     from spectre_tpu_torch.fields import bn254
     from spectre_tpu_torch.ops import kernel_lib as KL, msm as M
     from spectre_tpu_torch.plonk.prover import PhaseTimer
     from spectre_tpu_torch.plonk.srs import PARAMS_DIR, SRS
+    from spectre_tpu_torch.plonk.transcript import Blake2bTranscript
 
     spec, phases, name = SPEC.TESTNET, {}, circuit.name
+    transcript_cls = transcript_cls or Blake2bTranscript
     require(os.path.exists(circuit.pinning_path(spec, k)),
             f"the tracked {name} pinning file is present")
     t0 = time.perf_counter()
@@ -555,8 +629,9 @@ def circuit_path(torch, dev, seed: int, circuit, k: int, make_args, shape,
 
     torch.cuda.synchronize()
     KL.reset_launch_counts()
+    ktimer = PhaseTimer(torch.device(dev))
     t0 = time.perf_counter()
-    pk = circuit.create_pk(srs, spec, k, args, device=dev, ctx=ctx)
+    pk = circuit.create_pk(srs, spec, k, args, device=dev, ctx=ctx, timer=ktimer)
     torch.cuda.synchronize()
     phases["keygen"] = time.perf_counter() - t0
     keygen_counts = KL.launch_counts()
@@ -567,7 +642,8 @@ def circuit_path(torch, dev, seed: int, circuit, k: int, make_args, shape,
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     proof = circuit.prove(pk, srs, args, spec, device=dev, ctx=ctx,
-                          blinding_rng=lambda: r.randrange(bn254.R), timer=timer)
+                          blinding_rng=lambda: r.randrange(bn254.R), timer=timer,
+                          transcript=transcript_cls())
     phases["prove"] = time.perf_counter() - t0
     prove_counts = KL.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -576,18 +652,24 @@ def circuit_path(torch, dev, seed: int, circuit, k: int, make_args, shape,
     require(instances == [av.value for av in ctx.instance_cells],
             "the circuit's instances equal get_instances")
     t0 = time.perf_counter()
-    ok = circuit.verify(pk.vk, srs, instances, proof, device=dev)
+    ok = circuit.verify(pk.vk, srs, instances, proof, device=dev,
+                        transcript_cls=transcript_cls)
     phases["verify"] = time.perf_counter() - t0
     require(ok, f"the {name} proof verifies")
     flipped = list(instances)
     flipped[flip] ^= 1
-    require(not circuit.verify(pk.vk, srs, flipped, proof, device=dev),
+    require(not circuit.verify(pk.vk, srs, flipped, proof, device=dev,
+                               transcript_cls=transcript_cls),
             "a flipped instance is rejected")
     for kernel in PROVE_KERNELS:
         require(prove_counts[kernel] > 0, f"{kernel} launched in the {name} prove")
     log(f"  phases (s): " + json.dumps({key: round(v, 3) for key, v in phases.items()}))
+    log(f"  keygen phases (s): " + json.dumps({key: round(v, 3)
+                                              for key, v in ktimer.seconds.items()}))
     log(f"  prove phases (s): " + json.dumps({key: round(v, 3)
                                              for key, v in timer.seconds.items()}))
+    log(f"  transcript {transcript_cls.__name__}; "
+        f"vk digest {pk.vk.digest().hex()}")
     log(f"  proof {len(proof)} bytes, verified, flipped instance rejected; instances "
         f"{[hex(v) for v in instances]}; peak device memory {peak:.1f} GiB")
     log(f"  launches: keygen {json.dumps(keygen_counts)}, prove {json.dumps(prove_counts)}")
@@ -625,21 +707,25 @@ def circuit_path(torch, dev, seed: int, circuit, k: int, make_args, shape,
         by_mode[mode] = dict(prove_s=prove_s, prove_phases=timer_m.seconds, peak_gib=peak_m,
                              table_bytes=table_bytes, launches=counts_m)
     M.clear_tables()
-    return dict(phases=phases, prove_phases=timer.seconds, peak_gib=peak,
-                keygen_launches=keygen_counts, prove_launches=prove_counts, modes=by_mode)
+    return dict(phases=phases, keygen_phases=ktimer.seconds, prove_phases=timer.seconds,
+                peak_gib=peak, keygen_launches=keygen_counts, prove_launches=prove_counts,
+                modes=by_mode, proof=proof, vk=pk.vk, srs=srs, instances=instances)
 
 
 def committee_path(torch, dev, seed: int) -> dict:
     """The CommitteeUpdateCircuit at build/committee_update_testnet_18
-    .pinning.json: 512 pubkeys, k=18, 22 advice columns, 2070 SHA slots."""
+    .pinning.json: 512 pubkeys, k=18, 22 advice columns, 2070 SHA slots,
+    proved under the Poseidon transcript (the proof stage 2 aggregates)."""
     from spectre_tpu_torch.models import CommitteeUpdateCircuit
+    from spectre_tpu_torch.plonk.transcript import PoseidonTranscript
     from spectre_tpu_torch.witness import default_committee_update_args
 
     return circuit_path(
         torch, dev, seed, CommitteeUpdateCircuit, COMMITTEE_K, default_committee_update_args,
         lambda cfg, a: (cfg.k, cfg.num_advice, cfg.num_sha_slots,
                         len(a.pubkeys_compressed)) == (COMMITTEE_K, 22, 2070, 512),
-        "512 pubkeys, k=18, 22 advice, 2070 SHA slots", flip=0)
+        "512 pubkeys, k=18, 22 advice, 2070 SHA slots", flip=0,
+        transcript_cls=PoseidonTranscript)
 
 
 def step_path(torch, dev, seed: int) -> dict:
@@ -669,12 +755,151 @@ def step_path(torch, dev, seed: int) -> dict:
         check_args=wrong_signature_refused, modes=STEP_MODES)
 
 
+def measured(torch, phases: dict, name: str, fn):
+    """Run fn() as the phase `name`: its seconds (device synchronized), the
+    peak device memory in it, the host's peak RSS so far and the kernels it
+    launched, into phases[name]. Returns fn's result."""
+    import resource
+
+    from spectre_tpu_torch.ops import kernel_lib as KL
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    KL.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    phases[name] = dict(
+        s=time.perf_counter() - t0, peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        host_rss_gib=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20,
+        launches={k: v for k, v in KL.launch_counts().items() if v})
+    log(f"  {name}: {phases[name]['s']:.3f} s, peak {phases[name]['peak_gib']:.1f} GiB "
+        f"(host RSS {phases[name]['host_rss_gib']:.1f} GiB), launches "
+        + json.dumps(phases[name]["launches"]))
+    return out
+
+
+def tracked_proofs(committee: dict, circuit, vk, srs) -> dict:
+    """The port's verifiers on the reference's tracked proofs: the
+    committee's stage-1 proof under Poseidon with the port's committee vk,
+    and the compressed proof under Keccak with its instances and the port's
+    outer vk (AggregationCircuit.verify, pairing included). Either may fail
+    only because the vk differs since a re-pin: the outcome, the port's vk
+    digests and the digest the tracked verifier contract records are
+    returned, and never change the exit code."""
+    import re
+
+    from spectre_tpu_torch.plonk.transcript import KeccakTranscript, PoseidonTranscript
+    from spectre_tpu_torch.plonk.verifier import verify
+
+    build = os.path.join(REPO, "build")
+    out = {"committee_vk_digest": committee["vk"].digest().hex(),
+           "outer_vk_digest": vk.digest().hex()}
+    try:
+        with open(os.path.join(build, "agg_committee_testnet_22_keccak.proof"), "rb") as f:
+            agg_proof = f.read()
+        with open(os.path.join(build, "agg_committee_testnet_22_keccak.proof.instances.json")) as f:
+            agg_inst = [int(v, 16) for v in json.load(f)["instances"]]
+        with open(os.path.join(build, "committee_testnet_18_poseidon.proof"), "rb") as f:
+            com_proof = f.read()
+        with open(os.path.join(build, "aggregation_committee_testnet_22_verifier.sol")) as f:
+            m = re.search(r"VK_DIGEST =\s*(0x[0-9a-f]+)", f.read())
+        out["tracked_outer_vk_digest"] = m.group(1)[2:] if m else None
+        out["tracked_committee_instances_equal_ours"] = agg_inst[12:] == committee["instances"]
+        out["committee_proof_verifies"] = verify(committee["vk"], committee["srs"],
+                                                 [agg_inst[12:]], com_proof,
+                                                 transcript_cls=PoseidonTranscript)
+        out["outer_proof_verifies"] = circuit.verify(vk, srs, agg_inst, agg_proof,
+                                                     transcript_cls=KeccakTranscript)
+    except Exception as e:   # recorded, apart from the exit code
+        out["error"] = f"{type(e).__name__}: {e}"
+    return out
+
+
+def aggregation_path(torch, dev, seed: int, committee: dict) -> dict:
+    """Stage 2 of the committee: its Poseidon proof aggregated at the
+    tracked k=22 pinning, the outer circuit proved under Keccak and checked
+    by AggregationCircuit.verify (the deferred pairing included)."""
+    from spectre_tpu_torch import spec as SPEC
+    from spectre_tpu_torch.fields import bn254
+    from spectre_tpu_torch.models.aggregation import (NUM_ACC_LIMBS, AggregationArgs,
+                                                      AggregationCircuit)
+    from spectre_tpu_torch.plonk.prover import PhaseTimer
+    from spectre_tpu_torch.plonk.srs import SRS
+    from spectre_tpu_torch.plonk.transcript import KeccakTranscript
+
+    spec, phases = SPEC.TESTNET, {}
+    circuit = AggregationCircuit.variant("committee_update")
+    require(os.path.exists(circuit.pinning_path(spec, AGG_K)),
+            "the tracked aggregation pinning file is present")
+    # args: the inner snark, the committee phase's Poseidon proof
+    phases["args"] = dict(s=committee["phases"]["prove"], peak_gib=committee["peak_gib"],
+                          launches={k: v for k, v in committee["prove_launches"].items() if v})
+    log(f"aggregation: the inner snark is the committee's stage-1 proof "
+        f"({len(committee['proof'])} bytes, Poseidon)")
+    log(f"  args (the inner proof): {phases['args']['s']:.3f} s, peak "
+        f"{phases['args']['peak_gib']:.1f} GiB, launches " + json.dumps(phases["args"]["launches"]))
+    args = AggregationArgs(inner_vk=committee["vk"], srs=committee["srs"],
+                           inner_instances=[committee["instances"]], proof=committee["proof"])
+    ctx = measured(torch, phases, "build",
+                   lambda: circuit.build_context(args, spec, device=dev))
+    cfg = measured(torch, phases, "pinning",
+                   lambda: circuit.pinning(spec, AGG_K, ctx).config)
+    require((cfg.k, cfg.num_advice, cfg.num_lookup_advice, cfg.lookup_bits, cfg.num_fixed,
+             cfg.num_instance) == (AGG_K, 16, 2, 14, 1, 1),
+            "the pinned aggregation shape (k=22, 16 advice, 2 lookup, lookup_bits 14, "
+            "1 fixed, 1 instance)")
+    log(f"  shape k={cfg.k} advice={cfg.num_advice} lookup={cfg.lookup_tables} "
+        f"lookup_bits={cfg.lookup_bits}; break points equal the pinning's; "
+        + json.dumps(ctx.stats()))
+    instances = measured(torch, phases, "instances",
+                         lambda: circuit.get_instances(args, spec))
+    require(instances == [av.value for av in ctx.instance_cells],
+            "the exposed cells equal get_instances")
+    require(len(instances) == NUM_ACC_LIMBS + len(committee["instances"])
+            and instances[NUM_ACC_LIMBS:] == committee["instances"],
+            "the statement is the 12 accumulator limbs, then the committee's instances")
+    srs = measured(torch, phases, "srs", lambda: SRS.load_or_setup(AGG_K, device=dev))
+    require(srs.g2_tau == committee["srs"].g2_tau, "the k=22 SRS has the inner SRS's tau")
+    ktimer = PhaseTimer(torch.device(dev))
+    pk = measured(torch, phases, "keygen",
+                  lambda: circuit.create_pk(srs, spec, AGG_K, args, device=dev, ctx=ctx,
+                                            timer=ktimer))
+    phases["keygen"]["phases"] = ktimer.seconds
+    log("  keygen phases (s): " + json.dumps({k: round(v, 3) for k, v in ktimer.seconds.items()}))
+    timer = PhaseTimer(torch.device(dev))
+    r = random.Random(seed)
+    proof = measured(torch, phases, "prove", lambda: circuit.prove(
+        pk, srs, args, spec, device=dev, ctx=ctx, transcript=KeccakTranscript(),
+        blinding_rng=lambda: r.randrange(bn254.R), timer=timer))
+    phases["prove"]["phases"] = timer.seconds
+    log("  prove phases (s): " + json.dumps({k: round(v, 3) for k, v in timer.seconds.items()}))
+    del ctx
+    ok = measured(torch, phases, "verify", lambda: circuit.verify(
+        pk.vk, srs, instances, proof, device=dev, transcript_cls=KeccakTranscript))
+    require(ok, "the outer proof passes AggregationCircuit.verify")
+    bad = list(instances)
+    bad[0] = (bad[0] + 1) % bn254.R
+    require(not circuit.verify(pk.vk, srs, bad, proof, device=dev,
+                               transcript_cls=KeccakTranscript),
+            "a flipped accumulator limb is rejected")
+    for kernel in PROVE_KERNELS:
+        require(phases["prove"]["launches"].get(kernel, 0) > 0,
+                f"{kernel} launched in the outer prove")
+    log(f"  outer proof {len(proof)} bytes (Keccak), AggregationCircuit.verify accepts it, "
+        f"a flipped accumulator limb is rejected; vk digest {pk.vk.digest().hex()}")
+    tracked = tracked_proofs(committee, circuit, pk.vk, srs)
+    log("  tracked reference proofs (apart from the exit code): " + json.dumps(tracked))
+    return dict(phases=phases, tracked=tracked, proof_bytes=len(proof))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--k", type=int, default=None,
                     help="rows 2^k of the slice (default: the pinning's k)")
     ap.add_argument("--seed", type=int, default=1)
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     import torch
     if not torch.cuda.is_available():
@@ -1025,14 +1250,25 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # --- committee-kernels, committee ------------------------------------------
-    geometry = committee_kernels(torch, dev, gen, args.seed)
+    geometry = geometry_kernels(torch, dev, gen, args.seed, COMMITTEE_K, 4)
+    log("committee-kernels: " + json.dumps(geometry))
     for name, key in (("K1c_bucket_walk", "K1"), ("K2b_bucket_aggregate", "K2b"),
                       ("K4_ntt", "K4")):
         records[name]["committee_geometry"] = geometry[key]
-    torch.cuda.empty_cache()
+    log("resident before the committee: " + resident(torch))
     committee = committee_path(torch, dev, args.seed)
     torch.cuda.empty_cache()
+    log("resident before the step: " + resident(torch))
     step = step_path(torch, dev, args.seed)
+    torch.cuda.empty_cache()
+    # --- aggregation-kernels, aggregation ----------------------------------------
+    geometry = geometry_kernels(torch, dev, gen, args.seed, AGG_K, 2)
+    log("aggregation-kernels: " + json.dumps(geometry))
+    for name, key in (("K1c_bucket_walk", "K1"), ("K2b_bucket_aggregate", "K2b"),
+                      ("K4_ntt", "K4")):
+        records[name]["aggregation_geometry"] = geometry[key]
+    log("resident before the aggregation: " + resident(torch))
+    agg = aggregation_path(torch, dev, args.seed, committee)
 
     kernels = []
     for name, info in KL.KERNELS.items():
@@ -1048,9 +1284,12 @@ def main(argv=None) -> int:
             "committee_keygen_launches": committee["keygen_launches"][name],
             "step_launches": step["prove_launches"][name],
             "step_keygen_launches": step["keygen_launches"][name],
+            "aggregation_launches": agg["phases"]["prove"]["launches"].get(name, 0),
+            "aggregation_keygen_launches": agg["phases"]["keygen"]["launches"].get(name, 0),
             **{key: rec.pop(key) for key in ("max_abs_err", "ms", "plain_ms",
                                              "bound_ms", "bound_by")},
             "library_ms": rec.pop("library_ms", None), **rec})
+    log(f"smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

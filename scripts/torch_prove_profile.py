@@ -5,6 +5,9 @@
     python3 scripts/torch_prove_profile.py --k 19
     python3 scripts/torch_prove_profile.py --circuit committee
     python3 scripts/torch_prove_profile.py --circuit step
+    python3 scripts/torch_prove_profile.py --circuit aggregation
+    python3 scripts/torch_prove_profile.py --circuit committee --transcripts blake2b,poseidon
+    python3 scripts/torch_prove_profile.py --circuit step --sigma-merge   # host only
 
 Builds the kernels, sets up the SRS and the key, proves once untraced
 (per-phase seconds, peak device memory), then once more under
@@ -13,13 +16,28 @@ shape of build/sync_step_testnet_21.pinning.json, or (--circuit committee)
 the CommitteeUpdateCircuit at build/committee_update_testnet_18.pinning.json
 (512 pubkeys, k=18, witness from default_committee_update_args), or
 (--circuit step) the StepCircuit at the same k=21 pinning (512 pubkeys,
-witness from default_sync_step_args). Prints the
+witness from default_sync_step_args), or (--circuit aggregation) stage 2:
+the committee's stage-1 proof under the Poseidon transcript, aggregated at
+build/aggregation_committee_update_testnet_22.pinning.json (k=22) and the
+outer circuit proved under the Keccak transcript (its set-up seconds are
+printed, and the outer proof must pass AggregationCircuit.verify). Prints the
 device's busy and idle share of the traced prove, per-phase seconds, the
 device time and launches of each of the port's kernels, the top device rows
 by time, then the same as one JSON line. Exits non-zero without CUDA.
 The MSMs run in the mode SPECTRE_MSM_MODE names (vanilla by default); under
 fixed, the untraced prove builds the window table and the traced one
 reuses it.
+
+--transcripts a,b: before the traced prove, the same witness and key are
+proved untraced under each named transcript, in the order given and then
+reversed (a, b, b, a), and the mean seconds of each phase under each are
+printed, so that two transcripts are compared within one run.
+
+--sigma-merge: host only, no GPU needed. Keygen's copy-cycle merge of the
+circuit's copies (flex, committee or step) in Python and in host C++: the
+seconds of each and whether they give the same targets (then the sigma
+columns, and with them the verifying key's digest, are the same). Prints one
+JSON line; exits non-zero if the targets differ.
 """
 
 from __future__ import annotations
@@ -33,14 +51,68 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TRANSCRIPTS = ("blake2b", "poseidon", "keccak")
+
+
+def sigma_merge(args) -> int:
+    """The host merge in Python and in C++ on the circuit's copies."""
+    import numpy as np
+
+    sys.path.insert(0, REPO)
+    from spectre_tpu_torch import spec as SPEC
+    from spectre_tpu_torch.plonk.constraint_system import sigma_targets
+
+    t0 = time.perf_counter()
+    if args.circuit == "flex":
+        from spectre_tpu_torch.witness import config_from_pinning, flex_circuit
+        cfg = config_from_pinning(os.path.join(REPO, "build", "sync_step_testnet_21.pinning.json"),
+                                  args.k)
+        copies = flex_circuit(cfg, seed=args.seed).copies
+    else:
+        from spectre_tpu_torch.models import CommitteeUpdateCircuit, StepCircuit
+        from spectre_tpu_torch.witness import (default_committee_update_args,
+                                               default_sync_step_args)
+        circuit, k, make_args = {
+            "committee": (CommitteeUpdateCircuit, 18, default_committee_update_args),
+            "step": (StepCircuit, 21, default_sync_step_args)}[args.circuit]
+        c_args = make_args(SPEC.TESTNET)
+        ctx = circuit.build_context(c_args, SPEC.TESTNET, device="cpu")
+        cfg = circuit.pinning(SPEC.TESTNET, k, ctx).config
+        copies = ctx.assignment(cfg).copies
+        del ctx
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native = sigma_targets(cfg, copies, native=True)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = sigma_targets(cfg, copies)
+    plain_s = time.perf_counter() - t0
+    equal = all(np.array_equal(p, q) for p, q in zip(plain, native))
+    print(json.dumps({"circuit": args.circuit, "k": cfg.k, "copies": len(copies),
+                      "setup_s": setup_s, "plain_s": plain_s, "native_s": native_s,
+                      "targets_equal": equal}), flush=True)
+    return 0 if equal else 1
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--k", type=int, default=None, help="rows of the flex circuit")
-    ap.add_argument("--circuit", choices=("flex", "committee", "step"), default="flex")
+    ap.add_argument("--circuit", choices=("flex", "committee", "step", "aggregation"),
+                    default="flex")
     ap.add_argument("--seed", type=int, default=1)
+    ap.add_argument("--transcripts", default=None,
+                    help="comma list of " + ",".join(TRANSCRIPTS)
+                    + ": untraced proves under each, a, b, b, a")
+    ap.add_argument("--sigma-merge", action="store_true",
+                    help="host only: keygen's copy-cycle merge in Python and in C++")
     args = ap.parse_args(argv)
+    compare = args.transcripts.split(",") if args.transcripts else []
+    if any(t not in TRANSCRIPTS for t in compare):
+        ap.error(f"--transcripts: expected names among {TRANSCRIPTS}")
+    if args.sigma_merge:
+        if args.circuit == "aggregation":
+            ap.error("--sigma-merge: flex, committee or step")
+        return sigma_merge(args)
 
     import torch
     if not torch.cuda.is_available():
@@ -65,7 +137,52 @@ def main(argv=None) -> int:
     KL.build_all()
     dev = torch.device("cuda")
     bk = TorchBackend(dev)
-    if args.circuit in ("committee", "step"):
+    from spectre_tpu_torch.plonk.transcript import Blake2bTranscript
+
+    transcript = Blake2bTranscript
+    setup = {}
+    if args.circuit == "aggregation":
+        from spectre_tpu_torch import spec as SPEC
+        from spectre_tpu_torch.models import CommitteeUpdateCircuit
+        from spectre_tpu_torch.models.aggregation import AggregationArgs, AggregationCircuit
+        from spectre_tpu_torch.plonk.transcript import KeccakTranscript, PoseidonTranscript
+        from spectre_tpu_torch.witness import default_committee_update_args
+
+        spec, inner = SPEC.TESTNET, CommitteeUpdateCircuit
+        t0 = time.perf_counter()
+        c_args = default_committee_update_args(spec)
+        ctx = inner.build_context(c_args, spec, device=dev)
+        srs_in = SRS.load_or_setup(18, device=dev)
+        pk_in = inner.create_pk(srs_in, spec, 18, c_args, device=dev, ctx=ctx)
+        r = random.Random(args.seed)
+        proof_in = inner.prove(pk_in, srs_in, c_args, spec, device=dev, ctx=ctx,
+                               transcript=PoseidonTranscript(),
+                               blinding_rng=lambda: r.randrange(bn254.R))
+        setup["inner_s"] = time.perf_counter() - t0
+        agg_args = AggregationArgs(inner_vk=pk_in.vk, srs=srs_in,
+                                   inner_instances=[inner.get_instances(c_args, spec)],
+                                   proof=proof_in)
+        del pk_in, ctx
+        torch.cuda.empty_cache()
+        circuit = AggregationCircuit.variant("committee_update")
+        t0 = time.perf_counter()
+        ctx = circuit.build_context(agg_args, spec, device=dev)
+        setup["build_s"] = time.perf_counter() - t0
+        cfg = circuit.pinning(spec, 22, ctx).config
+        t0 = time.perf_counter()
+        srs = SRS.load_or_setup(cfg.k, device=dev)
+        setup["srs_s"] = time.perf_counter() - t0
+        ktimer = PhaseTimer(dev)
+        t0 = time.perf_counter()
+        pk = circuit.create_pk(srs, spec, cfg.k, agg_args, device=dev, ctx=ctx, timer=ktimer)
+        setup["keygen_s"] = time.perf_counter() - t0
+        setup["keygen_phases_s"] = ktimer.seconds
+        instances = circuit.get_instances(agg_args, spec)
+        asg = ctx.assignment(cfg)
+        del ctx
+        transcript = KeccakTranscript
+        print("set-up (s): " + json.dumps(setup), flush=True)
+    elif args.circuit in ("committee", "step"):
         from spectre_tpu_torch import spec as SPEC
         from spectre_tpu_torch.models import CommitteeUpdateCircuit, StepCircuit
         from spectre_tpu_torch.witness import (default_committee_update_args,
@@ -88,17 +205,39 @@ def main(argv=None) -> int:
         pk = keygen(srs, cfg, fc.fixed, fc.selectors, fc.copies, bk)
         asg = fc.assignment
 
-    def one_prove(timer):
+    def one_prove(timer, transcript_cls=transcript):
         r = random.Random(args.seed)
-        return prove(pk, srs, asg, bk, timer=timer,
+        return prove(pk, srs, asg, bk, timer=timer, transcript=transcript_cls(),
                      blinding_rng=lambda: r.randrange(bn254.R))
+
+    if compare:
+        from spectre_tpu_torch.plonk import transcript as T
+        classes = {"blake2b": T.Blake2bTranscript, "poseidon": T.PoseidonTranscript,
+                   "keccak": T.KeccakTranscript}
+        runs = {name: [] for name in compare}
+        for name in compare + compare[::-1]:
+            timer = PhaseTimer(dev)
+            t0 = time.perf_counter()
+            one_prove(timer, classes[name])
+            runs[name].append(dict(timer.seconds, total=time.perf_counter() - t0))
+        means = {name: {key: sum(r[key] for r in rs) / len(rs) for key in rs[0]}
+                 for name, rs in runs.items()}
+        print("transcripts, mean seconds a phase (order " + ",".join(compare + compare[::-1])
+              + "): " + json.dumps({"transcripts": means, "runs": runs}), flush=True)
 
     timer = PhaseTimer(dev)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    one_prove(timer)
+    proof = one_prove(timer)
     untraced = time.perf_counter() - t0
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    if args.circuit == "aggregation":
+        if not circuit.verify(pk.vk, srs, instances, proof, device=dev,
+                              transcript_cls=KeccakTranscript):
+            print("torch_prove_profile: the outer proof does not verify", file=sys.stderr)
+            return 1
+        print(f"the outer proof ({len(proof)} bytes) passes AggregationCircuit.verify",
+              flush=True)
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -126,7 +265,7 @@ def main(argv=None) -> int:
         "prove_s_untraced": untraced,
         "prove_s_traced": traced, "peak_device_gib": peak_gib,
         "device_busy_s": busy_us / 1e6, "device_busy_share": busy_us / 1e6 / traced,
-        "phases_s": timer.seconds,
+        "phases_s": timer.seconds, "setup_s": setup,
         "kernels": ours,
         "top": [{"device_ms": us / 1e3, "count": n, "name": name[:120]}
                 for us, n, name in rows[:25]],

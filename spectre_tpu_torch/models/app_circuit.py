@@ -19,6 +19,7 @@ from ..plonk.backend import TorchBackend
 from ..plonk.keygen import ProvingKey, keygen
 from ..plonk.prover import prove as plonk_prove
 from ..plonk.srs import SRS
+from ..plonk.transcript import Blake2bTranscript
 from ..plonk.verifier import verify as plonk_verify
 from ..utils.pinning import Pinning
 
@@ -79,31 +80,35 @@ class AppCircuit:
 
     @classmethod
     def create_pk(cls, srs: SRS, spec, k: int, dummy_args, device=None,
-                  ctx: Context | None = None) -> ProvingKey:
+                  ctx: Context | None = None, timer=None) -> ProvingKey:
         """Keygen from a default witness at the pinned shape. dummy_args
-        may be a zero-arg callable; ctx, a context already built from it."""
+        may be a zero-arg callable; ctx, a context already built from it;
+        timer, as in plonk.keygen.keygen."""
         if ctx is None:
             ctx = cls.build_context(dummy_args() if callable(dummy_args) else dummy_args,
                                     spec, device)
         cfg = cls.pinning(spec, k, ctx).config
         asg = ctx.assignment(cfg)
         return keygen(srs, cfg, asg.fixed, asg.selectors, asg.copies,
-                      TorchBackend(device))
+                      TorchBackend(device), timer=timer)
 
     @classmethod
     def prove(cls, pk: ProvingKey, srs: SRS, args, spec, device=None,
-              ctx: Context | None = None, blinding_rng=None, timer=None) -> bytes:
-        """A Blake2b-transcript proof (the reference's default). ctx: a
-        context already built from args; blinding_rng and timer as in
-        plonk.prover.prove."""
+              ctx: Context | None = None, blinding_rng=None, timer=None,
+              transcript=None) -> bytes:
+        """transcript: None = Blake2b (the reference's default); pass
+        PoseidonTranscript() for snarks bound for aggregation,
+        KeccakTranscript() for the EVM path. ctx: a context already built
+        from args; blinding_rng and timer as in plonk.prover.prove."""
         if ctx is None:
             ctx = cls.build_context(args, spec, device)
         asg = ctx.assignment(pk.vk.config)
-        return plonk_prove(pk, srs, asg, TorchBackend(device),
+        return plonk_prove(pk, srs, asg, TorchBackend(device), transcript=transcript,
                            blinding_rng=blinding_rng, timer=timer)
 
     @classmethod
-    def verify(cls, vk, srs: SRS, instances, proof: bytes, device=None) -> bool:
+    def verify(cls, vk, srs: SRS, instances, proof: bytes, device=None,
+               transcript_cls=Blake2bTranscript) -> bool:
         """The host verifier (transcript, identity at x, one pairing)."""
         resolve(device)
-        return plonk_verify(vk, srs, [instances], proof)
+        return plonk_verify(vk, srs, [instances], proof, transcript_cls=transcript_cls)

@@ -10,6 +10,10 @@ every source in its own `nvcc` process, all started together, and loaded
 with ctypes. The file name carries a hash of the sources, so an edited
 source is never served by a stale build.
 
+Host routines that keygen needs in native code (`sigma_host.cpp`, the copy
+permutation's cycle merge) are built the same way by the host C++ compiler
+(`host_library`); they run on the CPU and are not kernels.
+
 Every kernel has a `KernelInfo` in `KERNELS`; its wrapper adds one to
 `launches` where it launches the kernel and nowhere else, so a run can show
 which kernels its path went through.
@@ -53,6 +57,15 @@ LIBRARIES = {
     }),
 }
 HEADERS = ("aggregate.cuh", "bn254.cuh", "bucket.cuh", "ntt.cuh")
+
+# host library -> (source file, {C function: argtypes}), built by the host
+# C++ compiler
+HOST_LIBRARIES = {
+    "sigma_host": ("sigma_host.cpp", {
+        "spt_sigma_merge": [_VP, _VP, _LONG, _LONG, _VP],
+    }),
+}
+CXX_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC"]
 
 
 @dataclass
@@ -196,6 +209,46 @@ def library(name: str):
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
         _loaded[name] = lib
+    return lib
+
+
+def _host_target(name: str) -> str:
+    src, _ = HOST_LIBRARIES[name]
+    h = hashlib.sha256()
+    with open(os.path.join(CSRC, src), "rb") as fh:
+        h.update(fh.read())
+    h.update(" ".join(CXX_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:12]}.so")
+
+
+def host_library(name: str):
+    """The loaded ctypes host library `name`, built by the host C++
+    compiler on first use (`<library>.log` keeps its report). Raises if it
+    cannot be built: there is no silent fallback."""
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
+    src, fns = HOST_LIBRARIES[name]
+    out = _host_target(name)
+    if not os.path.exists(out):
+        cxx = shutil.which("c++") or shutil.which("g++")
+        if cxx is None:
+            raise RuntimeError(f"no host C++ compiler: {name} cannot be built")
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        log_path = os.path.join(BUILD_DIR, f"{name}.log")
+        with open(log_path, "w") as log:
+            rc = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, os.path.join(CSRC, src)],
+                                stdout=log, stderr=subprocess.STDOUT).returncode
+        if rc != 0:
+            with open(log_path) as log:
+                raise RuntimeError(f"{cxx} failed for {name}:\n{log.read()}")
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(out)
+    for fn, argtypes in fns.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    _loaded[name] = lib
     return lib
 
 

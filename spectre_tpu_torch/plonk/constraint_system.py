@@ -233,14 +233,59 @@ def table_column(cfg: CircuitConfig, table_id: str = "range") -> np.ndarray:
 # permutation helpers
 # ---------------------------------------------------------------------------
 
-def sigma_targets(cfg: CircuitConfig, copies) -> tuple[np.ndarray, np.ndarray]:
+def sigma_merge_plain(a: np.ndarray, b: np.ndarray, k: int) -> np.ndarray:
+    """The cycle merge over cells 0..k-1 for the copy pairs (a[i], b[i]):
+    each cell's successor in its cycle, [k] int64. halo2's next-pointer
+    merge (swapping the successors of two cells in distinct cycles joins
+    the cycles) with small-to-large membership relabelling, in Python: the
+    plain version of `csrc/sigma_host.cpp`."""
+    nxt = list(range(k))
+    cyc = list(range(k))
+    members: dict = {}
+    for ca, cb in zip(a.tolist(), b.tolist()):
+        ia, ib = cyc[ca], cyc[cb]
+        if ia == ib:
+            continue
+        ma = members.get(ia) or [ia]
+        mb = members.pop(ib, None) or [ib]
+        if len(ma) < len(mb):
+            ia, ib, ma, mb = ib, ia, mb, ma
+            members.pop(ib, None)
+        for cell in mb:
+            cyc[cell] = ia
+        ma.extend(mb)
+        members[ia] = ma
+        nxt[ca], nxt[cb] = nxt[cb], nxt[ca]
+    return np.array(nxt, dtype=np.int64)
+
+
+def sigma_merge_native(a: np.ndarray, b: np.ndarray, k: int, lib=None) -> np.ndarray:
+    """`sigma_merge_plain` in host C++ (`csrc/sigma_host.cpp`, built on
+    first use; raises if it cannot be built). lib: a loaded library to use
+    instead."""
+    from ..ops import kernel_lib as KL
+    lib = lib or KL.host_library("sigma_host")
+    a = np.ascontiguousarray(a, dtype=np.int64)
+    b = np.ascontiguousarray(b, dtype=np.int64)
+    if a.shape != b.shape:
+        raise ValueError("one b cell for each a cell")
+    nxt = np.empty(k, dtype=np.int64)
+    rc = lib.spt_sigma_merge(a.ctypes.data, b.ctypes.data, a.shape[0], k, nxt.ctypes.data)
+    if rc != 0:
+        raise RuntimeError(f"spt_sigma_merge failed with code {rc}")
+    return nxt
+
+
+def sigma_targets(cfg: CircuitConfig, copies, native: bool = False
+                  ) -> tuple[np.ndarray, np.ndarray]:
     """The copy permutation as (column, row) targets, each [m * n] int64:
     sigma(j, i) = (jp, ip) flattened at j * n + i.
 
-    Cycle construction is halo2's next-pointer merge (swapping successors of
-    two cells in distinct cycles concatenates them) with small-to-large
-    membership relabeling — the reference's `build_sigma` exactly, so both
-    packages build the same permutation from the same copies."""
+    The cycles are the reference's `build_sigma` exactly (halo2's
+    next-pointer merge with small-to-large relabelling), so both packages
+    build the same permutation from the same copies. native: merge in host
+    C++ (`sigma_merge_native`, keygen on the card) instead of the Python
+    loop; the targets are the same."""
     n = cfg.n
     m = cfg.num_perm_columns
     u = cfg.usable_rows
@@ -253,29 +298,14 @@ def sigma_targets(cfg: CircuitConfig, copies) -> tuple[np.ndarray, np.ndarray]:
         if cp[:, 1].max() >= u or cp[:, 3].max() >= u:
             raise ValueError("copy constraint in blinding rows")
     # the cells the copies touch, as flat indices j * n + i renumbered
-    # 0..k-1 (a cell no copy touches is its own cycle); the merge below only
+    # 0..k-1 (a cell no copy touches is its own cycle); the merge only
     # compares cycle sizes, so the numbering does not change its result
     flat = np.concatenate([cp[:, 0] * n + cp[:, 1], cp[:, 2] * n + cp[:, 3]])
     cells, ids = np.unique(flat, return_inverse=True)
-    nxt = list(range(cells.shape[0]))
-    cyc = list(range(cells.shape[0]))
-    members: dict = {}
-    for a, b in zip(ids[:cp.shape[0]].tolist(), ids[cp.shape[0]:].tolist()):
-        ia, ib = cyc[a], cyc[b]
-        if ia == ib:
-            continue
-        ma = members.get(ia) or [ia]
-        mb = members.pop(ib, None) or [ib]
-        if len(ma) < len(mb):
-            ia, ib, ma, mb = ib, ia, mb, ma
-            members.pop(ib, None)
-        for cell in mb:
-            cyc[cell] = ia
-        ma.extend(mb)
-        members[ia] = ma
-        nxt[a], nxt[b] = nxt[b], nxt[a]
+    merge = sigma_merge_native if native else sigma_merge_plain
+    nxt = merge(ids[:cp.shape[0]], ids[cp.shape[0]:], cells.shape[0])
     tgt = np.arange(m * n, dtype=np.int64)
-    tgt[cells] = cells[np.array(nxt, dtype=np.int64)]
+    tgt[cells] = cells[nxt]
     return tgt // n, tgt % n
 
 

@@ -186,12 +186,15 @@ class ProvingKey:
     sha_k_poly: object = None
 
 
-def build_sigma(cfg: CircuitConfig, copies, bk: TorchBackend) -> list:
+def build_sigma(cfg: CircuitConfig, copies, bk: TorchBackend, timer) -> list:
     """sigma_j[i] = delta^j' omega^i' where (j', i') = sigma(j, i): one
     gather of the delta and omega power tables and one product per column,
-    on the backend's device."""
+    on the backend's device. The cycle merge runs in host C++ when the
+    backend is on the card, as the Python loop on the CPU."""
     n, m = cfg.n, cfg.num_perm_columns
-    jp, ip = sigma_targets(cfg, copies)
+    timer.start("sigma_merge")
+    jp, ip = sigma_targets(cfg, copies, native=bk.device.type == "cuda")
+    timer.start("sigma")
     dom = Domain(cfg.k)
     omega = bk.powers(dom.omega, n)
     delta = bk.from_ints([pow(DELTA, j, R) for j in range(m)])
@@ -202,13 +205,19 @@ def build_sigma(cfg: CircuitConfig, copies, bk: TorchBackend) -> list:
 
 
 def keygen(srs: SRS, cfg: CircuitConfig, fixed_columns: list, selectors: list,
-           copies: list, bk: TorchBackend | None = None, device=None) -> ProvingKey:
+           copies: list, bk: TorchBackend | None = None, device=None,
+           timer=None) -> ProvingKey:
     """Generate pk/vk from the circuit's fixed content on the backend's
     device (default: a TorchBackend on `device`, which defaults to CUDA).
 
     fixed_columns: [num_fixed] columns; selectors: [num_advice] 0/1 columns;
-    copies: global copy-constraint pairs."""
+    copies: global copy-constraint pairs. timer: an optional
+    prover.PhaseTimer that receives the seconds of the phases columns,
+    sigma_merge (the copy cycles), sigma, interpolate and commit."""
+    from .prover import PhaseTimer     # prover imports this module
     bk = bk or TorchBackend(device)
+    timer = timer or PhaseTimer(bk.device)
+    timer.start("columns")
     cfg.validate()
     dom = Domain(cfg.k)
     if srs.n < cfg.n:
@@ -221,8 +230,9 @@ def keygen(srs: SRS, cfg: CircuitConfig, fixed_columns: list, selectors: list,
     tab_std = {t: F.tensor_from_u64(column_std(table_column(cfg, t), n), bk.device)
                for t in tab_ids}
     tab_vals = {t: bk.from_std(tab_std[t]) for t in tab_ids}
-    sigma_vals = build_sigma(cfg, copies, bk)
+    sigma_vals = build_sigma(cfg, copies, bk, timer)
 
+    timer.start("interpolate")
     sel_polys = dom.lagrange_to_coeff_many(sel_vals, bk)
     fix_polys = dom.lagrange_to_coeff_many(fix_vals, bk)
     sig_polys = dom.lagrange_to_coeff_many(sigma_vals, bk)
@@ -235,6 +245,7 @@ def keygen(srs: SRS, cfg: CircuitConfig, fixed_columns: list, selectors: list,
         sha_polys = dom.lagrange_to_coeff_many(
             [bk.from_std(column_std(c, n)) for c in (*sha_sel, sha_k)], bk)
 
+    timer.start("commit")
     pts = kzg.commit_many(srs, sel_polys + fix_polys + sig_polys
                           + [tab_polys[t] for t in tab_ids] + sha_polys, bk)
     ns, nf, ng, nt = len(sel_polys), len(fix_polys), len(sig_polys), len(tab_ids)
@@ -251,6 +262,7 @@ def keygen(srs: SRS, cfg: CircuitConfig, fixed_columns: list, selectors: list,
         sha_k_commit=sha_commits[-1] if sha_commits else None,
     )
     vk.assert_rotation_injective()
+    timer.stop()
     return ProvingKey(vk, sel_polys, fix_polys, sig_polys,
                       [tab_polys[t] for t in col_tabs],
                       sel_vals, fix_vals, sigma_vals,

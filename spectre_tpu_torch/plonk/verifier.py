@@ -15,8 +15,9 @@ from .transcript import Blake2bTranscript
 R = bn254.R
 
 
-def verify(vk: VerifyingKey, srs: SRS, instances: list, proof: bytes) -> bool:
-    acc = verify_deferred(vk, srs, instances, proof)
+def verify(vk: VerifyingKey, srs: SRS, instances: list, proof: bytes,
+           transcript_cls=Blake2bTranscript) -> bool:
+    acc = verify_deferred(vk, srs, instances, proof, transcript_cls)
     if acc is None:
         return False
     tau_side, one_side = acc
@@ -26,20 +27,24 @@ def verify(vk: VerifyingKey, srs: SRS, instances: list, proof: bytes) -> bool:
     ])
 
 
-def verify_deferred(vk: VerifyingKey, srs: SRS, instances: list, proof: bytes):
+def verify_deferred(vk: VerifyingKey, srs: SRS, instances: list, proof: bytes,
+                    transcript_cls=Blake2bTranscript):
     """Everything but the pairing. Returns the deferred check (tau_side,
-    one_side), or None if the identity fails or the bytes are malformed."""
+    one_side) with e(tau_side, [tau]_2) == e(one_side, [1]_2), or None if
+    the identity fails or the bytes are malformed. The aggregation's native
+    accumulator shares this definition (with the Poseidon transcript)."""
     try:
-        return _verify_deferred_inner(vk, srs, instances, proof)
+        return _verify_deferred_inner(vk, srs, instances, proof, transcript_cls)
     except (AssertionError, ValueError):
         return None
 
 
-def _verify_deferred_inner(vk: VerifyingKey, srs: SRS, instances: list, proof: bytes):
+def _verify_deferred_inner(vk: VerifyingKey, srs: SRS, instances: list, proof: bytes,
+                           transcript_cls):
     cfg = vk.config
     dom = vk.domain
     n, u = cfg.n, cfg.usable_rows
-    tr = Blake2bTranscript(proof)
+    tr = transcript_cls(proof)
 
     tr._absorb_bytes(vk.digest())
     for col in instances:

@@ -190,3 +190,25 @@ def test_msm_modes_match_host(dev, mode):
     assert launched["K1_fixed"] == (mode == "fixed")
     assert launched["K1b_bucket_scatter"] == (mode != "fixed")
     assert (launched["K2_padd"] > 0) == (mode == "fixed")
+
+
+def test_outer_prove_k17_equals_reference_record(dev):
+    """The AggregationCircuit over the k=10 inner proof, keyed and proved at
+    k=17 under Keccak on the card (tests/_torch_agg_k17.py): the reference's
+    vk digest, statement and proof bytes, as tests/data/torch_agg_k17_keccak
+    .json records them; AggregationCircuit.verify accepts the proof and
+    rejects a flipped accumulator limb."""
+    import _torch_agg_k17 as K17
+    from spectre_tpu_torch.plonk.transcript import KeccakTranscript
+
+    record = K17.read_record()
+    circuit, pk, srs, stmt, proof = K17.port_outer(dev)
+    assert pk.vk.config.k == record["k"]
+    assert pk.vk.digest().hex() == record["vk_digest"]
+    assert [hex(v) for v in stmt] == record["instances"]
+    assert proof.hex() == record["proof"]
+    assert circuit.verify(pk.vk, srs, stmt, proof, device=dev, transcript_cls=KeccakTranscript)
+    bad = list(stmt)
+    bad[0] = (bad[0] + 1) % bn254.R
+    assert not circuit.verify(pk.vk, srs, bad, proof, device=dev,
+                              transcript_cls=KeccakTranscript)

@@ -42,6 +42,32 @@ def test_port_imports_nothing_of_jax_or_the_reference():
     assert int(out.stdout.strip().splitlines()[-1]) >= 20
 
 
+STAGE_TWO = ("spectre_tpu_torch.plonk.in_circuit", "spectre_tpu_torch.models.aggregation",
+             "spectre_tpu_torch.builder.msm_chip", "spectre_tpu_torch.builder.transcript_chip",
+             "spectre_tpu_torch.plonk.transcript")
+
+
+def test_stage_two_modules_import_nothing_of_jax_or_the_reference():
+    """The aggregation slice's modules, each imported alone under the same
+    refusal, and its transcripts and host routine present."""
+    for name in STAGE_TWO:
+        prelude = BLOCKED_IMPORTS.split("\nimport spectre_tpu_torch\n")[0]
+        assert "class Refuse" in prelude and "walk_packages" not in prelude
+        script = prelude + textwrap.dedent(f"""
+            import importlib
+            mod = importlib.import_module("{name}")
+            bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "spectre_tpu")]
+            assert not bad, bad
+        """)
+        out = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True,
+                             text=True, timeout=300, env=dict(os.environ, PYTHONPATH=REPO))
+        assert out.returncode == 0, (name, out.stderr)
+    from spectre_tpu_torch.ops import kernel_lib as KL
+    from spectre_tpu_torch.plonk import transcript as T
+    assert {"Blake2bTranscript", "PoseidonTranscript", "KeccakTranscript"} <= set(vars(T))
+    assert os.path.exists(os.path.join(KL.CSRC, KL.HOST_LIBRARIES["sigma_host"][0]))
+
+
 def test_chip_smoke_refuses_without_a_gpu(tmp_path):
     """Alone in a directory, or on a machine without CUDA, the smoke exits
     non-zero and prints no result line."""
