@@ -24,8 +24,9 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
   K2b      the weighted bucket aggregation at c from default_window_pallas
            (24 windows of 1024 buckets at n = 2^21), on random projective
            bucket sums and on K1's own output: equal limb for limb; timed
-  msm      the full MSM at n = 2^21 against the host sum of a 2^10 prefix,
-           and linear in its scalars
+  msm      the full MSM at n = 2^21 over the test points tau^i G, against
+           the host sum (sum s_i tau^i) G on a 2^10 prefix and whole, and
+           linear in its scalars
   K1-fixed K1's fixed-base form at the step's geometry: 2^21 base points and
            random scalars, GLV-split on the card (2^22 expanded points, c=13,
            10 windows), the window table built by the port (K2 doublings, K3
@@ -86,8 +87,22 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
            verifiers on the tracked reference proofs
            build/committee_testnet_18_poseidon.proof and
            build/agg_committee_testnet_22_keccak.proof
+  evm      the EVM tail on the card's outer proof (host code): the Solidity
+           verifier generated from the port's outer vk equals
+           build/aggregation_committee_testnet_22_verifier.sol but for its
+           generator line, and its bytecode the tracked source's (56,636
+           runtime bytes); the calldata; the simulator and the compiled
+           verifier in the metered VM accept the proof and reject it with
+           byte 41 flipped (gas printed); the tracked committee and step
+           proofs in the VM give their recorded gas and size; the Spectre
+           contract, a constant-true step verifier and the compiled committee
+           verifier deployed in the VM's World: one step to the committee's
+           finalized header, then rotateCompressed with the card's proof
+           stores instances[12] as the next period's committee, and the
+           flipped proof reverts; the phase's seconds
 
-It prints one JSON line of kernel records, then the device line
+Each phase's start is logged as "[elapsed s] phase". It prints one JSON
+line of kernel records, then the device line
 {"ok": true, "device": {...}} last. It imports neither jax nor spectre_tpu.
 """
 
@@ -319,6 +334,18 @@ def resident(torch, top: int = 6) -> str:
     return (f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated, "
             f"{sum(seen.values()) / 2 ** 30:.2f} GiB in {len(seen)} live tensors; largest: "
             + "; ".join(desc))
+
+
+def tau_msm(scalars: list, tau: int):
+    """sum_i s_i P_i over the test points P_i = tau^i G, as (sum_i s_i tau^i) G:
+    the host sum in one scalar product (Horner's rule), which also checks
+    the points."""
+    from spectre_tpu_torch.fields import bn254
+
+    acc = 0
+    for s in reversed(scalars):
+        acc = (acc * tau + s) % bn254.R
+    return bn254.g1_curve.mul(bn254.G1_GEN, acc)
 
 
 def require(cond: bool, what: str) -> None:
@@ -709,7 +736,7 @@ def circuit_path(torch, dev, seed: int, circuit, k: int, make_args, shape,
     M.clear_tables()
     return dict(phases=phases, keygen_phases=ktimer.seconds, prove_phases=timer.seconds,
                 peak_gib=peak, keygen_launches=keygen_counts, prove_launches=prove_counts,
-                modes=by_mode, proof=proof, vk=pk.vk, srs=srs, instances=instances)
+                modes=by_mode, proof=proof, vk=pk.vk, srs=srs, instances=instances, args=args)
 
 
 def committee_path(torch, dev, seed: int) -> dict:
@@ -792,18 +819,13 @@ def tracked_proofs(committee: dict, circuit, vk, srs) -> dict:
     from spectre_tpu_torch.plonk.transcript import KeccakTranscript, PoseidonTranscript
     from spectre_tpu_torch.plonk.verifier import verify
 
-    build = os.path.join(REPO, "build")
     out = {"committee_vk_digest": committee["vk"].digest().hex(),
            "outer_vk_digest": vk.digest().hex()}
     try:
-        with open(os.path.join(build, "agg_committee_testnet_22_keccak.proof"), "rb") as f:
-            agg_proof = f.read()
-        with open(os.path.join(build, "agg_committee_testnet_22_keccak.proof.instances.json")) as f:
-            agg_inst = [int(v, 16) for v in json.load(f)["instances"]]
-        with open(os.path.join(build, "committee_testnet_18_poseidon.proof"), "rb") as f:
+        sol, agg_inst, agg_proof = read_tracked_evm("committee")
+        with open(os.path.join(REPO, "build", "committee_testnet_18_poseidon.proof"), "rb") as f:
             com_proof = f.read()
-        with open(os.path.join(build, "aggregation_committee_testnet_22_verifier.sol")) as f:
-            m = re.search(r"VK_DIGEST =\s*(0x[0-9a-f]+)", f.read())
+        m = re.search(r"VK_DIGEST =\s*(0x[0-9a-f]+)", sol)
         out["tracked_outer_vk_digest"] = m.group(1)[2:] if m else None
         out["tracked_committee_instances_equal_ours"] = agg_inst[12:] == committee["instances"]
         out["committee_proof_verifies"] = verify(committee["vk"], committee["srs"],
@@ -890,7 +912,248 @@ def aggregation_path(torch, dev, seed: int, committee: dict) -> dict:
         f"a flipped accumulator limb is rejected; vk digest {pk.vk.digest().hex()}")
     tracked = tracked_proofs(committee, circuit, pk.vk, srs)
     log("  tracked reference proofs (apart from the exit code): " + json.dumps(tracked))
-    return dict(phases=phases, tracked=tracked, proof_bytes=len(proof))
+    return dict(phases=phases, tracked=tracked, proof_bytes=len(proof), pk=pk, srs=srs,
+                instances=instances, proof=proof)
+
+
+# what build/compressed_committee_testnet_18.json and the reference's own run
+# of its VM record for the tracked compressed proofs: (gas_execution,
+# gas_total, runtime bytes)
+TRACKED_EVM = {
+    "committee": ("aggregation_committee_testnet_22_verifier.sol",
+                  "agg_committee_testnet_22_keccak.proof", (1142389, 1283113, 56636)),
+    "step": ("aggregation_sync_step_testnet_21_verifier.sol",
+             "agg_step_testnet_21_keccak.proof", (944042, 1059110, 44380)),
+}
+REF_GENERATOR = "// Auto-generated by spectre_tpu.evm.codegen — DO NOT EDIT."
+PORT_GENERATOR = "// Auto-generated by spectre_tpu_torch.evm.codegen — DO NOT EDIT."
+TAMPER_BYTE = 41
+# the revert reasons of a rejected rotateCompressed: the contract's own, or
+# the verifier's, which the contract passes on
+VERIFIER_REVERTS = ("rotate proof invalid", "identity", "eval range", "ecMul", "ecAdd",
+                    "pairing")
+
+
+def read_tracked_evm(name: str) -> tuple[str, list, bytes]:
+    sol, proof, _ = TRACKED_EVM[name]
+    build = os.path.join(REPO, "build")
+    with open(os.path.join(build, sol)) as f:
+        src = f.read()
+    with open(os.path.join(build, proof), "rb") as f:
+        pf = f.read()
+    with open(os.path.join(build, proof + ".instances.json")) as f:
+        inst = [int(v, 16) for v in json.load(f)["instances"]]
+    return src, inst, pf
+
+
+def tampered(proof: bytes, at: int = TAMPER_BYTE) -> bytes:
+    bad = bytearray(proof)
+    bad[at] ^= 1
+    return bytes(bad)
+
+
+def evm_path(agg: dict, header) -> dict:
+    """The EVM tail of genEvmProof_CommitteeUpdateCompressed: the Solidity
+    verifier generated from the port's outer vk (equal to the tracked one
+    but for its generator line), then evm_checks on the card's proof."""
+    from spectre_tpu_torch.evm import gen_evm_verifier
+
+    t0 = time.perf_counter()
+    sol = gen_evm_verifier(agg["pk"].vk, agg["srs"], num_instances=len(agg["instances"]),
+                           contract_name="Verifier_aggregation_committee", num_acc_limbs=12)
+    gen_s = time.perf_counter() - t0
+    log(f"evm: verifier generated from the port's outer vk in {gen_s:.3f} s, "
+        f"{len(sol)} source bytes")
+    out = evm_checks(sol, agg["instances"], agg["proof"], header)
+    out["seconds"]["generate"] = gen_s
+    return out
+
+
+def evm_checks(sol: str, instances: list, proof: bytes, header) -> dict:
+    """The checks of the evm phase on a generated committee verifier `sol`
+    and one compressed proof with its 15 instances: the source against the
+    tracked verifier, the bytecode against the tracked source's; calldata;
+    the simulator and the metered VM accept the proof and reject it with a
+    byte flipped; the tracked committee and step proofs in the VM; the
+    Spectre contract's step and rotateCompressed through the compiled
+    verifier. header is the committee's finalized header (its slot and
+    root). Returns the seconds of each part and the numbers printed."""
+    from spectre_tpu_torch import spec as SPEC
+    from spectre_tpu_torch.contracts.sol_gen import gen_spectre_sol
+    from spectre_tpu_torch.contracts.spectre import StepInput
+    from spectre_tpu_torch.evm import encode_calldata, vm as V
+    from spectre_tpu_torch.evm.simulator import run_verifier
+    from spectre_tpu_torch.evm.solc import compile_verifier, vm_verify
+    from spectre_tpu_torch.evm.solc_spectre import compile_spectre
+    from spectre_tpu_torch.plonk.transcript import keccak256
+    from spectre_tpu_torch.prover_service import calldata as CD
+
+    secs, nums = {}, {}
+    t_phase = time.perf_counter()
+
+    # 1. the source and its bytecode against the tracked verifier
+    t0 = time.perf_counter()
+    tracked_src, _, _ = read_tracked_evm("committee")
+    got, want = sol.split("\n"), tracked_src.split("\n")
+    diff = [i for i in range(max(len(got), len(want)))
+            if (got[i] if i < len(got) else None) != (want[i] if i < len(want) else None)]
+    first = next((i for i in diff if i != 1), None)
+    if first is not None:
+        log(f"  first line that differs from the tracked verifier: {first + 1}\n"
+            f"    generated: {got[first] if first < len(got) else '<end>'}\n"
+            f"    tracked:   {want[first] if first < len(want) else '<end>'}")
+    require(diff == [1] and got[1] == PORT_GENERATOR and want[1] == REF_GENERATOR,
+            "the generated verifier equals the tracked one but for its generator line")
+    runtime, init, meta = compile_verifier(sol)
+    t_runtime, t_init, _ = compile_verifier(tracked_src)
+    require(runtime == t_runtime and init == t_init,
+            "its bytecode equals the tracked source's, compiled by the port")
+    require(meta["runtime_bytes"] == TRACKED_EVM["committee"][2][2],
+            f"{TRACKED_EVM['committee'][2][2]} runtime bytes")
+    secs["source_and_bytecode"] = time.perf_counter() - t0
+    log(f"  source equal to build/{TRACKED_EVM['committee'][0]} but for line 2; bytecode "
+        f"equal: {meta['runtime_bytes']} runtime bytes, {meta['init_bytes']} init bytes, "
+        f"eip170_ok {meta['eip170_ok']}")
+
+    # 2. calldata, the simulator and the metered VM on the proof
+    t0 = time.perf_counter()
+    abi = encode_calldata(instances, proof)
+    flat = CD.encode_calldata(instances, proof)
+    require(len(abi) == 4 + 32 * (4 + len(instances)) + -(-len(proof) // 32) * 32
+            and abi[:4] == keccak256(b"verify(uint256[],bytes)")[:4],
+            "the ABI calldata's layout")
+    require(CD.decode_calldata(flat, len(instances)) == (list(instances), proof),
+            "the flat calldata decodes to the statement and the proof")
+    secs["calldata"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sim_ok = run_verifier(sol, instances, proof)
+    secs["simulator"] = time.perf_counter() - t0
+    sim_bad = run_verifier(sol, instances, tampered(proof))
+    require(sim_ok, "the simulator accepts the proof")
+    require(not sim_bad, f"the simulator rejects it with byte {TAMPER_BYTE} flipped")
+    t0 = time.perf_counter()
+    r = vm_verify(sol, instances, proof, tamper_byte=TAMPER_BYTE)
+    secs["vm"] = time.perf_counter() - t0
+    require(r["ok"] and not r["reverted"], "the compiled verifier accepts the proof in the VM")
+    require(r["tamper_rejected"], f"the VM rejects it with byte {TAMPER_BYTE} flipped")
+    want_total = TRACKED_EVM["committee"][2][1]
+    nums["proof"] = dict(calldata_bytes=len(abi), flat_calldata_bytes=len(flat),
+                         gas_execution=r["gas_execution"], gas_total=r["gas_total"],
+                         gas_total_minus_tracked=r["gas_total"] - want_total,
+                         runtime_bytes=r["runtime_bytes"], eip170_ok=r["eip170_ok"],
+                         calldata_zero_bytes=abi.count(0))
+    log(f"  the proof: calldata {len(abi)} bytes ({len(flat)} flat); simulator accepts "
+        f"({secs['simulator']:.3f} s), rejects byte {TAMPER_BYTE} flipped; VM accepts, "
+        f"rejects the flip; gas_execution {r['gas_execution']}, gas_total {r['gas_total']} "
+        f"({r['gas_total'] - want_total:+d} against the tracked proof's {want_total}), "
+        f"runtime {r['runtime_bytes']} bytes, eip170_ok {r['eip170_ok']} ({secs['vm']:.3f} s)")
+
+    # 3. the tracked reference proofs in the port's VM
+    for name, (_, _, (g_exec, g_total, nbytes)) in TRACKED_EVM.items():
+        t0 = time.perf_counter()
+        src, inst, pf = read_tracked_evm(name)
+        rt = vm_verify(src, inst, pf, tamper_byte=TAMPER_BYTE)
+        secs[f"tracked_{name}"] = time.perf_counter() - t0
+        require(rt["ok"] and (rt["gas_execution"], rt["gas_total"], rt["runtime_bytes"])
+                == (g_exec, g_total, nbytes),
+                f"the tracked {name} proof: ok, gas {g_exec} / {g_total}, {nbytes} bytes")
+        require(rt["tamper_rejected"], f"the tracked {name} proof with byte {TAMPER_BYTE} "
+                                       "flipped is rejected")
+        nums[f"tracked_{name}"] = {k: rt[k] for k in ("gas_execution", "gas_total",
+                                                      "runtime_bytes", "eip170_ok")}
+        log(f"  tracked {name}: ok, gas {rt['gas_execution']} / {rt['gas_total']}, "
+            f"{rt['runtime_bytes']} bytes, flip rejected ({secs[f'tracked_{name}']:.3f} s)")
+
+    # 4. on chain: Spectre, a constant-true step verifier, the committee verifier
+    t0 = time.perf_counter()
+    spec = SPEC.TESTNET
+    lo, hi = instances[13], instances[14]
+    root = hi.to_bytes(16, "big") + lo.to_bytes(16, "big")
+    require(root == header.hash_tree_root(), "instances[13:15] encode the committee's "
+                                             "finalized header root")
+    world = V.World()
+    step_v, _ = world.deploy(constant_verifier(True))
+    rotate_v, verifier_deploy_gas = world.deploy(init, enforce_eip170=False)
+    spectre_rt, spectre_init, spectre_meta = compile_spectre(gen_spectre_sol(spec))
+    inp = StepInput(attested_slot=header.slot + 3, finalized_slot=header.slot,
+                    participation=spec.sync_committee_size,
+                    finalized_header_root=root,
+                    execution_payload_root=keccak256(b"execution payload root"))
+    period = spec.sync_period(inp.attested_slot)
+    current_poseidon = int.from_bytes(keccak256(b"current committee"), "big") % (1 << 253)
+    spectre, spectre_deploy_gas = world.deploy(spectre_init, b"".join(
+        int(v).to_bytes(32, "big") for v in (period, current_poseidon, step_v, rotate_v)))
+
+    def sel(sig: str) -> bytes:
+        return keccak256(sig.encode())[:4]
+
+    def words(*vals) -> bytes:
+        return b"".join(int(v).to_bytes(32, "big") for v in vals)
+
+    def padded(pf: bytes) -> bytes:
+        return len(pf).to_bytes(32, "big") + pf + b"\x00" * (-len(pf) % 32)
+
+    def view(sig: str, *args) -> int:
+        ok, out, _ = world.call_view(spectre, sel(sig) + words(*args))
+        require(ok, f"{sig} answers")
+        return int.from_bytes(out, "big")
+
+    ok, out, step_gas = world.transact(spectre, sel(
+        "step((uint64,uint64,uint64,bytes32,bytes32),bytes)") + words(
+        inp.attested_slot, inp.finalized_slot, inp.participation) + root
+        + inp.execution_payload_root + words(192) + padded(b""))
+    require(ok, f"the step transaction succeeds ({V.revert_reason(out)})")
+    require(view("head()") == header.slot and view("blockHeaderRoots(uint256)", header.slot)
+            == int.from_bytes(root, "big"), "the step stored the finalized header root")
+    rotate_sig = "rotateCompressed(uint256,uint256,uint256,uint256,uint256[12],bytes)"
+
+    def rotate(pf: bytes):
+        return world.transact(spectre, sel(rotate_sig) + words(
+            header.slot, instances[12], lo, hi) + words(*instances[:12]) + words(32 * 17)
+            + padded(pf), gas=100_000_000)
+
+    next_period = spec.sync_period(header.slot) + 1
+    ok_bad, out_bad, bad_gas = rotate(tampered(proof))
+    reason = V.revert_reason(out_bad)
+    # a false verdict hits the contract's require; a verifier that reverts
+    # has its reason bubbled through the contract (solc 0.8 behaviour)
+    require(not ok_bad and reason in VERIFIER_REVERTS,
+            f"rotateCompressed with byte {TAMPER_BYTE} flipped reverts "
+            f"(reason {reason!r})")
+    require(view("syncCommitteePoseidons(uint256)", next_period) == 0,
+            "the reverted rotation stored nothing")
+    ok, out, rotate_gas = rotate(proof)
+    require(ok, f"rotateCompressed accepts the proof ({V.revert_reason(out)})")
+    require(view("syncCommitteePoseidons(uint256)", next_period) == instances[12],
+            "syncCommitteePoseidons(next period) reads instances[12]")
+    secs["on_chain"] = time.perf_counter() - t0
+    nums["on_chain"] = dict(spectre_runtime_bytes=spectre_meta["runtime_bytes"],
+                            spectre_deploy_gas=spectre_deploy_gas,
+                            verifier_deploy_gas=verifier_deploy_gas, step_gas=step_gas,
+                            rotate_compressed_gas=rotate_gas,
+                            tampered_rotate_gas=bad_gas, tampered_revert=reason,
+                            next_period=next_period)
+    log(f"  on chain: Spectre {spectre_meta['runtime_bytes']} runtime bytes (deploy gas "
+        f"{spectre_deploy_gas}), the verifier deployed with EIP-170 waived (deploy gas "
+        f"{verifier_deploy_gas}); step gas {step_gas}; rotateCompressed gas {rotate_gas}, "
+        f"syncCommitteePoseidons({next_period}) = instances[12]; with byte {TAMPER_BYTE} "
+        f"flipped it reverts, reason {reason!r}, gas {bad_gas} ({secs['on_chain']:.3f} s)")
+    secs["phase"] = time.perf_counter() - t_phase
+    return dict(seconds=secs, numbers=nums)
+
+
+def constant_verifier(result: bool) -> bytes:
+    """Init code of a verifier stub that returns a constant bool."""
+    from spectre_tpu_torch.evm.solc import Asm, _init_code
+
+    a = Asm()
+    a.push(1 if result else 0)
+    a.push(0)
+    a.op("MSTORE")
+    a.push(32)
+    a.push(0)
+    a.op("RETURN")
+    return _init_code(a.assemble())
 
 
 def main(argv=None) -> int:
@@ -900,6 +1163,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=1)
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
+
+    def mark(phase: str) -> None:
+        log(f"[{time.perf_counter() - t_start:.1f} s] {phase}")
 
     import torch
     if not torch.cuda.is_available():
@@ -925,6 +1191,7 @@ def main(argv=None) -> int:
     records = {}
 
     # --- device ------------------------------------------------------------
+    mark("device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
@@ -944,6 +1211,7 @@ def main(argv=None) -> int:
         f"reference's count, {need // 2} in the port's layout")
 
     # --- build -------------------------------------------------------------
+    mark("build")
     t0 = time.perf_counter()
     KL.build_all()
     log(f"build: {time.perf_counter() - t0:.1f} s")
@@ -965,11 +1233,13 @@ def main(argv=None) -> int:
     # test points: tau'^i G on the card
     n_pts = 1 << 21
     t0 = time.perf_counter()
-    pts = g1_powers_device(random.Random(args.seed).randrange(1, bn254.R), n_pts, dev)
+    tau_pts = random.Random(args.seed).randrange(1, bn254.R)
+    pts = g1_powers_device(tau_pts, n_pts, dev)
     torch.cuda.synchronize()
     log(f"points: {n_pts} in {time.perf_counter() - t0:.2f} s")
 
     # --- K2 ------------------------------------------------------------------
+    mark("K2")
     KL.reset_launch_counts()
     m = 1 << 16
     px, py, pz = ec.aos32_coords(pts[:m])
@@ -1001,6 +1271,7 @@ def main(argv=None) -> int:
         f"(plain {k2_plain:.1f} ms, bound {bm:.3f} ms by {by})")
 
     # --- K3 ------------------------------------------------------------------
+    mark("K3")
     n3 = 1 << 23
     a3 = F.to_mont(fr, random_fr(torch, n3, gen, dev))
     b3 = F.to_mont(fr, random_fr(torch, n3, gen, dev))
@@ -1015,6 +1286,7 @@ def main(argv=None) -> int:
         f"bound {bm:.3f} ms by {by})")
 
     # --- K4 ------------------------------------------------------------------
+    mark("K4")
     tables = N.Twiddles(dev)
     k4_err = 0
     for logn, batch in ((23, 1), (21, 4), (6, 1)):
@@ -1046,6 +1318,7 @@ def main(argv=None) -> int:
     del a3, b3, x4
 
     # --- K1 ------------------------------------------------------------------
+    mark("K1")
     c = M.default_window_pallas(n_pts)
     nwin, nb = M.num_windows(c), 1 << (c - 1)
     nkeys = nwin * nb
@@ -1133,6 +1406,7 @@ def main(argv=None) -> int:
     del cases
 
     # --- K2b -------------------------------------------------------------------
+    mark("K2b")
     nrows = nwin * nb
     rnd_sums = MK.padd_aos32(pts[:nrows], pts[nrows:2 * nrows])    # Z != 1
     rnd_sums[::9] = ec.inf_aos32(1, dev)                           # empty buckets
@@ -1160,6 +1434,7 @@ def main(argv=None) -> int:
     del rnd_sums, k1_random_sums
 
     # --- msm -----------------------------------------------------------------
+    mark("msm")
     sc = F.to_mont(fr, random_fr(torch, n_pts, gen, dev))
     pre = torch.zeros_like(sc)
     pre[:1024] = sc[:1024]
@@ -1170,33 +1445,36 @@ def main(argv=None) -> int:
     full = M.msm_base(pts, sc)
     torch.cuda.synchronize()
     msm_s = time.perf_counter() - t0
-    host_pts = ec.decode_points(pts[:1024])
-    host = M.host_msm(host_pts, F.to_ints(fr, sc[:1024]))
-    require(M.msm_base(pts, pre) == host, "MSM of a 2^10 prefix equals the host sum")
+    s_ints = F.to_ints(fr, sc)
+    require(M.msm_base(pts, pre) == tau_msm(s_ints[:1024], tau_pts),
+            "MSM of a 2^10 prefix equals the host sum")
+    require(full == tau_msm(s_ints, tau_pts), "MSM at 2^21 equals the host sum")
     require(g1.add(M.msm_base(pts, pre), M.msm_base(pts, rest)) == full, "MSM is linear")
-    log(f"msm: n=2^21 {msm_s * 1e3:.1f} ms; prefix equals host sum; linear")
+    log(f"msm: n=2^21 {msm_s * 1e3:.1f} ms; equal to the host sum, on a 2^10 prefix and "
+        f"whole; linear")
     del soa, sc, pre, rest
     torch.cuda.empty_cache()
 
     # --- K1-fixed --------------------------------------------------------------
+    mark("K1-fixed")
     records["K1_fixed"] = k1_fixed_phase(torch, dev, gen, pts)
     del pts
 
     # --- devices: one circuit, GPU and CPU, same proof bytes ------------------
+    mark("devices")
     small = CircuitConfig(k=6, num_advice=2, num_lookup_advice=1, num_fixed=1,
                           lookup_bits=4, lookup_tables=("range",))
     fc = flex_circuit(small, seed=args.seed, num_copies=16)
-    proofs = {}
+    proofs, keys = {}, {}
     for d in ("cuda", "cpu"):
         s6 = SRS.unsafe_setup(6, device=d)
-        pk6 = keygen(s6, small, fc.fixed, fc.selectors, fc.copies, device=d)
+        keys[d] = s6, keygen(s6, small, fc.fixed, fc.selectors, fc.copies, device=d)
         r = random.Random(args.seed)
-        proofs[d] = prove(pk6, s6, fc.assignment, device=d,
+        proofs[d] = prove(keys[d][1], s6, fc.assignment, device=d,
                           blinding_rng=lambda: r.randrange(bn254.R))
     require(proofs["cuda"] == proofs["cpu"], "GPU and CPU proofs are byte-identical")
     for d in ("cuda", "cpu"):
-        s6 = SRS.unsafe_setup(6, device=d)
-        pk6 = keygen(s6, small, fc.fixed, fc.selectors, fc.copies, device=d)
+        s6, pk6 = keys[d]
         r = random.Random(args.seed)
         KL.reset_launch_counts()
         with msm_mode("fixed"):
@@ -1206,11 +1484,13 @@ def main(argv=None) -> int:
                                                "the vanilla proof")
         if d == "cuda":
             require(KL.launch_counts()["K1_fixed"] > 0, "the fixed form launched at K=6")
+    del keys
     M.clear_tables()
     log("devices: K=6 proof bytes equal on cuda and cpu, vanilla and under "
         "SPECTRE_MSM_MODE=fixed")
 
     # --- slice ---------------------------------------------------------------
+    mark("slice")
     cfg = config_from_pinning(PINNING, args.k)
     log(f"slice: k={cfg.k} advice={cfg.num_advice} lookup={cfg.num_lookup_advice} "
         f"tables={cfg.lookup_tables} fixed={cfg.num_fixed} lookup_bits={cfg.lookup_bits}")
@@ -1250,25 +1530,34 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # --- committee-kernels, committee ------------------------------------------
+    mark("committee-kernels")
     geometry = geometry_kernels(torch, dev, gen, args.seed, COMMITTEE_K, 4)
     log("committee-kernels: " + json.dumps(geometry))
     for name, key in (("K1c_bucket_walk", "K1"), ("K2b_bucket_aggregate", "K2b"),
                       ("K4_ntt", "K4")):
         records[name]["committee_geometry"] = geometry[key]
     log("resident before the committee: " + resident(torch))
+    mark("committee")
     committee = committee_path(torch, dev, args.seed)
     torch.cuda.empty_cache()
     log("resident before the step: " + resident(torch))
+    mark("step")
     step = step_path(torch, dev, args.seed)
     torch.cuda.empty_cache()
     # --- aggregation-kernels, aggregation ----------------------------------------
+    mark("aggregation-kernels")
     geometry = geometry_kernels(torch, dev, gen, args.seed, AGG_K, 2)
     log("aggregation-kernels: " + json.dumps(geometry))
     for name, key in (("K1c_bucket_walk", "K1"), ("K2b_bucket_aggregate", "K2b"),
                       ("K4_ntt", "K4")):
         records[name]["aggregation_geometry"] = geometry[key]
     log("resident before the aggregation: " + resident(torch))
+    mark("aggregation")
     agg = aggregation_path(torch, dev, args.seed, committee)
+    # --- evm -----------------------------------------------------------------------
+    mark("evm")
+    evm = evm_path(agg, committee["args"].finalized_header)
+    log("evm: " + json.dumps(evm))
 
     kernels = []
     for name, info in KL.KERNELS.items():

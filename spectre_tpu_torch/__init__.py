@@ -1,4 +1,4 @@
-"""spectre_tpu_torch: the stage-1 KZG/SHPLONK prove on an NVIDIA H100.
+"""spectre_tpu_torch: the KZG/SHPLONK proves on an NVIDIA H100 and the EVM tail.
 
 The PyTorch + CUDA port of the JAX package `spectre_tpu`, which stays in the
 repository as the reference. Layout:
@@ -15,6 +15,10 @@ repository as the reference. Layout:
     witness/  the circuits' arguments; a seeded flex-gate witness
     models/   the app circuits (CommitteeUpdateCircuit)
     utils/    pinning files, checksum sidecars
+    evm/      the Solidity verifier generator, its bytecode compiler, a
+              metered EVM, the simulator (host)
+    contracts/  the Spectre light-client contract: Solidity, model
+    prover_service/  calldata encoding
     convert.py  the reference's numpy/int objects -> the port's objects
 
 Entry points take `device=` and default to "cuda"; with no GPU they raise

@@ -68,6 +68,38 @@ def test_stage_two_modules_import_nothing_of_jax_or_the_reference():
     assert os.path.exists(os.path.join(KL.CSRC, KL.HOST_LIBRARIES["sigma_host"][0]))
 
 
+EVM_TAIL = ("spectre_tpu_torch.prover_service", "spectre_tpu_torch.prover_service.calldata",
+            "spectre_tpu_torch.evm", "spectre_tpu_torch.evm.codegen",
+            "spectre_tpu_torch.evm.simulator", "spectre_tpu_torch.evm.gas",
+            "spectre_tpu_torch.evm.vm", "spectre_tpu_torch.evm.solc",
+            "spectre_tpu_torch.evm.solc_spectre", "spectre_tpu_torch.contracts",
+            "spectre_tpu_torch.contracts.spectre", "spectre_tpu_torch.contracts.sol_gen")
+
+
+def test_evm_tail_modules_import_nothing_of_jax_or_the_reference():
+    """The EVM tail's modules, imported one after another under the same
+    refusal with the reference's modules checked after each, and the
+    package walk finds each of them."""
+    prelude = BLOCKED_IMPORTS.split("\nimport spectre_tpu_torch\n")[0]
+    script = prelude + textwrap.dedent(f"""
+        import importlib
+        for name in {EVM_TAIL!r}:
+            importlib.import_module(name)
+            bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "spectre_tpu")]
+            assert not bad, (name, bad)
+        import spectre_tpu_torch
+        names = {{m.name for m in pkgutil.walk_packages(spectre_tpu_torch.__path__,
+                                                       "spectre_tpu_torch.")}}
+        assert set({EVM_TAIL!r}) <= names, set({EVM_TAIL!r}) - names
+    """)
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True,
+                         text=True, timeout=300, env=dict(os.environ, PYTHONPATH=REPO))
+    assert out.returncode == 0, out.stderr
+    from spectre_tpu_torch.evm import gen_evm_verifier
+    from spectre_tpu_torch.prover_service import decode_calldata, encode_calldata
+    assert callable(gen_evm_verifier) and callable(encode_calldata) and callable(decode_calldata)
+
+
 def test_chip_smoke_refuses_without_a_gpu(tmp_path):
     """Alone in a directory, or on a machine without CUDA, the smoke exits
     non-zero and prints no result line."""
