@@ -9,7 +9,8 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
   device   the GPU's name and power limit (nvidia-smi)
   build    nvcc builds the kernels from spectre_tpu_torch/csrc; prints the
            SASS instruction count of one Montgomery product (cuobjdump on
-           the probe kernel) and the registers a thread of K1c, K2 and K2b
+           the probe kernel) and the registers a thread of K1c, K1c_fixed,
+           K2 and K2b
   K2       complete addition, 2^16 point pairs plus P+P, P+(-P), inf+P and
            inf+inf: equal limb for limb; timed at 2^21 pairs
   K3       Montgomery product at 2^23 elements: equal; timed
@@ -20,22 +21,28 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
            random, all-equal and all-zero scalars: equal after affine
            normalization; the plan kernels K1a and K1b equal to their plain
            versions; the wrapper timed, and each of its four kernels under
-           torch.profiler
+           torch.profiler (the whole plain K1's time stands as K1c's plain
+           time)
   K2b      the weighted bucket aggregation at c from default_window_pallas
-           (24 windows of 1024 buckets at n = 2^21), on random projective
-           bucket sums and on K1's own output: equal limb for limb; timed
+           (24 windows of 1024 buckets at n = 2^21, 8 blocks a window), on
+           random projective bucket sums and on K1's own output: equal limb
+           for limb; timed
   msm      the full MSM at n = 2^21 over the test points tau^i G, against
            the host sum (sum s_i tau^i) G on a 2^10 prefix and whole, and
            linear in its scalars
   K1-fixed K1's fixed-base form at the step's geometry: 2^21 base points and
            random scalars, GLV-split on the card (2^22 expanded points, c=13,
-           10 windows), the window table built by the port (K2 doublings, K3
-           for phi): equal to its plain version (at full size) after affine
-           normalization, its plan kernels to theirs; the wrapper, its plan
-           and its walk timed beside the shared form on the same digits;
-           the split's device time and launches, the table's seconds, bytes
-           and launches; the cross-window K2 fold and K2b over one window of
-           4096 buckets (equal to its plain version); the fixed and glv MSMs
+           10 windows), the window table built by the port (K2 doublings,
+           normalised to Z = 1 by one batch inversion, K3 for phi) and
+           checked normalised: the fixed form (K1a, K1_fixed, the mixed walk
+           K1c_fixed_walk, K1d) equal to its plain version (at full size)
+           after affine normalization, its plan kernels to theirs; the
+           wrapper, its plan and its walk timed beside the shared form on
+           the same digits, the bound with the walk's adds counted as mixed
+           and as complete adds; the split's device time and launches, the
+           table's seconds (its normalisation apart), bytes and launches;
+           the cross-window K2 fold and K2b over one window of 4096 buckets
+           (64 blocks; equal to its plain version); the fixed and glv MSMs
            equal the vanilla MSM
   devices  a K=6 circuit proved on the GPU and on the CPU gives the same
            bytes, vanilla and under SPECTRE_MSM_MODE=fixed
@@ -66,8 +73,9 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
            every kernel on its path must be > 0; then the same witness, key
            and blinding seed proved under SPECTRE_MSM_MODE=glv+signed and
            =fixed: each proof equal to the vanilla proof byte for byte and
-           verified, the fixed form and K2 launched in the fixed prove, no
-           fixed-base degrade
+           verified, the fixed form and K2 launched in the fixed prove (the
+           fixed walk once a fixed-form MSM, K1c never), no fixed-base
+           degrade
   aggregation-kernels
            the same at the outer prove's geometry: K1 and K2b at n = 2^22
            (c from default_window_pallas), K4 at [2, 2^22] and as the
@@ -101,8 +109,9 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
            stores instances[12] as the next period's committee, and the
            flipped proof reverts; the phase's seconds
 
-Each phase's start is logged as "[elapsed s] phase". It prints one JSON
-line of kernel records, then the device line
+Each phase's start is logged as "[elapsed s] phase", on the standard
+error too; a crash prints the Python stacks there (faulthandler). It prints
+one JSON line of kernel records, then the device line
 {"ok": true, "device": {...}} last. It imports neither jax nor spectre_tpu.
 """
 
@@ -110,6 +119,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import faulthandler
 import json
 import os
 import random
@@ -122,10 +132,13 @@ PINNING = os.path.join(REPO, "build", "sync_step_testnet_21.pinning.json")
 COMMITTEE_K = 18
 STEP_K = 21
 AGG_K = 22
-# K1's shared-base form, and its fixed-base form (its own scatter, K1_fixed)
+# K1's shared-base form, and its fixed-base form (its own scatter, K1_fixed,
+# and its own walk over the normalised table, K1c_fixed_walk)
 SHARED_K1 = ("K1a_bucket_count", "K1b_bucket_scatter", "K1c_bucket_walk",
              "K1d_bucket_pieces")
-FIXED_K1 = ("K1a_bucket_count", "K1_fixed", "K1c_bucket_walk", "K1d_bucket_pieces")
+FIXED_K1 = ("K1a_bucket_count", "K1_fixed", "K1c_fixed_walk", "K1d_bucket_pieces")
+# kernels whose path is the fixed-mode step prove
+FIXED_ONLY = ("K1_fixed", "K1c_fixed_walk")
 # the kernels the stage-1 prove launches in each MSM mode: vanilla and
 # glv+signed do not launch K2 (the slice runs it only to make the SRS), the
 # fixed mode launches it for its window table and cross-window fold
@@ -144,6 +157,8 @@ IMAD_PER_S = 16.75e12
 # a*b and 64 of m*p, each a low and a high half, plus m itself
 IMAD_PER_MONT = 257
 IMAD_PER_PADD = 12 * IMAD_PER_MONT
+# the fixed walk's mixed add: 11 products
+IMAD_PER_MADD = 11 * IMAD_PER_MONT
 
 
 def log(msg: str) -> None:
@@ -191,15 +206,17 @@ def ntt_bound_ms(batch: int, logn: int) -> tuple[float, str]:
 
 def k2b_work(MK, nwin: int, nb: int) -> tuple[int, int]:
     """(complete adds K2b performs, its chain of dependent adds) for nwin
-    windows of nb buckets (csrc/aggregate.cuh): a thread's walk of its L
-    buckets, 2 (L - 1) adds, and log2 L doublings; at each tree level but
-    the last 4 adds a merge (2 for W, 2 for D), 2 at the last. The chain is
-    the walk, the doublings and 2 adds a level."""
-    T, L = MK.aggregate_geometry(nb)
-    levels = T.bit_length() - 1
+    windows of nb buckets over G blocks a window (csrc/aggregate.cuh): a
+    thread's walk of its L buckets, 2 (L - 1) adds, and log2 L doublings;
+    4 adds a merge (2 for W, 2 for D) at each level of a block's tree and of
+    the window's merge over its G blocks, 2 on the window's last level. The
+    chain is the walk, the doublings and 2 adds a level."""
+    G, T, L = MK.aggregate_geometry(nwin, nb)
+    lb, lg = T.bit_length() - 1, G.bit_length() - 1
     leaf = 2 * (L - 1) + (L.bit_length() - 1)
-    tree = sum((T >> (k + 1)) * (4 if k + 1 < levels else 2) for k in range(levels))
-    return nwin * (T * leaf + tree), leaf + 2 * levels
+    block = sum((T >> (k + 1)) * (4 if k + 1 < lb or G > 1 else 2) for k in range(lb))
+    merge = sum((G >> (k + 1)) * (4 if k + 1 < lg else 2) for k in range(lg))
+    return nwin * (G * (T * leaf + block) + merge), leaf + 2 * (lb + lg)
 
 
 def k1_bounds(torch, MK, digits, bstart, n: int, nkeys: int, nblk: int,
@@ -208,9 +225,10 @@ def k1_bounds(torch, MK, digits, bstart, n: int, nkeys: int, nblk: int,
     each input read once and each output written once; the adds are one
     per entry less one per nonempty bucket, those of the buckets that cross
     walk blocks split off to K1d. The walk reads the points: the n of a
-    shared base once each (96 n bytes), or, in the fixed-base form, the
-    E distinct table rows its entries name (96 E bytes: each (window,
-    point) has its own row)."""
+    shared base once each (96 n bytes, complete adds), or, in the
+    fixed-base form, X, Y and the Z word of the E distinct normalised table
+    rows its entries name (68 E bytes: each (window, point) has its own
+    row), added by the mixed formula (IMAD_PER_MADD)."""
     nwin = digits.shape[0]
     b = bstart.to(torch.int64)
     E = int(b[-1])
@@ -221,13 +239,14 @@ def k1_bounds(torch, MK, digits, bstart, n: int, nkeys: int, nblk: int,
     pieces = int(torch.where(multi, last - first + 1, 0).sum())
     d_adds = pieces - int(multi.sum())
     c_adds = E - int(nonempty.sum()) - d_adds
-    rows = E if fixed else (n if E else 0)
+    point_bytes = 68 * E if fixed else (96 * n if E else 0)
     sizes = {
         "K1a_bucket_count": (4 * nwin * n + 4 * nkeys * nblk, 0),
         "K1_fixed" if fixed else "K1b_bucket_scatter": (
             4 * nwin * n + 4 * n + 4 * nkeys * nblk + 4 * E, 0),
-        "K1c_bucket_walk": (4 * E + 96 * rows + 4 * (nkeys + 1)
-                            + 96 * int(nonempty.sum()), c_adds * IMAD_PER_PADD),
+        "K1c_fixed_walk" if fixed else "K1c_bucket_walk": (
+            4 * E + point_bytes + 4 * (nkeys + 1) + 96 * int(nonempty.sum()),
+            c_adds * (IMAD_PER_MADD if fixed else IMAD_PER_PADD)),
         "K1d_bucket_pieces": (96 * (pieces + nkeys) + 4 * (nkeys + 1), d_adds * IMAD_PER_PADD),
     }
     return {k: (*bound_ms(nb_, ops), nb_, ops) for k, (nb_, ops) in sizes.items()}
@@ -251,15 +270,18 @@ def bucket_multiset_err(torch, got, want, bstart) -> int:
 def profile_kernels(torch, fn, names: dict, reps: int) -> dict:
     """Device ms per call of fn() of each kernel in names ({record:
     substring of its profiler name}), under torch.profiler. The profiler
-    now and then drops a kernel's events: a kernel it did not see is
-    profiled again, up to three traces, before the phase fails."""
+    now and then drops a kernel's events, the first of a trace most of all:
+    each trace opens with a throwaway launch, and a kernel it did not see
+    is profiled again, up to five traces, before the phase fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     got = {}
-    for _ in range(3):
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
@@ -489,7 +511,8 @@ def k1_fixed_phase(torch, dev, gen, pts) -> dict:
     digits = M.signed_digits(mags, c, nwin)
     del mags
 
-    # the window table: c doublings a window through K2, phi by K3
+    # the window table: c doublings a window through K2, normalised (one
+    # batch inversion), phi by K3
     KL.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -497,6 +520,15 @@ def k1_fixed_phase(torch, dev, gen, pts) -> dict:
     torch.cuda.synchronize()
     table_s = time.perf_counter() - t0
     table_launches = {k: v for k, v in KL.launch_counts().items() if v}
+    MK.check_normalised(table)
+    require(int((table[:, :, 16:] != 0).any(dim=2).sum()) == nwin * N,
+            "every row of the table is finite, Z = 1")
+    # the normalisation alone, as the build runs it
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ec.normalize_mont(table[:, :n].reshape(-1, 24))
+    torch.cuda.synchronize()
+    normalise_s = time.perf_counter() - t0
     g1 = bn254.g1_curve
     p0 = ec.decode_points(pts[:1])[0]
     corner = ec.decode_points(table[[0, 0, nwin - 1, nwin - 1], [0, n, 0, n]])
@@ -507,15 +539,23 @@ def k1_fixed_phase(torch, dev, gen, pts) -> dict:
     require(table_bytes == M.fixed_table_device_bytes(n, c, nbits), "the table's bytes")
 
     # the kernel against its plain version, at full size
+    KL.reset_launch_counts()
     got = MK.bucket_sums_fixed_aos32(table, digits, negs, c)
+    launched = KL.launch_counts()
+    require(all(launched[k] == 1 for k in FIXED_K1) and launched["K1c_bucket_walk"] == 0,
+            "the fixed form launches K1a, K1_fixed, K1c_fixed_walk and K1d once each")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     counts, bstart, entries_plain = MK.bucket_plan_plain(digits, negs, c, fixed=True)
-    want = MK.bucket_walk_plain(table.reshape(-1, 24), entries_plain, bstart)
+    plan_plain_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    want = MK.bucket_walk_fixed_plain(table.reshape(-1, 24), entries_plain, bstart)
     torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
+    walk_plain_ms = (time.perf_counter() - t0) * 1e3
+    plain_ms = plan_plain_ms + walk_plain_ms
     err = limb_err(F, ec.normalize_std(got), ec.normalize_std(want))
-    require(err == 0, "K1's fixed form equals its plain version after normalization")
+    require(err == 0, "K1's fixed form (the mixed walk) equals its plain version after "
+                      "normalization")
     got_counts, _, entries = MK.bucket_plan(digits, negs, c, fixed=True)
     e_err = bucket_multiset_err(torch, entries, entries_plain, bstart)
     require(torch.equal(got_counts, counts), "K1a (fixed form) equals its plain counts")
@@ -533,11 +573,18 @@ def k1_fixed_phase(torch, dev, gen, pts) -> dict:
                          reps=3)
     _, bstart_f, entries_f = MK.bucket_plan(digits, negs, c, fixed=True)
     plan_ms = time_ms(torch, lambda: MK.bucket_plan(digits, negs, c, fixed=True), reps=3)
-    walk_ms = time_ms(torch, lambda: MK.bucket_walk(rows, entries_f, bstart_f), reps=3)
+    walk_ms = time_ms(torch, lambda: MK.bucket_walk_fixed(rows, entries_f, bstart_f), reps=3)
     del entries_f
     P, nblk = MK.plan_blocks(N)
     bounds = k1_bounds(torch, MK, digits, bstart, N, nkeys, nblk, fixed=True)
     total = bound_ms(sum(b[2] for b in bounds.values()), sum(b[3] for b in bounds.values()))
+    walk_bound = bound_ms(sum(bounds[k][2] for k in FIXED_K1[2:]),
+                          sum(bounds[k][3] for k in FIXED_K1[2:]))
+    # the yardstick of PR 6-8: the walk's adds counted as complete adds
+    c_ops = bounds["K1c_fixed_walk"][3] // IMAD_PER_MADD * IMAD_PER_PADD
+    total_complete = bound_ms(sum(b[2] for b in bounds.values()),
+                              sum(b[3] for b in bounds.values())
+                              - bounds["K1c_fixed_walk"][3] + c_ops)
     w_idx, p_idx = torch.nonzero(digits, as_tuple=True)
     keys = w_idx * nb + digits[w_idx, p_idx].to(torch.int64).abs() - 1
     library = time_ms(torch, lambda: torch.argsort(keys, stable=True), reps=3)
@@ -557,6 +604,7 @@ def k1_fixed_phase(torch, dev, gen, pts) -> dict:
                        MK.aggregate_buckets_plain(merged, 1, nb))
     require(k2b_err == 0, "K2b over one window of 4096 buckets equals its plain version")
     k2b1_ms = time_ms(torch, lambda: MK.aggregate_buckets_aos32(merged, 1, nb), reps=10)
+    k2b1_plain = time_ms(torch, lambda: MK.aggregate_buckets_plain(merged, 1, nb), reps=1)
     adds, chain = k2b_work(MK, 1, nb)
     k2b1_bound = bound_ms(nb * 96 + 96, 2 * (nb - 1) * IMAD_PER_PADD)
     del got, merged, table, digits, base2, rows
@@ -574,37 +622,53 @@ def k1_fixed_phase(torch, dev, gen, pts) -> dict:
     M.clear_tables()
     torch.cuda.empty_cache()
 
+    G, T, L = MK.aggregate_geometry(1, nb)
     rec = dict(
         ms=wrapper_ms, plain_ms=plain_ms, bound_ms=total[0], bound_by=total[1],
+        bound_ms_complete_add=total_complete[0], bound_by_complete_add=total_complete[1],
         max_abs_err=max(err, e_err), library_ms=library,
         library_call="torch.argsort(stable=True) on the fixed form's bucket keys",
         shape=f"2^{n.bit_length() - 1} points GLV-expanded to N=2^{N.bit_length() - 1}, "
               f"c={c}, {nwin} windows, random scalars; the plain version at full size",
-        note="the fixed-base form's four launches (K1a, the K1_fixed scatter, K1c, K1d) "
-             "together; its launch count is the scatter's",
+        note="the fixed-base form's four launches (K1a, the K1_fixed scatter, K1c_fixed_walk, "
+             "K1d) together; its launch count is the scatter's; bound_ms counts the walk's "
+             "adds as mixed adds (11 products), bound_ms_complete_add as complete adds (12, "
+             "the PR 6-8 yardstick)",
         entries=E, adds=E - int((bstart[1:] > bstart[:-1]).sum()),
-        plan_ms=plan_ms, walk_ms=walk_ms,
+        plan_ms=plan_ms, walk_ms=walk_ms, plan_plain_ms=plan_plain_ms,
         kernels={k: dict(bound_ms=bounds[k][0], bound_by=bounds[k][1]) for k in FIXED_K1},
         glv_shared_form=dict(ms=glv_ms, plan_ms=glv_plan_ms, walk_ms=glv_walk_ms),
         glv_split=dict(ms=split_ms, device_ms=split_dev_ms, device_ops=split_ops),
-        table=dict(seconds=table_s, bytes=table_bytes,
+        table=dict(seconds=table_s, normalise_seconds=normalise_s, bytes=table_bytes,
                    reference_bytes=M.fixed_table_bytes(n, c, nbits),
                    budget_bytes=M.TABLES.budget, launches=table_launches),
         fold_ms=fold_ms,
-        k2b_one_window=dict(ms=k2b1_ms, bound_ms=k2b1_bound[0], bound_by=k2b1_bound[1],
-                            adds=adds, dependent_adds=chain, max_abs_err=k2b_err),
+        k2b_one_window=dict(ms=k2b1_ms, plain_ms=k2b1_plain, bound_ms=k2b1_bound[0],
+                            bound_by=k2b1_bound[1], adds=adds, dependent_adds=chain,
+                            geometry=dict(blocks_a_window=G, threads=T, buckets_a_thread=L),
+                            max_abs_err=k2b_err),
         msm_seconds=msm_s)
+    walk_rec = dict(
+        ms=walk_ms, plain_ms=walk_plain_ms, bound_ms=walk_bound[0], bound_by=walk_bound[1],
+        max_abs_err=err, library_ms=None,
+        shape=rec["shape"], kernels={k: dict(bound_ms=bounds[k][0], bound_by=bounds[k][1])
+                                     for k in FIXED_K1[2:]},
+        note="the fixed walk's wrapper (bucket_walk_fixed: K1c_fixed_walk and K1d) by CUDA "
+             "events; the plain fixed walk beside it; bound: mixed adds")
     log(f"K1-fixed: equal to its plain version at full size; wrapper {wrapper_ms:.3f} ms "
-        f"(plain {plain_ms:.0f} ms, bound {total[0]:.3f} ms by {total[1]}), {E} entries; "
-        f"plan (K1a, scan, K1_fixed) {plan_ms:.3f} ms, walk (K1c, K1d) {walk_ms:.3f} ms "
-        f"(K1c bound {bounds['K1c_bucket_walk'][0]:.3f}); glv shared form on the same digits "
-        f"{glv_ms:.3f} ms: plan {glv_plan_ms:.3f}, walk {glv_walk_ms:.3f}")
+        f"(plain {plain_ms:.0f} ms, bound {total[0]:.3f} ms by {total[1]} with mixed adds, "
+        f"{total_complete[0]:.3f} ms counted as complete adds), {E} entries; "
+        f"plan (K1a, scan, K1_fixed) {plan_ms:.3f} ms, walk (K1c_fixed, K1d) {walk_ms:.3f} ms "
+        f"(bound {walk_bound[0]:.3f}, plain {walk_plain_ms:.0f}); glv shared form on the same "
+        f"digits {glv_ms:.3f} ms: plan {glv_plan_ms:.3f}, walk {glv_walk_ms:.3f}")
     log(f"  GLV split: {split_ms:.3f} ms ({split_dev_ms:.3f} ms of device time in "
-        f"{split_ops:.0f} device operations); table {table_s:.3f} s, {table_bytes} bytes "
+        f"{split_ops:.0f} device operations); table {table_s:.3f} s (its normalisation "
+        f"{normalise_s:.3f} s), {table_bytes} bytes "
         f"(reference count {rec['table']['reference_bytes']}, budget {M.TABLES.budget}), "
         f"launches {json.dumps(table_launches)}; fold {fold_ms:.3f} ms; K2b one window "
-        f"{k2b1_ms:.3f} ms (bound {k2b1_bound[0]:.4f}); MSM s {json.dumps(msm_s)}")
-    return rec
+        f"{k2b1_ms:.3f} ms (G={G} T={T} L={L}, {chain} dependent adds; bound "
+        f"{k2b1_bound[0]:.4f}); MSM s {json.dumps(msm_s)}")
+    return rec, walk_rec
 
 
 def circuit_path(torch, dev, seed: int, circuit, k: int, make_args, shape,
@@ -727,6 +791,10 @@ def circuit_path(torch, dev, seed: int, circuit, k: int, make_args, shape,
                 f"no fixed-base degrade in the {mode} prove")
         for kernel in MODE_KERNELS[mode]:
             require(counts_m[kernel] > 0, f"{kernel} launched in the {mode} {name} prove")
+        if mode == "fixed":
+            require(counts_m["K1c_fixed_walk"] == counts_m["K1_fixed"]
+                    and counts_m["K1c_bucket_walk"] == 0,
+                    f"the fixed walk launched once a fixed-form MSM in the {name} prove")
         log(f"  {mode}: prove {prove_s:.3f} s, equal to the vanilla proof, verified; phases "
             + json.dumps({key: round(v, 3) for key, v in timer_m.seconds.items()})
             + f"; peak {peak_m:.1f} GiB, tables {table_bytes} bytes; launches "
@@ -1163,9 +1231,15 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=1)
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
+    # a crash (a signal, not an exception) prints every thread's Python stack
+    faulthandler.enable()
 
     def mark(phase: str) -> None:
-        log(f"[{time.perf_counter() - t_start:.1f} s] {phase}")
+        # on both streams, so that the end of the standard error says which
+        # phase a device-side assertion or a crash came in
+        msg = f"[{time.perf_counter() - t_start:.1f} s] {phase}"
+        log(msg)
+        print(msg, file=sys.stderr, flush=True)
 
     import torch
     if not torch.cuda.is_available():
@@ -1224,7 +1298,8 @@ def main(argv=None) -> int:
     probe = next(v for k, v in sass.items() if "mont_mul_probe_kernel" in k)
     regs = KL.ptxas_registers(os.path.join(KL.BUILD_DIR, "msm_kernels.log"))
     reg_of = {rec: next(v for k, v in regs.items() if KL.KERNELS[rec].symbol in k)
-              for rec in ("K1c_bucket_walk", "K2_padd", "K2b_bucket_aggregate")}
+              for rec in ("K1c_bucket_walk", "K1c_fixed_walk", "K2_padd",
+                          "K2b_bucket_aggregate")}
     top = sorted(probe.items(), key=lambda kv: -kv[1])[:8]
     log(f"sass: one Montgomery product (probe kernel, its 16 loads and 8 stores "
         f"included) {sum(probe.values())} instructions, {dict(top)}; registers a thread "
@@ -1355,15 +1430,14 @@ def main(argv=None) -> int:
         wrapper_ms = time_ms(torch, lambda: MK.bucket_sums_aos32(pts, digits, negs, c), reps=3)
         sub_ms = profile_kernels(torch, lambda: MK.bucket_sums_aos32(pts, digits, negs, c),
                                  k1_kernels, reps=2)
+        # the plain walk sums each bucket whole: it covers K1c and K1d
+        # together; the whole plain K1 (its plan included), timed above,
+        # stands under K1c alone
         plain_sub = {
             "K1a_bucket_count": time_ms(torch, lambda: MK.bucket_counts_plain(digits, nb, P), reps=1),
             "K1b_bucket_scatter": time_ms(torch, lambda: MK.bucket_scatter_plain(digits, negs, nb),
                                           reps=1),
-            "K1c_bucket_walk": time_ms(torch, lambda: MK.bucket_walk_plain(pts, entries_plain,
-                                                                           bstart), reps=1)}
-        # the plain walk sums each bucket whole: it covers K1c and K1d together,
-        # and its time stands under K1c alone
-        plain_sub["K1d_bucket_pieces"] = None
+            "K1c_bucket_walk": plain_ms, "K1d_bucket_pieces": None}
         bounds = k1_bounds(torch, MK, digits, bstart, n_pts, nkeys, nblk)
         total = bound_ms(sum(b[2] for b in bounds.values()), sum(b[3] for b in bounds.values()))
         if name == "random":
@@ -1399,7 +1473,8 @@ def main(argv=None) -> int:
         records[k]["library_ms"] = library[k]
         records[k]["library_call"] = f"{call} on the bucket keys of the random case's digits"
     records["K1d_bucket_pieces"]["plain_note"] = (
-        "the plain walk covers K1c and K1d together: its time is K1c's plain_ms")
+        "the plain walk covers K1c and K1d together: K1c's plain_ms is the whole plain K1's "
+        "time, its plan included")
     records["K1c_bucket_walk"]["wrapper_cases"] = {
         name: {key: v[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "adds")}
         for name, v in k1.items()}
@@ -1423,10 +1498,11 @@ def main(argv=None) -> int:
     need = nwin * 2 * (nb - 1)
     adds, chain = k2b_work(MK, nwin, nb)
     bm, by = bound_ms(nrows * 96 + nwin * 96, need * IMAD_PER_PADD)
-    T, L = MK.aggregate_geometry(nb)
+    G, T, L = MK.aggregate_geometry(nwin, nb)
     records["K2b_bucket_aggregate"] = dict(
         ms=k2b_ms, plain_ms=k2b_plain, bound_ms=bm, bound_by=by, max_abs_err=k2b_err,
-        shape=f"nwin={nwin} nb={nb} (c={c}), {T} threads x {L} buckets a window",
+        shape=f"nwin={nwin} nb={nb} (c={c}), {G} blocks a window of {T} threads x {L} "
+              f"buckets",
         bound_adds=need, adds=adds, dependent_adds=chain)
     log(f"K2b: equal on random sums and on K1's output; {nwin} x {nb} buckets {k2b_ms:.3f} ms "
         f"(plain {k2b_plain:.1f} ms, bound {bm:.4f} ms by {by} from {need} adds; the kernel "
@@ -1457,7 +1533,7 @@ def main(argv=None) -> int:
 
     # --- K1-fixed --------------------------------------------------------------
     mark("K1-fixed")
-    records["K1_fixed"] = k1_fixed_phase(torch, dev, gen, pts)
+    records["K1_fixed"], records["K1c_fixed_walk"] = k1_fixed_phase(torch, dev, gen, pts)
     del pts
 
     # --- devices: one circuit, GPU and CPU, same proof bytes ------------------
@@ -1483,7 +1559,8 @@ def main(argv=None) -> int:
         require(fixed_proof == proofs["cuda"], f"the fixed-mode K=6 proof on {d} equals "
                                                "the vanilla proof")
         if d == "cuda":
-            require(KL.launch_counts()["K1_fixed"] > 0, "the fixed form launched at K=6")
+            require(all(KL.launch_counts()[k] > 0 for k in FIXED_ONLY),
+                    "the fixed form (its scatter and walk) launched at K=6")
     del keys
     M.clear_tables()
     log("devices: K=6 proof bytes equal on cuda and cpu, vanilla and under "
@@ -1567,7 +1644,7 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": info.source,
             "replaces": info.replaces,
             # the fixed form's path is the fixed-mode step prove
-            "launches": by_mode["fixed"] if name == "K1_fixed" else counts[name],
+            "launches": by_mode["fixed"] if name in FIXED_ONLY else counts[name],
             "step_launches_by_mode": by_mode,
             "committee_launches": committee["prove_launches"][name],
             "committee_keygen_launches": committee["keygen_launches"][name],

@@ -6,21 +6,25 @@
 
 Each variant is a copy of spectre_tpu_torch/csrc with a few lines or one
 function edited (a launch bound, a block size, the walk's segment length or
-staging depth, the point loads, the Montgomery product of the parent
-revision, the unrolling of the complete add's products, the portable add
-and sub in place of the PTX carry chains)
+staging depth, the fixed walk's blocks an SM and running sums a thread,
+K2b's blocks a window, the point loads, the Montgomery product of the
+parent revision, the unrolling and grouping of the adds' products, the
+portable add and sub in place of the PTX carry chains)
 or a Python-side constant changed (the NTT's pass plan, the K1 plan's
-points per block, K2b's threads a window). All copies are built at once
+points per block, K2b's threads and blocks). All copies are built at once
 with the flags of ops/kernel_lib.py into build/kernel_variants/, and each
 variant runs in this one process on the same inputs: K1 at n = 2^21
 (random and all-equal scalars, checked against the sources' own result
-after normalization), K4 at 2^23 (checked exactly) and [16, 2^21], K2 at
-2^21 pairs, K2b on 24 windows of 1024 projective bucket sums (checked
-after normalization: another geometry adds in another order) and K3 at
-2^23. Prints the card's name and power limit, then one
-JSON line per variant with CUDA-event milliseconds, the SASS instruction
-count of the product's probe kernel and the registers a thread of K1c, K2
-and K2b. Exits non-zero without CUDA.
+after normalization), K1's fixed form at the step's geometry (2^22 GLV
+rows of a normalised table, c = 13, 10 windows: the walk alone and the
+wrapper, checked after normalization), K4 at 2^23 (checked exactly) and
+[16, 2^21], K2 at 2^21 pairs, K2b on 24 windows of 1024 and on one window
+of 4096 projective bucket sums (checked after normalization: another
+geometry adds in another order) and K3 at 2^23. Prints the card's name and
+power limit, then one JSON line per variant with CUDA-event milliseconds,
+the SASS instruction count of the product's probe kernel and the registers
+and spill bytes a thread of K1c, K1c_fixed, K2 and K2b. Exits non-zero
+without CUDA.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from __future__ import annotations
 import ctypes
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -141,6 +146,15 @@ template <int F, int STEP = 8> SPT_HD Fe mont_mul(const Fe& a, const Fe& b) {
 
 '''
 
+# The grouped products under the PR 2 product: one after another.
+PR2_GROUP = r'''template <int F, int N, int STEP = 2>
+SPT_HD void mont_mul_group(Fe* r, const Fe* a, const Fe* b) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) r[j] = mont_mul<F>(a[j], b[j]);
+}
+
+'''
+
 # K1's walk with K1_STAGE_AHEAD points in flight ahead of the one it adds:
 # its slots used as a ring, the wait_group immediate chosen by a switch.
 # Replaces bucket.cuh from k1_staged_point up to the walk's first use of p.
@@ -212,6 +226,204 @@ def _k1_stage_ahead(d: int) -> list:
              K1_RING_WALK)]
 
 
+# K2b's leaf and merge with the complete add of K1c (straight-line products,
+# one at a time): what the compiler makes of an add left to itself.
+K2B_BODIES_PADD8 = r'''// Thread t of block g of window `win`: its run of L buckets.
+SPT_HD void k2b_leaf(int win, int g, int t, int nb, int S, int L,
+                     const uint32_t* sums, Point* W, Point* D) {
+  const uint32_t* run = sums + 24 * ((long)win * nb + (long)g * S + (long)t * L);
+  Point r = load_point(run + 24 * (L - 1));
+  Point w = r;
+  for (int j = L - 2; j >= 0; --j) {
+    r = padd<8>(r, load_point(run + 24 * j));
+    w = padd<8>(w, r);
+  }
+  for (int s = L; s > 1; s >>= 1) r = padd<8>(r, r);
+  W[t] = w;
+  D[t] = r;
+}
+
+SPT_HD void k2b_merge(int t, int d, int n, int half, bool last, Point* W, Point* D) {
+  const int merges = n / (2 * d);
+  if (t < merges) {
+    const int i = 2 * d * t;
+    W[i] = padd<8>(padd<8>(W[i], W[i + d]), D[i + d]);
+  } else if (!last && t >= half && t - half < merges) {
+    const int i = 2 * d * (t - half);
+    const Point s = padd<8>(D[i], D[i + d]);
+    D[i] = padd<8>(s, s);
+  }
+}
+
+'''
+
+# K2b's merge as PR 3 mapped it: W on thread i, D on thread i + d of the
+# same warp (two divergent paths a level).
+K2B_LANE_MERGE = r'''SPT_HD void k2b_merge(int t, int d, int n, int half, bool last, Point* W, Point* D) {
+  (void)half;
+  const int lane = t & (2 * d - 1);
+  if (t >= n) return;
+  if (lane == 0) {
+    W[t] = padd(padd(W[t], W[t + d]), D[t + d]);
+  } else if (lane == d && !last) {
+    const Point s = padd(D[t - d], D[t]);
+    D[t - d] = padd(s, s);
+  }
+}
+
+'''
+
+# The adds with each layer of independent products issued as one group, a
+# round of every product a step (mont_mul_group), and K2b's bodies over
+# them: the design this PR measured first.
+GROUPED_ADDS = r'''template <int F, int N, int STEP = 2>
+SPT_HD void mont_mul_group(Fe* r, const Fe* a, const Fe* b) {
+  uint32_t t[N][8];
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) t[j][i] = 0;
+#pragma unroll 1
+  for (int i0 = 0; i0 < 8; i0 += STEP)
+#pragma unroll
+  for (int k = 0; k < STEP; ++k)
+#pragma unroll
+    for (int j = 0; j < N; ++j) mont_round<F>(t[j], a[j], b[j].v[i0 + k]);
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    Fe x;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) x.v[i] = t[j][i];
+    r[j] = cond_sub_p<F>(x);
+  }
+}
+
+SPT_HD Point padd_grouped(const Point& p, const Point& q) {
+  const Fe a1[6] = {p.x, p.y, p.z, add<FQ>(p.x, p.y), add<FQ>(p.y, p.z), add<FQ>(p.x, p.z)};
+  const Fe b1[6] = {q.x, q.y, q.z, add<FQ>(q.x, q.y), add<FQ>(q.y, q.z), add<FQ>(q.x, q.z)};
+  Fe m[6];
+  mont_mul_group<FQ, 6>(m, a1, b1);
+  const Fe t0 = m[0], t1 = m[1], t2 = m[2];
+  Fe t3 = sub<FQ>(sub<FQ>(m[3], t0), t1);
+  Fe t4 = sub<FQ>(sub<FQ>(m[4], t1), t2);
+  Fe yc = sub<FQ>(sub<FQ>(m[5], t0), t2);
+  Fe t0_3 = add<FQ>(add<FQ>(t0, t0), t0);
+  Fe t2_2 = add<FQ>(t2, t2);
+  Fe t2_4 = add<FQ>(t2_2, t2_2);
+  Fe b3t2 = add<FQ>(add<FQ>(t2_4, t2_4), t2);
+  Fe y_2 = add<FQ>(yc, yc);
+  Fe y_4 = add<FQ>(y_2, y_2);
+  Fe b3y = add<FQ>(add<FQ>(y_4, y_4), yc);
+  Fe z3p = add<FQ>(t1, b3t2);
+  Fe t1m = sub<FQ>(t1, b3t2);
+  const Fe a2[6] = {t3, t4, t1m, b3y, z3p, t0_3};
+  const Fe b2[6] = {t1m, b3y, z3p, t0_3, t4, t3};
+  mont_mul_group<FQ, 6>(m, a2, b2);
+  Point r;
+  r.x = sub<FQ>(m[0], m[1]);
+  r.y = add<FQ>(m[2], m[3]);
+  r.z = add<FQ>(m[4], m[5]);
+  return r;
+}
+
+SPT_HD Fe times_b3(const Fe& a) {
+  const Fe a2 = add<FQ>(a, a);
+  const Fe a4 = add<FQ>(a2, a2);
+  return add<FQ>(add<FQ>(a4, a4), a);
+}
+
+template <int STEP = 2>
+SPT_HD Point madd(const Point& p, const Fe& x2, const Fe& y2) {
+  const Fe a1[5] = {p.x, p.y, add<FQ>(x2, y2), y2, x2};
+  const Fe b1[5] = {x2, y2, add<FQ>(p.x, p.y), p.z, p.z};
+  Fe m[6];
+  mont_mul_group<FQ, 5>(m, a1, b1);
+  const Fe t0 = m[0], t1 = m[1];
+  const Fe t3 = sub<FQ>(m[2], add<FQ>(t0, t1));
+  const Fe t4 = add<FQ>(m[3], p.y);
+  const Fe y3 = times_b3(add<FQ>(m[4], p.x));
+  const Fe t0_3 = add<FQ>(add<FQ>(t0, t0), t0);
+  const Fe t2 = times_b3(p.z);
+  const Fe z3 = add<FQ>(t1, t2);
+  const Fe t1m = sub<FQ>(t1, t2);
+  const Fe a2[6] = {t4, t3, y3, t1m, t0_3, z3};
+  const Fe b2[6] = {y3, t1m, t0_3, z3, t3, t4};
+  mont_mul_group<FQ, 6>(m, a2, b2);
+  Point r;
+  r.x = sub<FQ>(m[1], m[0]);
+  r.y = add<FQ>(m[3], m[2]);
+  r.z = add<FQ>(m[5], m[4]);
+  return r;
+}
+
+'''
+K2B_BODIES_GROUPED = r'''SPT_HD void k2b_leaf(int win, int g, int t, int nb, int S, int L,
+                     const uint32_t* sums, Point* W, Point* D) {
+  const uint32_t* run = sums + 24 * ((long)win * nb + (long)g * S + (long)t * L);
+  Point r = load_point(run + 24 * (L - 1));
+  Point w = r;
+  for (int j = L - 2; j >= 0; --j) {
+    r = padd_grouped(r, load_point(run + 24 * j));
+    w = padd_grouped(w, r);
+  }
+  for (int s = L; s > 1; s >>= 1) r = padd_grouped(r, r);
+  W[t] = w;
+  D[t] = r;
+}
+
+SPT_HD void k2b_merge(int t, int d, int n, int half, bool last, Point* W, Point* D) {
+  const int merges = n / (2 * d);
+  if (t < merges) {
+    const int i = 2 * d * t;
+    W[i] = padd_grouped(padd_grouped(W[i], W[i + d]), D[i + d]);
+  } else if (!last && t >= half && t - half < merges) {
+    const int i = 2 * d * (t - half);
+    const Point s = padd_grouped(D[i], D[i + d]);
+    D[i] = padd_grouped(s, s);
+  }
+}
+
+'''
+
+# The mixed add calling one product function that is not inlined: the
+# walk's loop body a few hundred instructions instead of thousands.
+MUL_NOINLINE = r'''// 9 a (b3 = 3b = 9), by additions.
+SPT_HD Fe times_b3(const Fe& a) {
+  const Fe a2 = add<FQ>(a, a);
+  const Fe a4 = add<FQ>(a2, a2);
+  return add<FQ>(add<FQ>(a4, a4), a);
+}
+
+#if defined(__CUDA_ARCH__)
+static __device__ __noinline__ Fe mul_call(const Fe& a, const Fe& b) { return mont_mul<FQ, 2>(a, b); }
+#else
+static inline Fe mul_call(const Fe& a, const Fe& b) { return mont_mul<FQ, 2>(a, b); }
+#endif
+
+'''
+MADD_NOINLINE = r'''template <int STEP = 2>
+SPT_HD Point madd(const Point& p, const Fe& x2, const Fe& y2) {
+  const Fe t0 = mul_call(p.x, x2);
+  const Fe t1 = mul_call(p.y, y2);
+  const Fe m3 = mul_call(add<FQ>(x2, y2), add<FQ>(p.x, p.y));
+  const Fe m4 = mul_call(y2, p.z);
+  const Fe m5 = mul_call(x2, p.z);
+  const Fe t3 = sub<FQ>(m3, add<FQ>(t0, t1));
+  const Fe t4 = add<FQ>(m4, p.y);
+  const Fe y3 = times_b3(add<FQ>(m5, p.x));
+  const Fe t0_3 = add<FQ>(add<FQ>(t0, t0), t0);
+  const Fe t2 = times_b3(p.z);
+  const Fe z3 = add<FQ>(t1, t2);
+  const Fe t1m = sub<FQ>(t1, t2);
+  Point r;
+  r.x = sub<FQ>(mul_call(t3, t1m), mul_call(t4, y3));
+  r.y = add<FQ>(mul_call(t1m, z3), mul_call(y3, t0_3));
+  r.z = add<FQ>(mul_call(z3, t4), mul_call(t0_3, t3));
+  return r;
+}
+
+'''
+
 # (name, [(file, old text, new text) | (file, (first, last), new text)],
 #  {python constant: value}); a (first, last) pair replaces the text from
 # `first` up to, not including, `last`.
@@ -220,8 +432,8 @@ VARIANTS = [
     ("PR 2 product (PTX CIOS, mad.lo.cc / madc.hi.cc chains)", [
         ("bn254.cuh", ("// One round of the product on the card", "#endif\n\ntemplate <int F> SPT_HD Fe add("),
          PR2_PRODUCT_DEV),
-        ("bn254.cuh", ("// Montgomery product a * b * 2^-256 mod p, CIOS", "template <int F> SPT_HD Fe zero() {"),
-         PR2_PRODUCT)], {}),
+        ("bn254.cuh", ("// One round of the product (see mont_mul)", "template <int F> SPT_HD Fe zero() {"),
+         PR2_PRODUCT + PR2_GROUP)], {}),
     ("complete add's products in straight-line code (STEP 8)", [
         ("bn254.cuh", "template <int STEP = 2> SPT_HD Point padd(",
          "template <int STEP = 8> SPT_HD Point padd(")], {}),
@@ -247,10 +459,55 @@ VARIANTS = [
     ("K2 launch bound of one block an SM (up to 255 registers)", [
         ("msm_kernels.cu", "__global__ void padd_kernel(",
          "__global__ void __launch_bounds__(256, 1) padd_kernel(")], {}),
-    ("K2b at 256 threads a window", [
+    ("K2b blocks of up to 256 threads", [
         ("aggregate.cuh", "K2B_THREADS = 128", "K2B_THREADS = 256")], {"K2B_THREADS": 256}),
-    ("K2b at 64 threads a window", [
-        ("aggregate.cuh", "K2B_THREADS = 128", "K2B_THREADS = 64")], {"K2B_THREADS": 64}),
+    ("K2b filling 256 blocks", [
+        ("aggregate.cuh", "K2B_FILL = 128", "K2B_FILL = 256")], {"K2B_FILL": 256}),
+    ("K2b filling 512 blocks", [
+        ("aggregate.cuh", "K2B_FILL = 128", "K2B_FILL = 512")], {"K2B_FILL": 512}),
+    ("K2b one block a window (the PR 8 geometry)", [
+        ("aggregate.cuh", "K2B_FILL = 128", "K2B_FILL = 1")], {"K2B_FILL": 1}),
+    ("K2b complete add in straight-line code, products one at a time (padd<8>)", [
+        ("aggregate.cuh", ("// Thread t of block g of window `win`: its run", "// Thread 0 of block g"),
+         K2B_BODIES_PADD8)], {}),
+    ("products of each add's layers issued as one group (mont_mul_group)", [
+        ("bn254.cuh", ("// 9 a (b3 = 3b = 9), by additions.", "// ---------------------------------------------------------------------------\n// memory layouts"),
+         GROUPED_ADDS),
+        ("aggregate.cuh", ("// Thread t of block g of window `win`: its run", "// Thread 0 of block g"),
+         K2B_BODIES_GROUPED)], {}),
+    ("mixed add's products in straight-line code (STEP 8)", [
+        ("bn254.cuh", "template <int STEP = 2>\nSPT_HD Point madd(",
+         "template <int STEP = 8>\nSPT_HD Point madd(")], {}),
+    ("mixed add's products one round a loop pass (STEP 1)", [
+        ("bn254.cuh", "template <int STEP = 2>\nSPT_HD Point madd(",
+         "template <int STEP = 1>\nSPT_HD Point madd(")], {}),
+    ("mixed add's products not inlined", [
+        ("bn254.cuh", ("// 9 a (b3 = 3b = 9), by additions.", "template <int STEP = 2>\nSPT_HD Point madd("),
+         MUL_NOINLINE),
+        ("bn254.cuh", ("template <int STEP = 2>\nSPT_HD Point madd(", "// ---------------------------------------------------------------------------\n// memory layouts"),
+         MADD_NOINLINE)], {}),
+    ("K2b filling 64 blocks", [
+        ("aggregate.cuh", "K2B_FILL = 128", "K2B_FILL = 64")], {"K2B_FILL": 64}),
+    ("K2b W and D merges on alternate lanes of one warp (the PR 3 mapping)", [
+        ("aggregate.cuh", ("SPT_HD void k2b_merge(", "// Thread 0 of block g"), K2B_LANE_MERGE)], {}),
+    ("K1 fixed walk at 4 blocks an SM", [
+        ("msm_kernels.cu", "constexpr int K1F_MIN_BLOCKS = 3;",
+         "constexpr int K1F_MIN_BLOCKS = 4;")], {}),
+    ("K1 fixed walk at 2 blocks an SM", [
+        ("msm_kernels.cu", "constexpr int K1F_MIN_BLOCKS = 3;",
+         "constexpr int K1F_MIN_BLOCKS = 2;")], {}),
+    ("K1 fixed walk, two running sums a thread, 6 blocks of 64 an SM", [
+        ("bucket.cuh", "constexpr int K1F_LANES = 1;", "constexpr int K1F_LANES = 2;"),
+        ("msm_kernels.cu", "constexpr int K1F_MIN_BLOCKS = 3;",
+         "constexpr int K1F_MIN_BLOCKS = 6;")], {}),
+    ("K1 fixed walk, two running sums a thread, 8 blocks of 64 an SM", [
+        ("bucket.cuh", "constexpr int K1F_LANES = 1;", "constexpr int K1F_LANES = 2;"),
+        ("msm_kernels.cu", "constexpr int K1F_MIN_BLOCKS = 3;",
+         "constexpr int K1F_MIN_BLOCKS = 8;")], {}),
+    ("K1 fixed walk, two running sums a thread, 4 blocks of 64 an SM", [
+        ("bucket.cuh", "constexpr int K1F_LANES = 1;", "constexpr int K1F_LANES = 2;"),
+        ("msm_kernels.cu", "constexpr int K1F_MIN_BLOCKS = 3;",
+         "constexpr int K1F_MIN_BLOCKS = 4;")], {}),
     ("K1 walk at 4 blocks an SM", [(
         "msm_kernels.cu", "__launch_bounds__(spt::K1_THREADS, 3)",
         "__launch_bounds__(spt::K1_THREADS, 4)")], {}),
@@ -322,16 +579,33 @@ def _use(KL, d: str) -> None:
         KL._loaded[lib] = h
 
 
+def _spills(log_path: str) -> dict:
+    """{mangled kernel name: spill store bytes} from a build log."""
+    out, entry = {}, None
+    with open(log_path) as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                entry = m.group(1)
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m and entry:
+                out[entry] = int(m.group(1))
+    return out
+
+
 def _static(KL, d: str) -> dict:
-    """The probe kernel's SASS instruction count and the registers of the
-    K1c, K2 and K2b kernels of one build."""
+    """The probe kernel's SASS instruction count and the registers (and
+    spill stores) of the K1c, K1c_fixed, K2 and K2b kernels of one build."""
     sass = KL.sass_opcodes(os.path.join(d, "field_kernels.so"))
     probe = next(v for k, v in sass.items() if "mont_mul_probe_kernel" in k)
-    regs = KL.ptxas_registers(os.path.join(d, "msm_kernels.log"))
+    log = os.path.join(d, "msm_kernels.log")
+    regs, spills = KL.ptxas_registers(log), _spills(log)
     out = {"product SASS": sum(probe.values())}
-    for rec, sym in (("K1c", "k1_walk_kernel"), ("K2", "padd_kernel"),
-                     ("K2b", "k2b_aggregate_kernel")):
-        out[f"{rec} registers"] = next(v for k, v in regs.items() if sym in k)
+    for rec, sym in (("K1c", "k1_walk_kernel"), ("K1c_fixed", "k1_fixed_walk_kernel"),
+                     ("K2", "padd_kernel"), ("K2b", "k2b_aggregate_kernel")):
+        name = next(k for k in regs if sym in k)
+        out[f"{rec} registers"] = regs[name]
+        out[f"{rec} spill bytes"] = spills.get(name, 0)
     return out
 
 
@@ -393,7 +667,22 @@ def main(argv=None) -> int:
     ref_k4 = N.ntt_passes(x23, tw23)
     sums = MK.padd_aos32(pts[:nwin * nb], pts[nwin * nb:2 * nwin * nb])
     ref_k2b = ec.normalize_std(MK.aggregate_buckets_aos32(sums, nwin, nb))
-    consts = {"PLAN_POINTS": MK, "TMAX": N, "TILE_LOG": N, "K2B_THREADS": MK}
+    sums1 = MK.padd_aos32(pts[:4096], pts[4096:8192])
+    ref_k2b1 = ec.normalize_std(MK.aggregate_buckets_aos32(sums1, 1, 4096))
+    # the fixed form at the step's geometry: the normalised table of the
+    # 2^21 points (2^22 GLV rows, c = 13, 10 windows), GLV digits of random
+    # scalars, the plan made once
+    cf = M.default_window_pallas(2 * n, signed=True)
+    nwf = M.num_windows(cf, 126)
+    table = M.build_window_table(pts, cf, nwf)
+    mags, fnegs = M.glv_scalars(rnd(n))
+    fdig = M.signed_digits(mags, cf, nwf)
+    del mags
+    rows = table.reshape(-1, 24)
+    _, fbstart, fentries = MK.bucket_plan(fdig, fnegs, cf, fixed=True)
+    ref_fixed = ec.normalize_std(MK.bucket_walk_fixed(rows, fentries, fbstart))
+    consts = {"PLAN_POINTS": MK, "TMAX": N, "TILE_LOG": N, "K2B_THREADS": MK,
+              "K2B_FILL": MK}
     for i in chosen:
         name, _, pyconst = VARIANTS[i]
         _use(KL, os.path.join(root, str(i)))
@@ -416,6 +705,14 @@ def main(argv=None) -> int:
             row["K2b equal"] = bool(torch.equal(
                 ec.normalize_std(MK.aggregate_buckets_aos32(sums, nwin, nb)), ref_k2b))
             row["K2b 24x1024 ms"] = ms(lambda: MK.aggregate_buckets_aos32(sums, nwin, nb), 10)
+            row["K2b 1x4096 equal"] = bool(torch.equal(
+                ec.normalize_std(MK.aggregate_buckets_aos32(sums1, 1, 4096)), ref_k2b1))
+            row["K2b 1x4096 ms"] = ms(lambda: MK.aggregate_buckets_aos32(sums1, 1, 4096), 10)
+            row["K1c_fixed equal"] = bool(torch.equal(
+                ec.normalize_std(MK.bucket_walk_fixed(rows, fentries, fbstart)), ref_fixed))
+            row["K1c_fixed walk ms"] = ms(lambda: MK.bucket_walk_fixed(rows, fentries, fbstart), 3)
+            row["K1-fixed wrapper ms"] = ms(
+                lambda: MK.bucket_sums_fixed_aos32(table, fdig, fnegs, cf), 3)
             row["K3 2^23 ms"] = ms(lambda: F.mont_mul(fr, x23.reshape(-1, 4), ref_k4.reshape(-1, 4)), 10)
         finally:
             N.ntt_plan = plan

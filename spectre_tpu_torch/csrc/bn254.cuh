@@ -242,6 +242,49 @@ template <int F> SPT_HD Fe sub(const Fe& a, const Fe& b) {
 #endif
 }
 
+// One round of the product (see mont_mul): t += a * bi, then t += m * p
+// for m = t[0] * n0, shifted down one limb.
+template <int F> SPT_HD void mont_round(uint32_t t[8], const Fe& a, uint32_t bi) {
+  uint32_t w8;
+#if defined(__CUDA_ARCH__)
+  mont_row_dev(t, &w8, a, bi);
+  mont_reduce_dev<F>(t, w8, t[0] * Consts<F>::n0);
+#else
+  uint64_t q[8];
+  for (int j = 0; j < 8; ++j) q[j] = (uint64_t)a.v[j] * bi;
+  uint64_t c = 0;
+  for (int j = 0; j < 8; ++j) {             // low halves at limbs 0..7
+    c += (uint64_t)t[j] + (uint32_t)q[j];
+    t[j] = (uint32_t)c;
+    c >>= 32;
+  }
+  w8 = (uint32_t)c;
+  c = 0;
+  for (int j = 1; j < 8; ++j) {             // high halves at limbs 1..8
+    c += (uint64_t)t[j] + (uint32_t)(q[j - 1] >> 32);
+    t[j] = (uint32_t)c;
+    c >>= 32;
+  }
+  w8 += (uint32_t)(q[7] >> 32) + (uint32_t)c;
+  const uint32_t m = t[0] * Consts<F>::n0;
+  for (int j = 0; j < 8; ++j) q[j] = (uint64_t)m * Consts<F>::p(j);
+  c = ((uint64_t)t[0] + (uint32_t)q[0]) >> 32;   // limb 0 becomes 0
+  for (int j = 1; j < 8; ++j) {             // low halves, shifted down
+    c += (uint64_t)t[j] + (uint32_t)q[j];
+    t[j - 1] = (uint32_t)c;
+    c >>= 32;
+  }
+  t[7] = w8 + (uint32_t)c;
+  c = 0;
+  for (int j = 0; j < 7; ++j) {             // high halves, shifted down
+    c += (uint64_t)t[j] + (uint32_t)(q[j] >> 32);
+    t[j] = (uint32_t)c;
+    c >>= 32;
+  }
+  t[7] += (uint32_t)(q[7] >> 32) + (uint32_t)c;
+#endif
+}
+
 // Montgomery product a * b * 2^-256 mod p, CIOS over 8 x 32-bit limbs in
 // 8 rounds. A round adds the row a * b[i] into the running sum t (< 2p,
 // 8 limbs, t[8] = w8 the limb above), then m * p for m = t[0] * n0, and
@@ -265,47 +308,7 @@ template <int F, int STEP = 8> SPT_HD Fe mont_mul(const Fe& a, const Fe& b) {
 #pragma unroll 1
   for (int i0 = 0; i0 < 8; i0 += STEP)
 #pragma unroll
-  for (int k = 0; k < STEP; ++k) {
-    const int i = i0 + k;
-    uint32_t w8;
-#if defined(__CUDA_ARCH__)
-    mont_row_dev(t, &w8, a, b.v[i]);
-    mont_reduce_dev<F>(t, w8, t[0] * Consts<F>::n0);
-#else
-    uint64_t q[8];
-    for (int j = 0; j < 8; ++j) q[j] = (uint64_t)a.v[j] * b.v[i];
-    uint64_t c = 0;
-    for (int j = 0; j < 8; ++j) {             // low halves at limbs 0..7
-      c += (uint64_t)t[j] + (uint32_t)q[j];
-      t[j] = (uint32_t)c;
-      c >>= 32;
-    }
-    w8 = (uint32_t)c;
-    c = 0;
-    for (int j = 1; j < 8; ++j) {             // high halves at limbs 1..8
-      c += (uint64_t)t[j] + (uint32_t)(q[j - 1] >> 32);
-      t[j] = (uint32_t)c;
-      c >>= 32;
-    }
-    w8 += (uint32_t)(q[7] >> 32) + (uint32_t)c;
-    const uint32_t m = t[0] * Consts<F>::n0;
-    for (int j = 0; j < 8; ++j) q[j] = (uint64_t)m * Consts<F>::p(j);
-    c = ((uint64_t)t[0] + (uint32_t)q[0]) >> 32;   // limb 0 becomes 0
-    for (int j = 1; j < 8; ++j) {             // low halves, shifted down
-      c += (uint64_t)t[j] + (uint32_t)q[j];
-      t[j - 1] = (uint32_t)c;
-      c >>= 32;
-    }
-    t[7] = w8 + (uint32_t)c;
-    c = 0;
-    for (int j = 0; j < 7; ++j) {             // high halves, shifted down
-      c += (uint64_t)t[j] + (uint32_t)(q[j] >> 32);
-      t[j] = (uint32_t)c;
-      c >>= 32;
-    }
-    t[7] += (uint32_t)(q[7] >> 32) + (uint32_t)c;
-#endif
-  }
+  for (int k = 0; k < STEP; ++k) mont_round<F>(t, a, b.v[i0 + k]);
   Fe r;
 #pragma unroll
   for (int i = 0; i < 8; ++i) r.v[i] = t[i];
@@ -365,6 +368,39 @@ template <int STEP = 2> SPT_HD Point padd(const Point& p, const Point& q) {
   r.x = sub<FQ>(mont_mul<FQ, STEP>(t3, t1m), mont_mul<FQ, STEP>(t4, b3y));
   r.y = add<FQ>(mont_mul<FQ, STEP>(t1m, z3p), mont_mul<FQ, STEP>(b3y, t0_3));
   r.z = add<FQ>(mont_mul<FQ, STEP>(z3p, t4), mont_mul<FQ, STEP>(t0_3, t3));
+  return r;
+}
+
+// 9 a (b3 = 3b = 9), by additions.
+SPT_HD Fe times_b3(const Fe& a) {
+  const Fe a2 = add<FQ>(a, a);
+  const Fe a4 = add<FQ>(a2, a2);
+  return add<FQ>(add<FQ>(a4, a4), a);
+}
+
+// Complete mixed addition P + (x2 : y2 : 1), Renes-Costello-Batina 2016
+// alg. 8 (a = 0, b3 = 9): 11 Montgomery products and the two by b3 as
+// additions, no Z operand for the second point. Complete for any P,
+// doubling and inverses included, for a second point that is not infinity
+// (which has no Z = 1 form: the caller skips it). STEP as in padd.
+template <int STEP = 2>
+SPT_HD Point madd(const Point& p, const Fe& x2, const Fe& y2) {
+  const Fe t0 = mont_mul<FQ, STEP>(p.x, x2);
+  const Fe t1 = mont_mul<FQ, STEP>(p.y, y2);
+  const Fe m3 = mont_mul<FQ, STEP>(add<FQ>(x2, y2), add<FQ>(p.x, p.y));
+  const Fe m4 = mont_mul<FQ, STEP>(y2, p.z);
+  const Fe m5 = mont_mul<FQ, STEP>(x2, p.z);
+  const Fe t3 = sub<FQ>(m3, add<FQ>(t0, t1));         // X1 Y2 + X2 Y1
+  const Fe t4 = add<FQ>(m4, p.y);                     // Y2 Z1 + Y1
+  const Fe y3 = times_b3(add<FQ>(m5, p.x));           // b3 (X2 Z1 + X1)
+  const Fe t0_3 = add<FQ>(add<FQ>(t0, t0), t0);
+  const Fe t2 = times_b3(p.z);
+  const Fe z3 = add<FQ>(t1, t2);
+  const Fe t1m = sub<FQ>(t1, t2);
+  Point r;
+  r.x = sub<FQ>(mont_mul<FQ, STEP>(t3, t1m), mont_mul<FQ, STEP>(t4, y3));
+  r.y = add<FQ>(mont_mul<FQ, STEP>(t1m, z3), mont_mul<FQ, STEP>(y3, t0_3));
+  r.z = add<FQ>(mont_mul<FQ, STEP>(z3, t4), mont_mul<FQ, STEP>(t0_3, t3));
   return r;
 }
 

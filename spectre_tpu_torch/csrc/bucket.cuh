@@ -241,6 +241,202 @@ SPT_HD void k1_root(long blk, const K1Node* root, const int32_t* bstart,
               root->l);
 }
 
+// --- K1c_fixed: the fixed form's walk over a normalised table ---------------
+//
+// The fixed form's window table is built once per base and cached
+// (ops/msm.py build_window_table), and normalised there: every finite row
+// has Z = 1 (the Montgomery one), a row at infinity Z = 0. So the walk stages
+// only a row's X and Y (64 of its 96 bytes, four 16-byte cp.async copies),
+// reads its Z word only to skip a row at infinity, and adds the row into the
+// projective run sum by the mixed complete formula (bn254.cuh `madd`, 11
+// products against padd's 12). Runs, nodes, the tree and the root are
+// K1c's: the walk block covers the same K1_BLOCK_ENTRIES entries in segments
+// of K1_SEG, and K1d sums the pieces.
+//
+// A thread walks K1F_LANES neighbouring segments side by side, one step of
+// each in turn; K1F_THREADS threads cover a block's segments. One lane: two
+// (more independent work a warp) took more registers and ran slower
+// (scripts/torch_kernel_variants.py).
+constexpr int K1F_LANES = 1;
+constexpr int K1F_THREADS = K1_THREADS / K1F_LANES;
+// a lane's two staging slots of X | Y (16 words each); a thread's lanes,
+// padded by 4 words so that 16-byte shared loads of 8 neighbouring threads
+// fall on distinct banks
+constexpr int K1F_STAGE_WORDS = 32 * K1F_LANES + 4;
+
+// Start copying X | Y of the row of entry e into a 16-word slot (cp.async on
+// the card, committed by the caller with the other lanes' copies; a plain
+// copy on the host); return the row's Z word, 0 for a row at infinity.
+SPT_HD uint32_t k1f_stage(uint32_t* slot, const uint32_t* pts, int32_t e) {
+  const uint32_t* src = pts + 24 * (long)(e & 0x7fffffff);
+#if defined(__CUDA_ARCH__)
+  const uint32_t dst = (uint32_t)__cvta_generic_to_shared(slot);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst + 16 * i),
+                 "l"(src + 4 * i));
+#else
+  for (int i = 0; i < 16; ++i) slot[i] = src[i];
+#endif
+  return src[16];
+}
+
+// Close the step's copies as one group, and wait until every group but the
+// newest has landed.
+SPT_HD void k1f_commit_and_wait() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.commit_group;");
+  asm volatile("cp.async.wait_group 1;" ::: "memory");
+#endif
+}
+
+// The affine point of a staged entry, negated where the entry says so.
+SPT_HD void k1f_staged_xy(const uint32_t* slot, int32_t e, Fe* x, Fe* y) {
+#if defined(__CUDA_ARCH__)
+  const uint4* q = reinterpret_cast<const uint4*>(slot);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint4 v = q[i];
+    uint32_t* d = (i < 2 ? x->v : y->v) + 4 * (i & 1);
+    d[0] = v.x;
+    d[1] = v.y;
+    d[2] = v.z;
+    d[3] = v.w;
+  }
+#else
+  *x = load_fe(slot);
+  *y = load_fe(slot + 8);
+#endif
+  if (e < 0) *y = sub<FQ>(zero<FQ>(), *y);
+}
+
+// The start of a run: the row as a projective point, infinity if it is.
+SPT_HD Point k1f_start(const Fe& x, const Fe& y, uint32_t zword) {
+  if (zword == 0) return infinity();
+  Point r;
+  r.x = x;
+  r.y = y;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) r.z.v[i] = Consts<FQ>::one(i);
+  return r;
+}
+
+// Thread t of walk block blk: its lanes' segments, segment t * K1F_LANES + l
+// of the block for lane l, each as k1_walk_thread walks one, into nodes[l]
+// (the thread's K1F_LANES consecutive nodes). `stage` is the thread's slots:
+// lane l's two at stage + 32 l; the point of a lane's next entry is copied
+// into one while the point in the other is added. Every step computes the
+// add of every lane; a lane whose run ends there, or whose row is at
+// infinity, or which has no entry there, drops its sum.
+SPT_HD void k1f_walk_thread(long blk, long t, const uint32_t* pts,
+                            const int32_t* entries, const int32_t* bstart,
+                            int nkeys, uint32_t* out, K1Node* nodes,
+                            uint32_t* stage) {
+  constexpr int NL = K1F_LANES;
+  const long E = bstart[nkeys];
+  long s[NL], end[NL], bend[NL];
+  int key[NL], runs[NL];
+  int32_t cur[NL], next[NL];
+  uint32_t zcur[NL], znext[NL];
+  Point acc[NL];
+#pragma unroll
+  for (int l = 0; l < NL; ++l) {
+    s[l] = blk * K1_BLOCK_ENTRIES + (t * NL + l) * K1_SEG;
+    end[l] = s[l] + K1_SEG < E ? s[l] + K1_SEG : E;
+    nodes[l].valid = s[l] < E;
+    runs[l] = key[l] = 0;
+    bend[l] = 0;
+    cur[l] = next[l] = 0;
+    zcur[l] = znext[l] = 0;
+    acc[l] = infinity();
+  }
+  if (!nodes[0].valid) return;      // the later lanes' segments lie further on
+#pragma unroll
+  for (int l = 0; l < NL; ++l)
+    if (s[l] < end[l]) {
+      cur[l] = entries[s[l]];
+      zcur[l] = k1f_stage(stage + 32 * l, pts, cur[l]);
+    }
+  k1f_commit_and_wait();
+#pragma unroll
+  for (int l = 0; l < NL; ++l)
+    if (s[l] + 1 < end[l]) {
+      next[l] = entries[s[l] + 1];
+      znext[l] = k1f_stage(stage + 32 * l + 16, pts, next[l]);
+    }
+  k1f_commit_and_wait();            // the first entries have landed
+#pragma unroll
+  for (int l = 0; l < NL; ++l) {
+    if (s[l] >= end[l]) continue;
+    key[l] = k1_find_key(bstart, 0, nkeys - 1, s[l]);
+    bend[l] = bstart[key[l] + 1];
+    Fe x, y;
+    k1f_staged_xy(stage + 32 * l, cur[l], &x, &y);
+    acc[l] = k1f_start(x, y, zcur[l]);
+  }
+  const long len = end[0] - s[0];   // lane 0's segment is the longest
+  for (long j = 1; j < len; ++j) {
+    const int slot = (int)(j & 1);
+#pragma unroll
+    for (int l = 0; l < NL; ++l) {
+      cur[l] = next[l];
+      zcur[l] = znext[l];
+      if (s[l] + j + 1 < end[l]) {  // into the slot of the point just added
+        next[l] = entries[s[l] + j + 1];
+        znext[l] = k1f_stage(stage + 32 * l + 16 * (slot ^ 1), pts, next[l]);
+      }
+    }
+    k1f_commit_and_wait();
+    Fe x[NL], y[NL];
+    Point sum[NL];
+#pragma unroll
+    for (int l = 0; l < NL; ++l) k1f_staged_xy(stage + 32 * l + 16 * slot, cur[l], &x[l], &y[l]);
+#pragma unroll
+    for (int l = 0; l < NL; ++l) sum[l] = madd(acc[l], x[l], y[l]);
+#pragma unroll
+    for (int l = 0; l < NL; ++l) {
+      const long pos = s[l] + j;
+      if (pos >= end[l]) continue;
+      if (pos < bend[l]) {
+        if (zcur[l] != 0) acc[l] = sum[l];
+        continue;
+      }
+      if (runs[l] == 0) {     // the first run: resolved up the tree
+        nodes[l].fk = key[l];
+        nodes[l].f = acc[l];
+      } else {                // bounded on both sides: a whole bucket
+        store_point(out + 24 * (long)key[l], acc[l]);
+      }
+      ++runs[l];
+      key[l] = k1_find_key(bstart, key[l] + 1, nkeys - 1, pos);
+      bend[l] = bstart[key[l] + 1];
+      acc[l] = k1f_start(x[l], y[l], zcur[l]);
+    }
+  }
+#pragma unroll
+  for (int l = 0; l < NL; ++l) {
+    if (s[l] >= end[l]) continue;
+    if (runs[l] == 0) {
+      nodes[l].fk = nodes[l].lk = key[l];
+      nodes[l].single = 1;
+      nodes[l].f = acc[l];
+    } else {
+      nodes[l].lk = key[l];
+      nodes[l].single = 0;
+      nodes[l].l = acc[l];
+    }
+  }
+}
+
+// The block's tree over its K1_THREADS nodes (one a segment), by
+// `nthreads` threads: at level d, node i = 2 d k takes in node i + d.
+// Called by every thread of the block between barriers.
+SPT_HD void k1f_tree_level(int d, long t, long nthreads, K1Node* nodes,
+                           uint32_t* out) {
+  for (long i = 2 * d * t; i < K1_THREADS; i += 2 * d * nthreads)
+    k1_merge(&nodes[i], &nodes[i + d], out);
+}
+
 // --- K1d: pieces ------------------------------------------------------------
 
 // Blocks [first, last] that bucket `key` touches; last < first if empty.

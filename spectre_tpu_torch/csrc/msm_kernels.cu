@@ -9,17 +9,20 @@
 // multiply-adds, per 288 bytes moved); the design moves nothing but one
 // 96-byte point per operand and the result, in 16-byte accesses.
 //
-// K2b replaces `_aggregate_buckets_soa` (msm_pallas.py:356): one block a
-// window, runs of buckets per thread and a weighted tree in shared memory
-// (aggregate.cuh). Bound: integer multiply throughput for the ~3 K adds a
-// window; held far from it by its chain of dependent adds, one block a
-// window being all the parallelism 24 windows offer.
+// K2b replaces `_aggregate_buckets_soa` (msm_pallas.py:356): a window's
+// buckets spread over G blocks, each a weighted tree in shared memory, and
+// the window's last block to finish merging the G results by the same rule
+// (aggregate.cuh). Bound: integer multiply throughput for the ~4 nb adds a
+// window; held from it by the chain of ~2 log2 nb dependent adds.
 //
 // K1 replaces `_bucket_sums` (msm_pallas.py:399, body `_k_bucket_accumulate`)
 // in both its forms: a base shared by every window (`_bucket_windows_jit`
 // :439) and the fixed-base window tables (`_bucket_fixed_jit` :460), where
 // window w reads its own points T[w] = 2^(c w) [P ; phi(P)]. The forms
-// differ only in K1b's entries (k1_scatter_kernel, k1_scatter_fixed_kernel).
+// differ in K1b's entries (k1_scatter_kernel, k1_scatter_fixed_kernel) and
+// in the walk: the fixed form's table is normalised (Z = 1) when it is
+// built, so its walk (k1_fixed_walk_kernel) stages X and Y only and adds
+// each row by the mixed formula, 11 products where K1c's complete add has 12.
 // The Pallas design keeps every bucket resident in VMEM and adds each point
 // into all 2^(c-1) bucket columns; neither carries over to a 227 KB block.
 // Here four kernels (bodies and design in bucket.cuh) sort the (window,
@@ -151,21 +154,70 @@ __global__ void __launch_bounds__(spt::K1_THREADS, 3)
   if (t == 0) spt::k1_root(blk, &nodes[0], bstart, out, pieces);
 }
 
-// K2b: one block per window (bodies and design in aggregate.cuh); the
-// block's W and D points in dynamic shared memory, 24 KB at 128 threads.
+// K1c_fixed: the fixed form's walk (bucket.cuh k1f_walk_thread) over a
+// normalised window table, one block per K1_BLOCK_ENTRIES sorted entries as
+// K1c, K1F_THREADS threads of K1F_LANES segments each. Dynamic shared
+// memory: the block's K1_THREADS nodes, then each thread's staging slots.
+// K1F_MIN_BLOCKS blocks an SM (scripts/torch_kernel_variants.py measures
+// the others).
+constexpr int K1F_MIN_BLOCKS = 3;
+constexpr size_t kFixedWalkSmem =
+    spt::K1_THREADS * sizeof(spt::K1Node) + 4 * spt::K1F_THREADS * spt::K1F_STAGE_WORDS;
+
+__global__ void __launch_bounds__(spt::K1F_THREADS, K1F_MIN_BLOCKS)
+    k1_fixed_walk_kernel(const uint32_t* __restrict__ pts,
+                         const int32_t* __restrict__ entries,
+                         const int32_t* __restrict__ bstart, int nkeys,
+                         uint32_t* __restrict__ out, uint32_t* __restrict__ pieces) {
+  extern __shared__ uint4 walk_smem[];
+  spt::K1Node* nodes = reinterpret_cast<spt::K1Node*>(walk_smem);
+  uint32_t* stage = reinterpret_cast<uint32_t*>(nodes + spt::K1_THREADS);
+  const long blk = blockIdx.x;
+  if (blk * spt::K1_BLOCK_ENTRIES >= bstart[nkeys]) return;
+  const int t = threadIdx.x;
+  spt::k1f_walk_thread(blk, t, pts, entries, bstart, nkeys, out,
+                       &nodes[spt::K1F_LANES * t], stage + spt::K1F_STAGE_WORDS * t);
+  for (int d = 1; d < spt::K1_THREADS; d <<= 1) {
+    __syncthreads();
+    spt::k1f_tree_level(d, t, spt::K1F_THREADS, nodes, out);
+  }
+  if (t == 0) spt::k1_root(blk, &nodes[0], bstart, out, pieces);
+}
+
+// K2b: nwin * G blocks, G a window (bodies and design in aggregate.cuh);
+// a block's W and D points in dynamic shared memory, 24 KB at 128 threads.
+// The window's last block to finish merges its G pairs in the same launch.
 __global__ void __launch_bounds__(spt::K2B_THREADS, 1)
-    k2b_aggregate_kernel(const uint32_t* __restrict__ sums, int nb,
+    k2b_aggregate_kernel(const uint32_t* __restrict__ sums, int nb, int G,
+                         uint32_t* pairs, int32_t* tickets,
                          uint32_t* __restrict__ out) {
   extern __shared__ uint4 agg_smem[];
+  __shared__ int merge_here;
   spt::Point* W = reinterpret_cast<spt::Point*>(agg_smem);
   spt::Point* D = W + blockDim.x;
   const int T = blockDim.x, t = threadIdx.x;
-  spt::k2b_leaf(blockIdx.x, t, nb, nb / T, sums, W, D);
+  const int win = blockIdx.x / G, g = blockIdx.x % G, S = nb / G;
+  spt::k2b_leaf(win, g, t, nb, S, S / T, sums, W, D);
   for (int d = 1; d < T; d <<= 1) {
     __syncthreads();
-    spt::k2b_merge(t, d, 2 * d == T, W, D);
+    spt::k2b_merge(t, d, T, T / 2, G == 1 && 2 * d == T, W, D);
   }
-  if (t == 0) spt::store_point(out + 24 * (long)blockIdx.x, W[0]);
+  __syncthreads();
+  if (G == 1) {
+    if (t == 0) spt::store_point(out + 24 * (long)win, W[0]);
+    return;
+  }
+  if (t == 0) merge_here = spt::k2b_publish(win, g, G, W, D, pairs, tickets);
+  __syncthreads();
+  if (!merge_here) return;
+  __threadfence();
+  if (t < G) spt::k2b_gather(win, t, G, pairs, W, D);
+  for (int d = 1; d < G; d <<= 1) {
+    __syncthreads();
+    spt::k2b_merge(t, d, G, T / 2, 2 * d == G, W, D);
+  }
+  __syncthreads();
+  if (t == 0) spt::store_point(out + 24 * (long)win, W[0]);
 }
 
 // K1d: one warp per key.
@@ -219,14 +271,19 @@ extern "C" int spt_padd(const void* p, const void* q, void* out, long n,
   return (int)cudaGetLastError();
 }
 
+// pairs: scratch of nwin * G * 48 words; tickets: nwin counters, 0 on entry
+// and left at 0
 extern "C" int spt_k2b_aggregate(const void* sums, long nwin, int nb,
-                                 void* out, void* stream) {
-  const int T = spt::k2b_threads(nb);
-  const size_t smem = 2 * (size_t)T * sizeof(spt::Point);
+                                 void* pairs, void* tickets, void* out,
+                                 void* stream) {
+  const spt::K2bGeometry geo = spt::k2b_geometry(nwin, nb);
+  const size_t smem = 2 * (size_t)geo.T * sizeof(spt::Point);
   if (int rc = allow_smem(k2b_aggregate_kernel, smem)) return rc;
   if (nwin > 0)
-    k2b_aggregate_kernel<<<(unsigned)nwin, T, smem, (cudaStream_t)stream>>>(
-        (const uint32_t*)sums, nb, (uint32_t*)out);
+    k2b_aggregate_kernel<<<(unsigned)(nwin * geo.G), geo.T, smem,
+                           (cudaStream_t)stream>>>(
+        (const uint32_t*)sums, nb, geo.G, (uint32_t*)pairs, (int32_t*)tickets,
+        (uint32_t*)out);
   return (int)cudaGetLastError();
 }
 
@@ -264,6 +321,20 @@ extern "C" int spt_k1_walk(const void* pts, const void* entries,
   if (nblocks > 0)
     k1_walk_kernel<<<(unsigned)nblocks, spt::K1_THREADS, kWalkSmem,
                      (cudaStream_t)stream>>>(
+        (const uint32_t*)pts, (const int32_t*)entries, (const int32_t*)bstart,
+        nkeys, (uint32_t*)out, (uint32_t*)pieces);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int spt_k1_fixed_walk(const void* pts, const void* entries,
+                                 const void* bstart, int nkeys, long max_entries,
+                                 void* out, void* pieces, void* stream) {
+  const long nblocks =
+      (max_entries + spt::K1_BLOCK_ENTRIES - 1) / spt::K1_BLOCK_ENTRIES;
+  if (int rc = allow_smem(k1_fixed_walk_kernel, kFixedWalkSmem)) return rc;
+  if (nblocks > 0)
+    k1_fixed_walk_kernel<<<(unsigned)nblocks, spt::K1F_THREADS, kFixedWalkSmem,
+                           (cudaStream_t)stream>>>(
         (const uint32_t*)pts, (const int32_t*)entries, (const int32_t*)bstart,
         nkeys, (uint32_t*)out, (uint32_t*)pieces);
   return (int)cudaGetLastError();

@@ -1,5 +1,6 @@
-"""BN254 G1 on tensors: layouts, host encode/decode, and the plain complete
-addition (the arithmetic of kernel K2, in PyTorch).
+"""BN254 G1 on tensors: layouts, host encode/decode, normalisation, and the
+plain complete and mixed additions (the arithmetic of kernel K2 and of the
+fixed walk, in PyTorch).
 
 Points are homogeneous projective (X:Y:Z) over Fq in Montgomery form, with
 infinity (0:1:0). Three layouts:
@@ -142,6 +143,22 @@ def normalize_std(aos: torch.Tensor) -> torch.Tensor:
     return torch.cat([ax, ay], dim=1)
 
 
+def normalize_mont(aos: torch.Tensor) -> torch.Tensor:
+    """AoS32 projective [N, 24] -> the same points with Z = 1, still in
+    Montgomery form: (X / Z, Y / Z, 1) by one batch inversion of Z (K3 and
+    torch ops on the device of `aos`) and two products; a point at
+    infinity becomes (0 : 1 : 0), Z = 0."""
+    ctx = _fq()
+    x, y, z = aos32_coords(aos)
+    inf = F.is_zero(z)[:, None]
+    zi = F.inv(ctx, z)
+    one = F.const_raw(ctx.r_mod_p, aos.device)
+    ax = F.mont_mul(ctx, x, zi)
+    ay = torch.where(inf, one, F.mont_mul(ctx, y, zi))
+    az = torch.where(inf, torch.zeros_like(one), one)
+    return coords_to_aos32(ax, ay, az.expand_as(ax))
+
+
 # ---------------------------------------------------------------------------
 # the GLV endomorphism
 # ---------------------------------------------------------------------------
@@ -192,6 +209,37 @@ def padd16(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
         st(t4, t3, b3y, t1m, t0_3, z3p), st(b3y, t1m, t0_3, z3p, t3, t4)).unbind(1)
     yz = add(st(y3b, z3b), st(y3a, z3a))
     return torch.cat([sub(x3b, x3a), yz[:, 0], yz[:, 1]])
+
+
+def madd16(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Complete mixed add P + (x2 : y2 : 1) on int64 16-bit limb stacks, p
+    [48, ...] (X, Y, Z) and q [32, ...] (x2, y2): Renes-Costello-Batina 2016
+    alg. 8 (a = 0, b3 = 9), the plain version of the fixed walk's add
+    (csrc/bn254.cuh `madd`), its 11 products as two stacked calls. Q must
+    not be infinity (it has no Z = 1 form)."""
+    ctx = _fq()
+    add = lambda a, b: F.add16(ctx, a, b)        # noqa: E731
+    sub = lambda a, b: F.sub16(ctx, a, b)        # noqa: E731
+    mul = lambda a, b: F.mont_mul16(ctx, a, b)   # noqa: E731
+    st = lambda *xs: torch.stack(xs, dim=1)      # noqa: E731
+    x1, y1, z1 = p[:NL], p[NL:2 * NL], p[2 * NL:]
+    x2, y2 = q[:NL], q[NL:2 * NL]
+    s = add(st(x2, x1), st(y2, y1))
+    t0, t1, m3, m4, m5 = mul(st(x1, y1, s[:, 0], y2, x2),
+                             st(x2, y2, s[:, 1], z1, z1)).unbind(1)
+    t3 = sub(m3, add(t0, t1))
+    t4, y3 = add(st(m4, m5), st(y1, x1)).unbind(1)
+    t0_3 = add(add(t0, t0), t0)
+    v = st(y3, z1)
+    v2 = add(v, v)
+    v4 = add(v2, v2)
+    y3, t2 = add(add(v4, v4), v).unbind(1)     # 9 (X2 Z1 + X1), 9 Z1
+    z3 = add(t1, t2)
+    t1m = sub(t1, t2)
+    xa, xb, ya, yb, za, zb = mul(st(t4, t3, y3, t1m, t0_3, z3),
+                                 st(y3, t1m, t0_3, z3, t3, t4)).unbind(1)
+    yz = add(st(yb, zb), st(ya, za))
+    return torch.cat([sub(xb, xa), yz[:, 0], yz[:, 1]])
 
 
 def cneg16(mask: torch.Tensor, p: torch.Tensor) -> torch.Tensor:

@@ -17,8 +17,9 @@ with SPECTRE_MSM_IMPL=pallas, `_msm_pallas`), in its four modes
               glv+signed are one path.
   glv+signed  the same.
   fixed       for a fixed base (the SRS): a table T[w] = 2^(c w) [P ; phi(P)]
-              per window, built once by c doublings a window through K2 and
-              kept in a byte-budgeted LRU; K1's fixed-base form adds window
+              per window, built once by c doublings a window through K2,
+              normalised to Z = 1 and kept in a byte-budgeted LRU; K1's
+              fixed-base form adds window
               w's digits over T[w], the bucket sums are merged across windows
               (a K2 tree) and weighted once (one K2b over one window), and no
               window combine is left. A table the budget (SPECTRE_MSM_TABLE_MB,
@@ -296,18 +297,24 @@ def _degrade_fixed(n: int, c: int, nbits: int) -> bool:
 
 
 def build_window_table(points: torch.Tensor, c: int, nwin: int) -> torch.Tensor:
-    """AoS32 [n, 24] -> [nwin, 2n, 24] with T[w] = 2^(c w) [P ; phi(P)]: c
-    doublings through K2 from one window to the next (the P half only;
-    phi commutes with doubling, so the phi half is one K3 a window)."""
+    """AoS32 [n, 24] -> [nwin, 2n, 24] with T[w] = 2^(c w) [P ; phi(P)],
+    normalised: c doublings through K2 from one window to the next (the P
+    half only), then every window's P half brought to Z = 1 by one batch
+    inversion (`ec.normalize_mont`; a point at infinity keeps Z = 0), then
+    the phi half of every window by one K3 (phi commutes with doubling and
+    keeps Z). The fixed walk adds the rows by the mixed formula, which needs
+    Z = 1."""
     n = points.shape[0]
     table = torch.empty((nwin, 2 * n, 24), dtype=torch.int32, device=points.device)
     cur = points
     for w in range(nwin):
         table[w, :n] = cur
-        table[w, n:] = ec.endo(cur)
         if w < nwin - 1:
             for _ in range(c):
                 cur = MK.padd_aos32(cur, cur)
+    half = ec.normalize_mont(table[:, :n].reshape(-1, 24)).reshape(nwin, n, 24)
+    table[:, :n] = half
+    table[:, n:] = ec.endo(half)
     return table
 
 

@@ -33,28 +33,33 @@ bucket; the gathers of 96-byte points in bucket order are the memory side.
 
 K1's fixed-base form replaces the same `pallas_call` with points
 [nwin, 48, N] (`_bucket_fixed_jit` :460, `msm_bucket_fixed` :492): window w
-reads its own table T[w] = 2^(c w) [P ; phi(P)]. It runs the same four
-kernels on the table flattened to [nwin * N, 24], with its own scatter
-(K1_fixed) whose entries name row w * N + i instead of i; the walk gathers
-from the table as it gathers from a shared base. Each entry is then a row
-read once, so the gathers move 96 bytes an entry where the shared base is
-read with reuse; the adds, one per entry, still bound it. The cross-window
-merge after it is a K2 tree (`fold_windows_aos32`).
+reads its own table T[w] = 2^(c w) [P ; phi(P)]. The table is built once
+per base, cached, and normalised when it is built (every finite row Z = 1,
+ops/msm.py `build_window_table`). The form runs K1a and its own scatter
+(K1_fixed, entries naming row w * N + i of the table flattened to
+[nwin * N, 24]), then its own walk (K1c_fixed, csrc/bucket.cuh
+`k1f_walk_thread`): K1c's segments, tree and root, but each entry stages
+only the row's X and Y and is added by the mixed complete formula (11
+products where the complete add has 12), then K1d. Bound: integer multiply throughput, one mixed add per
+nonzero digit less one per bucket. The cross-window merge after it is a K2
+tree (`fold_windows_aos32`).
 
 K2b replaces `msm_pallas.py::_aggregate_buckets_soa` (:356, an XLA loop
 over K2: per digit bit a pairwise tree over the buckets with that bit set,
 then a double-and-add over the bits; 32 K2 launches, 270 K adds at c = 11).
-It computes sum_b b * B_b per window in one launch, one block per window
-(csrc/msm_kernels.cu, bodies and design in csrc/aggregate.cuh): each thread
-walks a run of buckets keeping running sums, and a tree in shared memory
-merges the runs with their weights, ~3 K adds a window at c = 11. Bound:
-integer multiply throughput for those adds; with one block a window the
-card is far from it, held by the chain of ~31 dependent adds a window.
+It computes sum_b b * B_b per window in one launch (csrc/msm_kernels.cu,
+bodies and design in csrc/aggregate.cuh): a window's buckets spread over G
+blocks, each a weighted tree in shared memory leaving its slice's (W, D),
+and the window's last block to finish merges the G pairs by the same rule,
+~4 nb adds a window. Bound: integer multiply throughput for those adds;
+what holds it from the bound is the chain of ~2 log2 nb dependent adds (20
+at c = 11).
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises. `padd_soa_plain`, `bucket_sums_plain`,
-`bucket_sums_fixed_plain` and `aggregate_buckets_plain` run on any device,
-for the tests and chip_smoke.py.
+`bucket_sums_fixed_plain`, `bucket_walk_fixed_plain` and
+`aggregate_buckets_plain` run on any device, for the tests and
+chip_smoke.py.
 """
 
 from __future__ import annotations
@@ -202,14 +207,7 @@ def bucket_walk_plain(pts: torch.Tensor, entries: torch.Tensor,
     a bucket are folded pairwise."""
     dev = pts.device
     nkeys = bstart.shape[0] - 1
-    starts = bstart[:-1].to(torch.int64)
-    counts = bstart[1:].to(torch.int64) - starts
-    size = chunk_len(int(bstart[-1]))
-    nch = (counts + size - 1) // size
-    ckey = torch.repeat_interleave(torch.arange(nkeys, device=dev), nch)
-    rank = torch.arange(ckey.numel(), device=dev) - (torch.cumsum(nch, 0) - nch)[ckey]
-    cstart = starts[ckey] + rank * size
-    clen = torch.clamp(starts[ckey] + counts[ckey] - cstart, max=size)
+    ckey, cstart, clen, size = _chunks(bstart)
     acc = ec.aos32_to_rows16(ec.inf_aos32(ckey.shape[0], dev))
     for j in range(size):
         act = torch.nonzero(clen > j, as_tuple=True)[0]
@@ -224,6 +222,22 @@ def bucket_walk_plain(pts: torch.Tensor, entries: torch.Tensor,
     out = ec.inf_aos32(nkeys, dev)
     out[keys] = ec.rows16_to_aos32(sums)
     return out
+
+
+def _chunks(bstart: torch.Tensor):
+    """The plain walks' chunks: each bucket cut into chunks of at most
+    chunk_len(E) entries. (chunk key, first entry, length, the chunk
+    size)."""
+    dev = bstart.device
+    starts = bstart[:-1].to(torch.int64)
+    counts = bstart[1:].to(torch.int64) - starts
+    size = chunk_len(int(bstart[-1]))
+    nch = (counts + size - 1) // size
+    ckey = torch.repeat_interleave(torch.arange(starts.shape[0], device=dev), nch)
+    rank = torch.arange(ckey.numel(), device=dev) - (torch.cumsum(nch, 0) - nch)[ckey]
+    cstart = starts[ckey] + rank * size
+    clen = torch.clamp(starts[ckey] + counts[ckey] - cstart, max=size)
+    return ckey, cstart, clen, size
 
 
 def chunk_len(entries: int) -> int:
@@ -319,8 +333,8 @@ def bucket_plan_plain(digits: torch.Tensor, negs: torch.Tensor, c: int,
     return counts, bstart, bucket_scatter_plain(digits, negs, nb, n if fixed else 0)
 
 
-def _bucket_sums_aos32_plain(pts, digits, negs, c, fixed=False):
-    _, bstart, entries = bucket_plan_plain(digits, negs, c, fixed)
+def _bucket_sums_aos32_plain(pts, digits, negs, c):
+    _, bstart, entries = bucket_plan_plain(digits, negs, c)
     return bucket_walk_plain(pts, entries, bstart)
 
 
@@ -386,6 +400,70 @@ def bucket_walk(pts: torch.Tensor, entries: torch.Tensor, bstart: torch.Tensor) 
     return out
 
 
+def bucket_walk_fixed_plain(table: torch.Tensor, entries: torch.Tensor,
+                            bstart: torch.Tensor) -> torch.Tensor:
+    """Plain version of the fixed walk (K1c_fixed and K1d) over a normalised
+    table [nwin * N, 24] (finite rows Z = 1, rows at infinity Z = 0): the
+    kernel's adds, as the kernel makes them. Each bucket is cut into chunks
+    as `bucket_walk_plain` cuts it; a chunk starts from its first row (at
+    infinity for a row at infinity) and adds each later row by the mixed
+    formula (`ec.madd16`), skipping rows at infinity; the chunk sums of a
+    bucket are folded by complete adds. AoS32 [nkeys, 24], empty buckets at
+    infinity."""
+    dev = table.device
+    nkeys = bstart.shape[0] - 1
+    ckey, cstart, clen, size = _chunks(bstart)
+    acc = ec.aos32_to_rows16(ec.inf_aos32(ckey.shape[0], dev))
+    for j in range(size):
+        act = torch.nonzero(clen > j, as_tuple=True)[0]
+        if act.numel() == 0:
+            break
+        e = entries[cstart[act] + j].to(torch.int64)
+        rows = table[e & 0x7FFFFFFF]
+        finite = rows[:, 16] != 0                      # the Z word
+        pt = ec.cneg16(e < 0, ec.aos32_to_rows16(rows).t())    # [48, A]
+        if j == 0:
+            acc[act] = torch.where(finite[:, None], pt.t(), acc[act])
+            continue
+        summed = ec.madd16(acc[act].t(), pt[:32]).t()
+        acc[act] = torch.where(finite[:, None], summed, acc[act])
+    sums, keys = _fold(acc, ckey, _padd_rows16)
+    out = ec.inf_aos32(nkeys, dev)
+    out[keys] = ec.rows16_to_aos32(sums)
+    return out
+
+
+def bucket_walk_fixed(table: torch.Tensor, entries: torch.Tensor,
+                      bstart: torch.Tensor) -> torch.Tensor:
+    """Bucket sums of sorted entries over a normalised window table [nwin *
+    N, 24] (`bucket_walk_fixed_plain` says what it must hold): AoS32
+    [nkeys, 24]. K1c_fixed and K1d on a CUDA tensor, with a grid sized for
+    every slot of `entries`; the plain version on a CPU tensor."""
+    if not table.is_cuda:
+        return bucket_walk_fixed_plain(table, entries, bstart)
+    KL.require(table, "fixed table", torch.int32, ndim=2, last=24)
+    KL.require(entries, "entries", torch.int32, ndim=1)
+    KL.require(bstart, "bstart", torch.int32, ndim=1)
+    if not (table.device == entries.device == bstart.device):
+        raise ValueError("fixed walk inputs on different devices")
+    dev, stream = table.device, KL.stream_of(table)
+    nkeys = bstart.shape[0] - 1
+    max_entries = entries.shape[0]
+    nwalk = -(-max_entries // K1_BLOCK_ENTRIES)
+    lib = KL.library("msm_kernels")
+    out = torch.empty((nkeys, 24), dtype=torch.int32, device=dev)
+    pieces = torch.empty((max(2 * nwalk, 1), 24), dtype=torch.int32, device=dev)
+    KL.KERNELS["K1c_fixed_walk"].launches += 1
+    KL.check_launch(lib.spt_k1_fixed_walk(table.data_ptr(), entries.data_ptr(),
+                                          bstart.data_ptr(), nkeys, max_entries,
+                                          out.data_ptr(), pieces.data_ptr(), stream),
+                    "K1c_fixed_walk")
+    KL.KERNELS["K1d_bucket_pieces"].launches += 1
+    KL.check_launch(lib.spt_k1_pieces(bstart.data_ptr(), nkeys, pieces.data_ptr(),
+                                      out.data_ptr(), stream), "K1d_bucket_pieces")
+    return out
+
+
 def bucket_sums_aos32(pts: torch.Tensor, digits: torch.Tensor, negs: torch.Tensor,
                       c: int) -> torch.Tensor:
     """K1 on the kernels' layout: points AoS32 [n, 24] -> bucket sums AoS32
@@ -422,16 +500,36 @@ def bucket_sums_fixed_aos32(table: torch.Tensor, digits: torch.Tensor,
     """K1's fixed-base form (the reference's `_bucket_sums` with points
     [nwin, 48, N], driven by `_bucket_fixed_jit`): window w adds its own
     points table[w] (T[w] = 2^(c w) [P ; phi(P)]) into its buckets. table
-    AoS32 [nwin, N, 24], digits [nwin, N] int32, negs [1, N] int32 ->
-    bucket sums AoS32 [nwin * 2^(c-1), 24] as `bucket_sums_aos32` lays them
-    out. On a CUDA tensor K1a, the scan, K1_fixed's scatter (entries
-    w * N + i), K1c and K1d; the plain version on a CPU tensor."""
+    AoS32 [nwin, N, 24], normalised (every finite row Z = 1, a row at
+    infinity Z = 0: `build_window_table` makes it so; `bucket_sums_fixed`
+    checks it), digits [nwin, N] int32, negs [1, N] int32 -> bucket sums
+    AoS32 [nwin * 2^(c-1), 24] as `bucket_sums_aos32` lays them out. On a
+    CUDA tensor K1a, the scan, K1_fixed's scatter (entries w * N + i),
+    K1c_fixed and K1d; the plain version on a CPU tensor."""
     _check_fixed_inputs(table, digits)
     rows = table.reshape(-1, 24)
     if not table.is_cuda:
-        return _bucket_sums_aos32_plain(rows, digits, negs, c, fixed=True)
+        return _bucket_sums_fixed_aos32_plain(rows, digits, negs, c)
     _, bstart, entries = bucket_plan(digits, negs, c, fixed=True)
-    return bucket_walk(rows, entries, bstart)
+    return bucket_walk_fixed(rows, entries, bstart)
+
+
+def _bucket_sums_fixed_aos32_plain(rows, digits, negs, c):
+    _, bstart, entries = bucket_plan_plain(digits, negs, c, fixed=True)
+    return bucket_walk_fixed_plain(rows, entries, bstart)
+
+
+def check_normalised(table: torch.Tensor) -> None:
+    """Raise unless every row of the AoS32 table [..., 24] has Z = 1 (the
+    Montgomery one) or is infinity (X = 0, Z = 0): the fixed walk's
+    precondition. A host sync."""
+    rows = table.reshape(-1, 24)
+    one = ec.inf_aos32(1, rows.device)[0, 8:16]
+    z = rows[:, 16:]
+    finite = (z == one).all(dim=1)
+    inf = (z == 0).all(dim=1) & (rows[:, :8] == 0).all(dim=1)
+    if not bool((finite | inf).all()):
+        raise ValueError("fixed table: rows must be normalised (Z = 1, or infinity)")
 
 
 def to_soa_windows(table: torch.Tensor) -> torch.Tensor:
@@ -446,14 +544,16 @@ def _fixed_soa_to_aos32(table, digits, negs, c):
     _check_bucket_inputs(table[0], digits, negs, c)
     aos = torch.stack([ec.soa16_to_aos32(t) for t in table])
     _check_fixed_inputs(aos, digits)
+    check_normalised(aos)
     return aos
 
 
 def bucket_sums_fixed(table: torch.Tensor, digits: torch.Tensor, negs: torch.Tensor,
                       c: int) -> torch.Tensor:
     """K1's fixed-base form in the reference's layout: table [nwin, 48, N]
-    int32 SoA window tables -> [nwin, 48, 2^(c-1)] bucket sums. Checks its
-    inputs as `bucket_sums` does, then runs `bucket_sums_fixed_aos32`."""
+    int32 SoA window tables, normalised -> [nwin, 48, 2^(c-1)] bucket sums.
+    Checks its inputs as `bucket_sums` does, and the table's normalisation,
+    then runs `bucket_sums_fixed_aos32`."""
     aos = _fixed_soa_to_aos32(table, digits, negs, c)
     sums = bucket_sums_fixed_aos32(aos, digits, negs, c)
     return buckets_soa(sums, digits.shape[0], 1 << (c - 1))
@@ -462,9 +562,10 @@ def bucket_sums_fixed(table: torch.Tensor, digits: torch.Tensor, negs: torch.Ten
 def bucket_sums_fixed_plain(table: torch.Tensor, digits: torch.Tensor,
                             negs: torch.Tensor, c: int) -> torch.Tensor:
     """Plain version of K1's fixed-base form in the reference's layout, on
-    any device: the plain plan with entries w * N + i, the plain walk."""
+    any device: the plain plan with entries w * N + i, the plain fixed
+    walk."""
     aos = _fixed_soa_to_aos32(table, digits, negs, c)
-    sums = _bucket_sums_aos32_plain(aos.reshape(-1, 24), digits, negs, c, fixed=True)
+    sums = _bucket_sums_fixed_aos32_plain(aos.reshape(-1, 24), digits, negs, c)
     return buckets_soa(sums, digits.shape[0], 1 << (c - 1))
 
 
@@ -487,45 +588,69 @@ def fold_windows_aos32(sums: torch.Tensor, nwin: int, nb: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 K2B_THREADS = 128        # as in csrc/aggregate.cuh
+K2B_FILL = 128
+
+# per device: one ticket counter a window, zero between launches (K2b's last
+# block of a window sets its counter back); K2b runs on the current stream
+_K2B_TICKETS: dict = {}
 
 
-def aggregate_geometry(nb: int) -> tuple[int, int]:
-    """(threads of a window's block, buckets a thread) for nb buckets, a
-    power of two: T = min(128, nb), L = nb / T (csrc/aggregate.cuh)."""
+def aggregate_geometry(nwin: int, nb: int) -> tuple[int, int, int]:
+    """(blocks a window G, threads a block T, buckets a thread L) for nwin
+    windows of nb buckets, a power of two (csrc/aggregate.cuh
+    `k2b_geometry`): G doubles while nwin * G < K2B_FILL and (2G)^2 <= nb;
+    a block's slice of S = nb / G buckets has T = min(128, S) threads."""
     if nb < 1 or nb & (nb - 1):
         raise ValueError(f"aggregate: {nb} buckets is not a power of two")
-    T = min(K2B_THREADS, nb)
-    return T, nb // T
+    G = 1
+    while (2 * G) ** 2 <= nb and nwin * G < K2B_FILL:
+        G *= 2
+    S = nb // G
+    T = min(K2B_THREADS, S)
+    return G, T, S // T
+
+
+def _tickets(nwin: int, device) -> torch.Tensor:
+    t = _K2B_TICKETS.get(device)
+    if t is None or t.shape[0] < nwin:
+        t = torch.zeros(max(nwin, 64), dtype=torch.int32, device=device)
+        _K2B_TICKETS[device] = t
+    return t
 
 
 def aggregate_buckets_aos32(sums: torch.Tensor, nwin: int, nb: int) -> torch.Tensor:
     """K2b: sum_{b=1}^{nb} b * B_b per window. sums AoS32 [nwin * nb, 24]
     as `bucket_sums_aos32` returns them (row w * nb + j = bucket j + 1 of
-    window w) -> AoS32 [nwin, 24]. One block per window on a CUDA tensor;
-    the plain version, which makes the same adds in the same order, on a
-    CPU tensor."""
-    aggregate_geometry(nb)
+    window w) -> AoS32 [nwin, 24]. One launch of nwin * G blocks on a CUDA
+    tensor; the plain version, which makes the same adds in the same order,
+    on a CPU tensor."""
+    G, _, _ = aggregate_geometry(nwin, nb)
     if sums.shape != (nwin * nb, 24):
         raise ValueError(f"aggregate: expected [{nwin * nb}, 24], got {tuple(sums.shape)}")
     if not sums.is_cuda:
         return aggregate_buckets_plain(sums, nwin, nb)
     KL.require(sums, "aggregate sums", torch.int32, ndim=2, last=24)
     out = torch.empty((nwin, 24), dtype=torch.int32, device=sums.device)
+    pairs = torch.empty((max(nwin * G, 1), 48), dtype=torch.int32, device=sums.device)
+    tickets = _tickets(nwin, sums.device)
     lib = KL.library("msm_kernels")
     KL.KERNELS["K2b_bucket_aggregate"].launches += 1
-    KL.check_launch(lib.spt_k2b_aggregate(sums.data_ptr(), nwin, nb, out.data_ptr(),
+    KL.check_launch(lib.spt_k2b_aggregate(sums.data_ptr(), nwin, nb, pairs.data_ptr(),
+                                          tickets.data_ptr(), out.data_ptr(),
                                           KL.stream_of(sums)), "K2b_bucket_aggregate")
     return out
 
 
 def aggregate_buckets_plain(sums: torch.Tensor, nwin: int, nb: int) -> torch.Tensor:
-    """Plain version of K2b in torch ops through `ec.padd16`, any device:
-    each thread's run walked from the top (R += B, W += R), D = L * R, then
-    the block's tree W_t = (W_t + W_{t+d}) + D_{t+d}, D_t = 2 (D_t +
-    D_{t+d}), all threads of all windows at once. The kernel's adds in the
-    kernel's order: the two agree limb for limb in projective form."""
-    T, L = aggregate_geometry(nb)
-    rows = ec.aos32_to_rows16(sums).reshape(nwin * T, L, ROWS)
+    """Plain version of K2b in torch ops through `ec.padd16`, any device,
+    with the kernel's geometry (`aggregate_geometry`): each thread's run
+    walked from the top (R += B, W += R), D = L * R, then each block's tree
+    W_t = (W_t + W_{t+d}) + D_{t+d}, D_t = 2 (D_t + D_{t+d}), and, where a
+    window spans G > 1 blocks, the same tree over the blocks' (W, D); all
+    threads of all blocks at once. The kernel's adds in the kernel's order:
+    the two agree limb for limb in projective form."""
+    G, T, L = aggregate_geometry(nwin, nb)
+    rows = ec.aos32_to_rows16(sums).reshape(nwin * G * T, L, ROWS)
     r = rows[:, L - 1]
     w = r
     for j in range(L - 2, -1, -1):
@@ -533,19 +658,31 @@ def aggregate_buckets_plain(sums: torch.Tensor, nwin: int, nb: int) -> torch.Ten
         w = _padd_rows16(w, r)
     for _ in range(L.bit_length() - 1):
         r = _padd_rows16(r, r)
-    W = w.reshape(nwin, T, ROWS).clone()
-    D = r.reshape(nwin, T, ROWS).clone()
+    W, D = _aggregate_tree(w.reshape(nwin * G, T, ROWS), r.reshape(nwin * G, T, ROWS),
+                           last_d=G > 1)
+    if G > 1:
+        W, D = _aggregate_tree(W[:, 0].reshape(nwin, G, ROWS),
+                               D[:, 0].reshape(nwin, G, ROWS), last_d=False)
+    return ec.rows16_to_aos32(W[:, 0])
+
+
+def _aggregate_tree(W: torch.Tensor, D: torch.Tensor, last_d: bool):
+    """K2b's tree over the n nodes of each row of W, D [m, n, 48] (the
+    block's threads, or a window's blocks); `last_d`: the last level's D is
+    needed (a block's, for the window's merge)."""
+    W, D = W.clone(), D.clone()
+    m, n = W.shape[0], W.shape[1]
     d = 1
-    while d < T:
-        left = torch.arange(0, T, 2 * d, device=sums.device)
+    while d < n:
+        left = torch.arange(0, n, 2 * d, device=W.device)
         new_w = _padd_rows16(_padd_rows16(_flat(W[:, left]), _flat(W[:, left + d])),
                              _flat(D[:, left + d]))
-        if 2 * d < T:
+        if 2 * d < n or last_d:
             s = _padd_rows16(_flat(D[:, left]), _flat(D[:, left + d]))
-            D[:, left] = _padd_rows16(s, s).reshape(nwin, -1, ROWS)
-        W[:, left] = new_w.reshape(nwin, -1, ROWS)
+            D[:, left] = _padd_rows16(s, s).reshape(m, -1, ROWS)
+        W[:, left] = new_w.reshape(m, -1, ROWS)
         d *= 2
-    return ec.rows16_to_aos32(W[:, 0])
+    return W, D
 
 
 def _flat(rows: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """The CUDA kernels' arithmetic, compiled for the host.
 
-`spectre_tpu_torch/csrc/bn254.cuh`, `bucket.cuh` and `ntt.cuh` are
-`__host__ __device__`: the per-thread and per-block bodies (the code every
+`spectre_tpu_torch/csrc/bn254.cuh`, `bucket.cuh`, `aggregate.cuh` and
+`ntt.cuh` are `__host__ __device__`: the per-thread and per-block bodies (the code every
 K1-K4 thread runs) build with g++ into a small ctypes library here, where
 each block's threads run one after another between its barriers, and must
 agree with the plain PyTorch versions and the Python oracle exactly — the
@@ -105,16 +105,54 @@ void h_k1_pieces(const int32_t* bstart, int nkeys, const uint32_t* pieces, uint3
     store_point(out + 24 * (long)key, acc[0]);
   }
 }
-// K2b: every window's block: the leaves, then each tree level's threads
-void h_k2b(const uint32_t* sums, long nwin, int nb, uint32_t* out) {
-  const int T = k2b_threads(nb);
-  std::vector<Point> W(T), D(T);
-  for (long w = 0; w < nwin; ++w) {
-    for (int t = 0; t < T; ++t) k2b_leaf(w, t, nb, nb / T, sums, W.data(), D.data());
-    for (int d = 1; d < T; d <<= 1)
-      for (int t = 0; t < T; ++t) k2b_merge(t, d, 2 * d == T, W.data(), D.data());
-    store_point(out + 24 * w, W[0]);
+// the mixed add: P + (x2 : y2 : 1), q's X and Y read, its Z not
+void h_madd(const void* p, const void* q, void* out, long n) {
+  for (long i = 0; i < n; ++i) {
+    const uint32_t* qi = (const uint32_t*)q + 24 * i;
+    store_point((uint32_t*)out + 24 * i,
+                madd(load_point((const uint32_t*)p + 24 * i), load_fe(qi), load_fe(qi + 8)));
   }
+}
+// K1c_fixed: every walk block: its threads' lanes, the tree by its threads, the root
+void h_k1_fixed_walk(const uint32_t* pts, const int32_t* entries, const int32_t* bstart,
+                     int nkeys, long max_entries, uint32_t* out, uint32_t* pieces) {
+  std::vector<K1Node> nodes(K1_THREADS);
+  std::vector<uint32_t> stage(K1F_STAGE_WORDS);
+  const long nblocks = (max_entries + K1_BLOCK_ENTRIES - 1) / K1_BLOCK_ENTRIES;
+  for (long blk = 0; blk < nblocks; ++blk) {
+    if (blk * K1_BLOCK_ENTRIES >= bstart[nkeys]) continue;
+    for (int t = 0; t < K1F_THREADS; ++t)
+      k1f_walk_thread(blk, t, pts, entries, bstart, nkeys, out, &nodes[K1F_LANES * t],
+                      stage.data());
+    for (int d = 1; d < K1_THREADS; d <<= 1)
+      for (int t = 0; t < K1F_THREADS; ++t) k1f_tree_level(d, t, K1F_THREADS, nodes.data(), out);
+    k1_root(blk, &nodes[0], bstart, out, pieces);
+  }
+}
+void h_k2b_geometry(long nwin, int nb, int* g) {
+  const K2bGeometry geo = k2b_geometry(nwin, nb);
+  g[0] = geo.G; g[1] = geo.T; g[2] = geo.L;
+}
+// K2b: every window's blocks in order, each its leaves, tree levels and
+// ticket; the window's last block gathers the pairs and runs the merge
+void h_k2b(const uint32_t* sums, long nwin, int nb, uint32_t* pairs, int32_t* tickets,
+           uint32_t* out) {
+  const K2bGeometry geo = k2b_geometry(nwin, nb);
+  const int G = geo.G, T = geo.T, S = nb / G;
+  std::vector<Point> W(T), D(T);
+  for (long w = 0; w < nwin; ++w)
+    for (int g = 0; g < G; ++g) {
+      for (int t = 0; t < T; ++t) k2b_leaf(w, g, t, nb, S, geo.L, sums, W.data(), D.data());
+      for (int d = 1; d < T; d <<= 1)
+        for (int t = 0; t < T; ++t)
+          k2b_merge(t, d, T, T / 2, G == 1 && 2 * d == T, W.data(), D.data());
+      if (G == 1) { store_point(out + 24 * w, W[0]); continue; }
+      if (!k2b_publish(w, g, G, W.data(), D.data(), pairs, tickets)) continue;
+      for (int t = 0; t < G; ++t) k2b_gather(w, t, G, pairs, W.data(), D.data());
+      for (int d = 1; d < G; d <<= 1)
+        for (int t = 0; t < T; ++t) k2b_merge(t, d, G, T / 2, 2 * d == G, W.data(), D.data());
+      store_point(out + 24 * w, W[0]);
+    }
 }
 // K4: one pass over every (batch row, block), the block's threads in order
 void h_ntt_pass(const uint32_t* src, uint32_t* dst, const uint32_t* tw, long batch,
@@ -152,7 +190,10 @@ def lib(tmp_path_factory):
     h.h_k1_walk.argtypes = [vp, vp, vp, it, lg, vp, vp]
     h.h_k1_pieces.argtypes = [vp, it, vp, vp]
     h.h_ntt_pass.argtypes = [vp, vp, vp, lg, it, it, it, it]
-    h.h_k2b.argtypes = [vp, lg, it, vp]
+    h.h_k2b.argtypes = [vp, lg, it, vp, vp, vp]
+    h.h_k2b_geometry.argtypes = [lg, it, vp]
+    h.h_madd.argtypes = [vp, vp, vp, lg]
+    h.h_k1_fixed_walk.argtypes = [vp, vp, vp, it, lg, vp, vp]
     return h
 
 
@@ -219,6 +260,28 @@ def test_padd_body_limb_for_limb(lib):
         out = torch.empty_like(a)
         lib.h_padd(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0])
         assert torch.equal(out, MK.padd_aos32(a, b))
+
+
+def test_madd_body_matches_plain(lib):
+    """The mixed add (the fixed walk's) limb for limb against its plain
+    version `ec.madd16`, and against the host curve: projective P (Z != 1)
+    plus random affine Q, P = Q, P = -Q, and P at infinity (the run sum
+    before its first row)."""
+    q = _points(16, 40)
+    x, y, z = ec.aos32_coords(q)
+    neg = ec.coords_to_aos32(x, F.neg(F.fq_ctx(), y), z)
+    proj = MK.padd_aos32(_points(16, 41), _points(16, 42))
+    lhs = torch.cat([proj, q, q, ec.inf_aos32(16, "cpu"), MK.padd_aos32(q, q)])
+    rhs = torch.cat([q, q, neg, q, q])
+    out = torch.empty_like(lhs)
+    lib.h_madd(lhs.data_ptr(), rhs.data_ptr(), out.data_ptr(), lhs.shape[0])
+    plain = ec.rows16_to_aos32(ec.madd16(ec.aos32_to_rows16(lhs).t(),
+                                         ec.aos32_to_rows16(rhs).t()[:32]).t())
+    assert torch.equal(out, plain)
+    g1 = bn254.g1_curve
+    want = [g1.add(a, b) for a, b in zip(ec.decode_points(lhs), ec.decode_points(rhs))]
+    assert ec.decode_points(out) == want
+    assert want[32:48] == [None] * 16
 
 
 def _host_k1(lib, pts, digits, negs, c, fixed=False):
@@ -333,6 +396,76 @@ def test_k1_fixed_form_bodies(lib, case):
     assert torch.equal(flat(MK.bucket_sums_fixed_plain(soa, digits, negs, c)), _affine(out))
 
 
+def _host_fixed_walk(lib, table, entries, bstart):
+    nkeys = bstart.shape[0] - 1
+    nwalk = -(-entries.shape[0] // MK.K1_BLOCK_ENTRIES)
+    out = torch.full((nkeys, 24), -1, dtype=torch.int32)     # every row must be written
+    pieces = torch.zeros((max(2 * nwalk, 1), 24), dtype=torch.int32)
+    lib.h_k1_fixed_walk(table.data_ptr(), entries.data_ptr(), bstart.data_ptr(), nkeys,
+                        entries.shape[0], out.data_ptr(), pieces.data_ptr())
+    lib.h_k1_pieces(bstart.data_ptr(), nkeys, pieces.data_ptr(), out.data_ptr())
+    assert not (out == -1).all(dim=1).any()
+    return out
+
+
+def _normalised_table(nwin, n, seed, inf_rows=()):
+    """nwin windows of n points cycling through 64 distinct ones each (sums
+    of two of 64 random points, distinct between windows), normalised as
+    `build_window_table` leaves a table (Z = 1), with the rows `inf_rows` of
+    every window at infinity (Z = 0)."""
+    r = random.Random(seed)
+    p0 = bn254.g1_curve.mul(bn254.G1_GEN, r.randrange(1, bn254.R))
+    mult = [p0]
+    for _ in range(63):             # k P0: cheap host adds, distinct points
+        mult.append(bn254.g1_curve.add(mult[-1], p0))
+    base = ec.encode_points(mult, "cpu")[torch.randperm(64, generator=torch.Generator().manual_seed(seed))]
+    idx = torch.arange(n) % 64
+    proj = torch.cat([MK.padd_aos32(base, torch.roll(base, w + 1, 0))[idx]
+                      for w in range(nwin)])
+    table = ec.normalize_mont(proj).reshape(nwin, n, 24)
+    for i in inf_rows:
+        table[:, i] = ec.inf_aos32(1, "cpu")
+    MK.check_normalised(table)
+    return table
+
+
+@pytest.mark.parametrize("case", ["random", "all-equal"])
+def test_k1_fixed_walk_body(lib, case):
+    """The fixed walk's bodies (its lanes' mixed adds, the tree by its
+    threads, the root) and K1d over a normalised table with rows at
+    infinity, against the plain fixed walk and the shared form's plain walk
+    over the same entries, after normalization; 3 windows of 5000 points,
+    so buckets cross walk blocks (all-equal: each window's one bucket spans
+    4 of them)."""
+    n, c, nwin = 5000, 4, 3
+    digits = _digits(case, nwin, n, c, 13)
+    negs = (torch.arange(n) % 3 == 0).to(torch.int32)[None]
+    table = _normalised_table(nwin, n, 60, inf_rows=(0, 7, 4099))
+    rows = table.reshape(-1, 24)
+    _, bstart, entries = MK.bucket_plan_plain(digits, negs, c, fixed=True)
+    out = _host_fixed_walk(lib, rows, entries, bstart)
+    plain = MK.bucket_walk_fixed_plain(rows, entries, bstart)
+    assert torch.equal(_affine(out), _affine(plain))
+    assert torch.equal(_affine(out), _affine(MK.bucket_walk_plain(rows, entries, bstart)))
+    if case == "all-equal":
+        sizes = bstart[1:] - bstart[:-1]
+        assert int(sizes.max()) == n > MK.K1_BLOCK_ENTRIES
+
+
+def test_k1_fixed_walk_body_runs_of_one_row(lib):
+    """Many short runs: 2^13 points at c = 12 (2048 buckets a window), so
+    segments hold several whole buckets and runs that start on a row at
+    infinity (every 5th point), against the plain fixed walk."""
+    n, c, nwin = 1 << 13, 12, 2
+    digits = _digits("random", nwin, n, c, 14)
+    negs = (torch.arange(n) % 2 == 0).to(torch.int32)[None]
+    table = _normalised_table(nwin, n, 70, inf_rows=range(0, n, 5))
+    rows = table.reshape(-1, 24)
+    _, bstart, entries = MK.bucket_plan_plain(digits, negs, c, fixed=True)
+    out = _host_fixed_walk(lib, rows, entries, bstart)
+    assert torch.equal(_affine(out), _affine(MK.bucket_walk_fixed_plain(rows, entries, bstart)))
+
+
 def test_k1_bodies_bucket_over_many_blocks(lib):
     """One bucket of ~140000 entries: 35 walk blocks, so K1d's lanes each
     sum more than one piece before the shuffle tree; a second bucket of 7
@@ -361,18 +494,31 @@ def test_k1_bodies_bucket_over_many_blocks(lib):
     assert ec.decode_points(out) == want
 
 
-@pytest.mark.parametrize("nwin,nb", [(3, 1), (2, 2), (2, 8), (1, 256), (2, 512), (1, 2048)])
+def _host_k2b(lib, sums, nwin, nb):
+    """K2b through the host-compiled bodies, every window's blocks in order
+    with their tickets; the ticket counters must be back at 0."""
+    G, _, _ = MK.aggregate_geometry(nwin, nb)
+    out = torch.full((nwin, 24), -1, dtype=torch.int32)
+    pairs = torch.zeros((nwin * G, 48), dtype=torch.int32)
+    tickets = torch.zeros(nwin, dtype=torch.int32)
+    lib.h_k2b(sums.data_ptr(), nwin, nb, pairs.data_ptr(), tickets.data_ptr(), out.data_ptr())
+    assert not tickets.any()
+    return out
+
+
+@pytest.mark.parametrize("nwin,nb", [(3, 1), (2, 2), (2, 8), (1, 256), (2, 512), (1, 2048),
+                                     (1, 4096)])
 def test_k2b_body_matches_plain(lib, nwin, nb):
-    """K2b's leaf and tree bodies, every window's block thread by thread,
-    against its plain version limb for limb (projective): one bucket a
-    window, fewer buckets than threads (one each), and runs of 2, 4 and 16
-    buckets a thread; projective bucket sums (Z != 1) with empty ones."""
+    """K2b's leaf, tree and merge bodies, every window's blocks thread by
+    thread with the ticket merge, against its plain version limb for limb
+    (projective): one bucket a window, one block a window, and windows over
+    2 to 64 blocks (1 x 4096, the fixed mode's window); projective bucket
+    sums (Z != 1) with empty ones."""
     base = _points(16, 10)
     pts = base[torch.arange(nwin * nb) % 16]
     sums = MK.padd_aos32(pts, torch.roll(pts, 3, 0))
     sums[::5] = ec.inf_aos32(1, "cpu")
-    out = torch.empty((nwin, 24), dtype=torch.int32)
-    lib.h_k2b(sums.data_ptr(), nwin, nb, out.data_ptr())
+    out = _host_k2b(lib, sums, nwin, nb)
     want = MK.aggregate_buckets_plain(sums, nwin, nb)
     assert torch.equal(out, want)
     g1, host = bn254.g1_curve, ec.decode_points(sums)
@@ -386,8 +532,36 @@ def test_k2b_body_matches_plain(lib, nwin, nb):
 def test_k2b_geometry_matches_header():
     text = open(os.path.join(KL.CSRC, "aggregate.cuh")).read()
     assert int(re.search(r"K2B_THREADS = (\d+);", text).group(1)) == MK.K2B_THREADS
-    assert [MK.aggregate_geometry(nb) for nb in (1, 8, 256, 1024)] == \
-        [(1, 1), (8, 1), (128, 2), (128, 8)]
+    assert int(re.search(r"K2B_FILL = (\d+);", text).group(1)) == MK.K2B_FILL
+    # (nwin, nb) -> (blocks a window, threads, buckets a thread): the MSM's
+    # 24 x 1024 windows, the fixed mode's 1 x 4096, the glv modes' 10 x 4096
+    assert [MK.aggregate_geometry(nwin, nb) for nwin, nb in
+            ((1, 1), (2, 8), (24, 1024), (1, 4096), (10, 4096), (256, 256))] == \
+        [(1, 1, 1), (2, 4, 1), (8, 128, 1), (64, 64, 1), (16, 128, 2), (1, 128, 2)]
+
+
+def test_k2b_geometry_equals_the_headers_function(lib):
+    """The wrapper sizes K2b's scratch from the Python geometry; the launch
+    takes the header's: the two agree at every (nwin, nb) the MSM can give,
+    and G <= T (the merge's tree has a thread a pair)."""
+    g = (ctypes.c_int * 3)()
+    for nwin in (1, 2, 3, 10, 20, 24, 29, 43, 64, 128, 255, 300):
+        for c in range(1, 17):
+            nb = 1 << (c - 1)
+            lib.h_k2b_geometry(nwin, nb, g)
+            assert tuple(g) == MK.aggregate_geometry(nwin, nb)
+            assert g[0] <= g[1] and g[0] * g[1] * g[2] == nb
+
+
+def test_k2b_body_runs_of_two(lib):
+    """256 windows of 256 buckets: one block a window of 128 threads with
+    runs of L = 2 buckets (the leaf's walk and doubling, as the glv modes'
+    10 x 4096 has them), against the plain version limb for limb."""
+    nwin, nb = 256, 256
+    assert MK.aggregate_geometry(nwin, nb) == (1, 128, 2)
+    sums = _points(16, 31)[torch.arange(nwin * nb) % 16]
+    sums[::11] = ec.inf_aos32(1, "cpu")
+    assert torch.equal(_host_k2b(lib, sums, nwin, nb), MK.aggregate_buckets_plain(sums, nwin, nb))
 
 
 def test_ntt_butterfly_body(lib):

@@ -74,11 +74,14 @@ def test_k2_padd_edge_cases(dev):
     assert torch.equal(MK.padd_soa(lhs, rhs), MK.padd_soa_plain(lhs, rhs))
 
 
-@pytest.mark.parametrize("nwin,nb", [(3, 1), (2, 8), (2, 512), (24, 1024), (1, 4096)])
+@pytest.mark.parametrize("nwin,nb", [(3, 1), (2, 8), (2, 512), (24, 1024), (1, 4096),
+                                     (10, 4096), (256, 256)])
 def test_k2b_aggregate(dev, nwin, nb):
     """K2b, one launch, against its plain version limb for limb: one bucket
-    a window, fewer buckets than threads, and runs of 4, 8 and 32 buckets a
-    thread, on projective sums with empty buckets."""
+    a window, one block a window, windows over 2 to 64 blocks (the MSM's
+    24 x 1024, the fixed mode's 1 x 4096, the glv modes' 10 x 4096) with the
+    ticket merge, and runs of 2 buckets a thread, on projective sums with
+    empty buckets; twice, as the ticket counters must be back at 0."""
     base = _points(64, dev, 8)
     pts = base[torch.arange(nwin * nb, device=dev) % 64]
     sums = MK.padd_aos32(pts, torch.roll(pts, 5, 0))
@@ -86,7 +89,79 @@ def test_k2b_aggregate(dev, nwin, nb):
     before = KL.KERNELS["K2b_bucket_aggregate"].launches
     got = MK.aggregate_buckets_aos32(sums, nwin, nb)
     assert KL.KERNELS["K2b_bucket_aggregate"].launches == before + 1
-    assert torch.equal(got, MK.aggregate_buckets_plain(sums, nwin, nb))
+    want = MK.aggregate_buckets_plain(sums, nwin, nb)
+    assert torch.equal(got, want)
+    assert torch.equal(MK.aggregate_buckets_aos32(sums, nwin, nb), want)
+
+
+@pytest.mark.parametrize("nwin,nb", [(24, 1024), (1, 4096), (10, 4096)])
+def test_k2b_repeated_launches_agree(dev, nwin, nb):
+    """K2b launched 300 times on one input, with K2 launches between some
+    of them, gives the same limbs every time and leaves its ticket counters
+    at 0: the window's last block reads every block's pair only after it is
+    written, whichever block finishes last."""
+    base = _points(64, dev, 9)
+    pts = base[torch.arange(nwin * nb, device=dev) % 64]
+    sums = MK.padd_aos32(pts, torch.roll(pts, 3, 0))
+    sums[::5] = ec.inf_aos32(1, dev)
+    want = MK.aggregate_buckets_plain(sums, nwin, nb)
+    differ = torch.zeros((), dtype=torch.int64, device=dev)
+    for i in range(300):
+        got = MK.aggregate_buckets_aos32(sums, nwin, nb)
+        differ += (got != want).any()
+        if i % 7 == 0:
+            MK.padd_aos32(pts, pts)
+    assert int(differ) == 0
+    assert int(MK._K2B_TICKETS[sums.device].abs().sum()) == 0
+
+
+def test_k1_fixed_walk_repeated_launches_agree(dev):
+    """The fixed walk launched 40 times over one plan of a built table (the
+    entries' order inside a bucket fixed) gives the same limbs every time,
+    and equals its plain version after normalization."""
+    from spectre_tpu_torch.ops import glv
+    n, c = 1 << 14, 13
+    nwin = M.num_windows(c, glv.glv_bits())
+    table = M.build_window_table(_points(64, dev, 35)[torch.arange(n, device=dev) % 64],
+                                 c, nwin)
+    g = torch.Generator(device=dev).manual_seed(36)
+    half = 1 << (c - 1)
+    digits = torch.randint(-half + 1, half + 1, (nwin, 2 * n), generator=g,
+                           dtype=torch.int32, device=dev)
+    negs = (torch.arange(2 * n, device=dev) % 3 == 0).to(torch.int32)[None]
+    rows = table.reshape(-1, 24)
+    _, bstart, entries = MK.bucket_plan(digits, negs, c, fixed=True)
+    first = MK.bucket_walk_fixed(rows, entries, bstart)
+    differ = torch.zeros((), dtype=torch.int64, device=dev)
+    for _ in range(40):
+        differ += (MK.bucket_walk_fixed(rows, entries, bstart) != first).any()
+    assert int(differ) == 0
+    want = MK.bucket_walk_fixed_plain(rows, entries, bstart)
+    assert torch.equal(ec.normalize_std(first), ec.normalize_std(want))
+
+
+def test_k1_repeated_launches_agree(dev):
+    """K1's plan and walk (shared base) launched 40 times on one input: the
+    counts are the same every time, and so are the bucket sums after
+    normalization (the order inside a bucket is free); the walk over one
+    fixed plan gives the same limbs every time."""
+    n, c, nwin = 1 << 16, 11, 24
+    pts = _points(64, dev, 37)[torch.arange(n, device=dev) % 64]
+    g = torch.Generator(device=dev).manual_seed(38)
+    half = 1 << (c - 1)
+    digits = torch.randint(-half + 1, half + 1, (nwin, n), generator=g,
+                           dtype=torch.int32, device=dev)
+    negs = torch.zeros((1, n), dtype=torch.int32, device=dev)
+    counts, bstart, entries = MK.bucket_plan(digits, negs, c)
+    first = MK.bucket_walk(pts, entries, bstart)
+    norm = ec.normalize_std(first)
+    differ = torch.zeros((), dtype=torch.int64, device=dev)
+    for _ in range(40):
+        differ += (MK.bucket_walk(pts, entries, bstart) != first).any()
+        c2, b2, e2 = MK.bucket_plan(digits, negs, c)
+        differ += (c2 != counts).any() + (b2 != bstart).any()
+        differ += (ec.normalize_std(MK.bucket_walk(pts, e2, b2)) != norm).any()
+    assert int(differ) == 0
 
 
 @pytest.mark.parametrize("n", [256, 1000, 5003])
@@ -150,8 +225,8 @@ def test_msm_matches_host(dev):
 def test_k1_fixed_form(dev, case):
     """K1's fixed-base form (window w reads its own table rows w * N + i)
     against its plain version after normalization, one launch of each of
-    K1a, the fixed-form scatter, K1c and K1d; the shared form's scatter
-    not launched."""
+    K1a, the fixed-form scatter, the fixed walk and K1d; the shared form's
+    scatter and walk not launched."""
     n, c, nwin = 3000, 5, 4
     tables = torch.stack([_points(64, dev, 30 + w)[torch.arange(n, device=dev) % 64]
                           for w in range(nwin)])
@@ -162,15 +237,46 @@ def test_k1_fixed_form(dev, case):
     digits = digits.contiguous()
     negs = (torch.arange(n, device=dev) % 3 == 0).to(torch.int32)[None]
     soa = MK.to_soa_windows(tables)
-    names = ("K1a_bucket_count", "K1_fixed", "K1c_bucket_walk", "K1d_bucket_pieces",
-             "K1b_bucket_scatter")
+    names = ("K1a_bucket_count", "K1_fixed", "K1c_fixed_walk", "K1d_bucket_pieces",
+             "K1b_bucket_scatter", "K1c_bucket_walk")
     before = {k: KL.KERNELS[k].launches for k in names}
     got = MK.bucket_sums_fixed(soa, digits, negs, c)
     after = {k: KL.KERNELS[k].launches - before[k] for k in names}
-    assert after == {**{k: 1 for k in names[:4]}, "K1b_bucket_scatter": 0}
+    assert after == {**{k: 1 for k in names[:4]}, "K1b_bucket_scatter": 0,
+                     "K1c_bucket_walk": 0}
     want = MK.bucket_sums_fixed_plain(soa, digits, negs, c)
     flat = lambda t: ec.normalize_std(ec.soa16_to_aos32(t.permute(1, 0, 2).reshape(48, -1)))  # noqa: E731
     assert torch.equal(flat(got), flat(want))
+
+
+@pytest.mark.parametrize("case", ["random", "all-equal"])
+def test_k1_fixed_walk_on_a_built_table(dev, case):
+    """The fixed walk over a table `build_window_table` made (normalised on
+    the card, one base point at infinity) at the step's window, c = 13 and
+    10 windows, against its plain version after normalization; one launch
+    of the walk and of K1d."""
+    from spectre_tpu_torch.ops import glv
+    n, c = 1500, 13
+    nwin = M.num_windows(c, glv.glv_bits())
+    base = _points(64, dev, 33)[torch.arange(n, device=dev) % 64]
+    base[5] = ec.inf_aos32(1, dev)[0]
+    table = M.build_window_table(base, c, nwin)
+    MK.check_normalised(table)
+    assert int((table[:, 5, 16:] != 0).sum()) == 0 and int((table[:, n + 5, 16:] != 0).sum()) == 0
+    g = torch.Generator(device=dev).manual_seed(34)
+    half = 1 << (c - 1)
+    digits = torch.randint(-half + 1, half + 1, (nwin, 1 if case == "all-equal" else 2 * n),
+                           generator=g, dtype=torch.int32, device=dev).expand(nwin, 2 * n)
+    digits = digits.contiguous()
+    negs = (torch.arange(2 * n, device=dev) % 3 == 0).to(torch.int32)[None]
+    rows = table.reshape(-1, 24)
+    _, bstart, entries = MK.bucket_plan(digits, negs, c, fixed=True)
+    before = {k: KL.KERNELS[k].launches for k in ("K1c_fixed_walk", "K1d_bucket_pieces")}
+    got = MK.bucket_walk_fixed(rows, entries, bstart)
+    assert {k: KL.KERNELS[k].launches - v for k, v in before.items()} == \
+        {"K1c_fixed_walk": 1, "K1d_bucket_pieces": 1}
+    want = MK.bucket_walk_fixed_plain(rows, entries, bstart)
+    assert torch.equal(ec.normalize_std(got), ec.normalize_std(want))
 
 
 @pytest.mark.parametrize("mode", ["vanilla", "glv", "glv+signed", "fixed"])
@@ -187,8 +293,8 @@ def test_msm_modes_match_host(dev, mode):
     got = M.msm_base(base, F.from_ints(F.fr_ctx(), sc, dev), mode=mode, base_key=f"test-{n}")
     launched = {k: v - before[k] for k, v in KL.launch_counts().items()}
     assert got == bn254.g1_curve.msm(pts, sc)
-    assert launched["K1_fixed"] == (mode == "fixed")
-    assert launched["K1b_bucket_scatter"] == (mode != "fixed")
+    assert launched["K1_fixed"] == launched["K1c_fixed_walk"] == (mode == "fixed")
+    assert launched["K1b_bucket_scatter"] == launched["K1c_bucket_walk"] == (mode != "fixed")
     assert (launched["K2_padd"] > 0) == (mode == "fixed")
 
 

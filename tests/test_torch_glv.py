@@ -211,6 +211,47 @@ def test_fixed_base_table_equals_reference(msm_case):
     M.clear_tables()
 
 
+def test_fixed_base_table_is_normalised(msm_case):
+    """The table the port builds is normalised: every finite row has Z = 1
+    (the Montgomery one), the rows of the point at infinity (row 3 of each
+    window's P and phi halves) are (0 : 1 : 0), and the rows decode to the
+    reference's table (its own, projective) point for point."""
+    pts, _, _, _, rpts = msm_case
+    n, c = len(pts), 3
+    nwin = M.num_windows(c, 126)
+    got = M.build_window_table(ec.encode_points(pts, "cpu"), c, nwin)
+    rows = got.reshape(nwin, 2 * n, 24)
+    one = F.const_raw(F.fq_ctx().r_mod_p, "cpu").view(torch.int32)[0]
+    finite = torch.ones(2 * n, dtype=torch.bool)
+    finite[[3, n + 3]] = False
+    assert (rows[:, finite, 16:] == one).all()
+    assert torch.equal(rows[:, ~finite], ec.inf_aos32(2 * nwin, "cpu").reshape(nwin, 2, 24))
+    MK.check_normalised(got)
+    want = RM.fixed_base_table(rpts, c, nwin, base_key="glv-msm")
+    assert _ints(ec.decode_points(got.reshape(-1, 24))) == _ints(REC.decode_points(want))
+    M.clear_tables()
+
+
+def test_fixed_form_refuses_a_projective_table():
+    """The fixed walk adds each row by the mixed formula, so the fixed
+    form's public entry checks the table: a row with Z != 1 is refused."""
+    nwin, n, c = 2, 6, 3
+    table = torch.stack([ec.encode_points(_points(n, 20 + w), "cpu") for w in range(nwin)])
+    digits = torch.ones((nwin, n), dtype=torch.int32)
+    negs = torch.zeros((1, n), dtype=torch.int32)
+    soa = MK.to_soa_windows(table)
+    MK.bucket_sums_fixed(soa, digits, negs, c)
+    doubled = torch.stack([MK.padd_aos32(t, t) for t in table])
+    with pytest.raises(ValueError, match="normalised"):
+        MK.bucket_sums_fixed(MK.to_soa_windows(doubled), digits, negs, c)
+    with pytest.raises(ValueError, match="normalised"):
+        MK.bucket_sums_fixed_plain(MK.to_soa_windows(doubled), digits, negs, c)
+    fixed = torch.stack([ec.normalize_mont(t) for t in doubled])
+    assert ec.decode_points(fixed.reshape(-1, 24)) == ec.decode_points(doubled.reshape(-1, 24))
+    assert torch.equal(MK.bucket_sums_fixed(MK.to_soa_windows(fixed), digits, negs, c),
+                       MK.bucket_sums_fixed_plain(MK.to_soa_windows(fixed), digits, negs, c))
+
+
 @pytest.mark.parametrize("mode", ["vanilla", "glv", "glv+signed", "fixed"])
 def test_msm_modes_equal_host_sum(msm_case, mode):
     pts, sc, want, ref, _ = msm_case
