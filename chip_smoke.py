@@ -3,7 +3,7 @@
 hold each of its kernels against its plain PyTorch version.
 
     python3 chip_smoke.py           # every path, full size
-    python3 chip_smoke.py --k 19    # the flex slice on fewer rows
+    python3 chip_smoke.py --k 21    # the flex slice on the pinning's 2^21 rows
 
 Phases, each of which ends the run with a non-zero exit code if it fails:
   device   the GPU's name and power limit (nvidia-smi)
@@ -45,13 +45,13 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
            (64 blocks; equal to its plain version); the fixed and glv MSMs
            equal the vanilla MSM
   devices  a K=6 circuit proved on the GPU and on the CPU gives the same
-           bytes, vanilla and under SPECTRE_MSM_MODE=fixed
-  slice    SRS -> keygen -> prove -> verify at the pinned shape of
-           build/sync_step_testnet_21.pinning.json with a seeded flex-gate
-           witness; launch counts of every kernel on the prove's path
-           must be > 0 (all but K2, which the prove does not launch: the
-           slice runs it only to make the SRS, and not where the SRS is
-           read from params/)
+           bytes, vanilla and under SPECTRE_MSM_MODE=fixed (the CPU side runs
+           in the worker process from the start of the run)
+  slice    SRS -> keygen -> prove -> verify at the shape of
+           build/sync_step_testnet_21.pinning.json on 2^19 rows (--k sets
+           them) with a seeded flex-gate witness; launch counts of every kernel on the
+           prove's path must be > 0 (all but K2, which the prove does not
+           launch: the slice runs it only to make the SRS)
   committee-kernels
            K1 and K2b at n = 2^18 random scalars, K4 at [4, 2^18] and as a
            2^18 -> 2^20 coset LDE (the committee prove's geometry): equal to
@@ -60,67 +60,85 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
   committee
            the CommitteeUpdateCircuit at build/committee_update_testnet_18
            .pinning.json (512 pubkeys, k=18, 2070 SHA slots): witness,
-           keygen with the k=18 SRS cut from the k=21 one, prove under the
+           keygen with the k=18 SRS cut from a larger one, prove under the
            Poseidon transcript (the proof stage 2 takes), verify with it;
            the instances equal get_instances, a flipped instance fails; the
            prove's launch count of every kernel on its path must be > 0
   step     the StepCircuit at build/sync_step_testnet_21.pinning.json (512
            pubkeys, k=21, 16 advice, 3 lookup columns, lookup_bits 18):
-           args, witness, Pinning.check against the tracked file, the k=21
-           SRS of the slice, keygen, prove, verify; the instances equal
-           get_instances, a flipped instance fails, args with a wrong
-           signature fail the native pre-check; the prove's launch count of
-           every kernel on its path must be > 0; then the same witness, key
-           and blinding seed proved under SPECTRE_MSM_MODE=glv+signed and
-           =fixed: each proof equal to the vanilla proof byte for byte and
-           verified, the fixed form and K2 launched in the fixed prove (the
-           fixed walk once a fixed-form MSM, K1c never), no fixed-base
-           degrade
-  aggregation-kernels
-           the same at the outer prove's geometry: K1 and K2b at n = 2^22
-           (c from default_window_pallas), K4 at [2, 2^22] and as the
-           2^22 -> 2^24 coset LDE (its own pass plan and twiddle table)
+           args (made in the worker process from the start of the run),
+           witness, Pinning.check against the tracked file, the k=21
+           SRS, keygen, prove under the Poseidon transcript (the proof stage
+           2 takes), verify; the instances equal get_instances, a flipped
+           instance fails, args with a wrong signature fail the native
+           pre-check; the prove's launch count of every kernel on its path
+           must be > 0; then the same witness, key and blinding seed proved
+           under SPECTRE_MSM_MODE=glv+signed and =fixed: each proof equal to
+           the vanilla proof byte for byte and verified, the fixed form and
+           K2 launched in the fixed prove (the fixed walk once a fixed-form
+           MSM, K1c never), no fixed-base degrade
+  step-aggregation
+           stage 2 of the step (COMPRESSED["step"]): the step's Poseidon
+           proof aggregated by AggregationCircuit.variant("sync_step"), whose
+           shape no file pins: the reference flow's rule (outer_k) sizes it
+           at k=21 (11 advice, 2 lookup, lookup_bits 14); its advice and
+           lookup cells; the statement (12 accumulator limbs, then the
+           step's 2 instances) equal to get_instances; the step's k=21 SRS;
+           keygen, the outer prove under the Keccak transcript (5,600
+           bytes), AggregationCircuit.verify, a flipped limb rejected; the
+           outer vk digest equal to the tracked verifier's VK_DIGEST, and
+           the port's verifiers accept the tracked step_testnet_21_poseidon
+           .proof and agg_step_testnet_21_keccak.proof
   aggregation
-           stage 2: AggregationArgs from the committee's Poseidon proof and
-           vk; the AggregationCircuit witness (the in-circuit verifier) at
-           build/aggregation_committee_update_testnet_22.pinning.json (k=22,
-           16 advice, 2 lookup, lookup_bits 14), Pinning.check, its exposed
-           cells equal get_instances (the 12 accumulator limbs, then the
-           committee's instances); the k=22 SRS of the same tau; keygen (the
-           sigma merge in host C++), the outer prove under the Keccak
-           transcript, AggregationCircuit.verify with the deferred pairing,
-           a flipped accumulator limb rejected; seconds, peak device and host
-           memory and kernel launches of each phase. Then, recorded whichever
-           way they come out and apart from the exit code: the port's
-           verifiers on the tracked reference proofs
-           build/committee_testnet_18_poseidon.proof and
-           build/agg_committee_testnet_22_keccak.proof
-  evm      the EVM tail on the card's outer proof (host code): the Solidity
-           verifier generated from the port's outer vk equals
-           build/aggregation_committee_testnet_22_verifier.sol but for its
-           generator line, and its bytecode the tracked source's (56,636
-           runtime bytes); the calldata; the simulator and the compiled
-           verifier in the metered VM accept the proof and reject it with
-           byte 41 flipped (gas printed); the tracked committee and step
-           proofs in the VM give their recorded gas and size; the Spectre
-           contract, a constant-true step verifier and the compiled committee
-           verifier deployed in the VM's World: one step to the committee's
-           finalized header, then rotateCompressed with the card's proof
+           stage 2 of the committee (COMPRESSED["committee"]), the same
+           checks at build/aggregation_committee_update_testnet_22.pinning
+           .json (k=22, 16 advice, 2 lookup, lookup_bits 14; Pinning.check),
+           with the k=22 SRS of the same tau
+  aggregation-kernels
+           K1, K2b and K4 at the committee's outer prove's geometry: K1 and
+           K2b at n = 2^22 (c from default_window_pallas), K4 at [2, 2^22]
+           and as the 2^22 -> 2^24 coset LDE (its own pass plan and twiddle
+           table)
+  evm      the EVM tail on each card's outer proof, the step's and the
+           committee's (host code, run in the worker process beside the
+           aggregation and aggregation-kernels phases and collected here):
+           the Solidity verifier generated from the port's outer vk equals
+           the tracked one of build/ but for its generator line, in the
+           order today's codegen folds the identity
+           check (streamed_order: the step's tracked verifier predates it),
+           and its bytecode the source's (44,380 and 56,636 runtime bytes,
+           the tracked verifiers'); the calldata; the simulator and the
+           compiled verifier in the metered VM accept the proof (the tracked
+           execution gas, the total within TOTAL_GAS_SLACK) and reject it
+           with byte 41 flipped; the tracked proof in the VM gives its
+           recorded gas and size. On chain, in the VM's World: Spectre with
+           the compiled step verifier takes the card's step proof through
+           stepCompressed (the StepInput of the step's args, the committee
+           Poseidon of instances[13]) and reverts on the flipped proof;
+           Spectre with a constant-true step verifier and the compiled
+           committee verifier takes one step to the committee's finalized
+           header, then rotateCompressed with the card's committee proof
            stores instances[12] as the next period's committee, and the
            flipped proof reverts; the phase's seconds
 
-Each phase's start is logged as "[elapsed s] phase", on the standard
-error too; a crash prints the Python stacks there (faulthandler). It prints
-one JSON line of kernel records, then the device line
+Host jobs that need no card run in one worker process (spawned, no CUDA)
+beside the card's phases: the devices phase's CPU proofs, the step's args
+and the EVM checks. Each phase's start is logged as "[elapsed s] phase",
+on the standard error too; a crash prints the Python stacks there
+(faulthandler). It prints one JSON line of kernel records, then the device line
 {"ok": true, "device": {...}} last. It imports neither jax nor spectre_tpu.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
+import dataclasses
 import faulthandler
+import io
 import json
+import multiprocessing
 import os
 import random
 import subprocess
@@ -131,6 +149,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PINNING = os.path.join(REPO, "build", "sync_step_testnet_21.pinning.json")
 COMMITTEE_K = 18
 STEP_K = 21
+# the flex slice's rows: the step holds the pinned shape at k=21, and the
+# kernel phases run at 2^21 and above
+FLEX_K = 19
 AGG_K = 22
 # K1's shared-base form, and its fixed-base form (its own scatter, K1_fixed,
 # and its own walk over the normalised table, K1c_fixed_walk)
@@ -184,6 +205,16 @@ def time_ms(torch, fn, reps: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed_once(torch, fn):
+    """(fn(), its ms): one run, the device synchronized on both sides. A
+    plain version's comparison run is its timing too."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
 
 
 def limb_err(F, got, want) -> int:
@@ -433,23 +464,25 @@ def geometry_kernels(torch, dev, gen, seed: int, logn: int, batch: int) -> dict:
                                       bound_by=bounds[k][1]) for k in SHARED_K1})
 
     sums = MK.bucket_sums_aos32(pts, digits, negs, c)
-    err = limb_err(F, MK.aggregate_buckets_aos32(sums, nwin, nb),
-                   MK.aggregate_buckets_plain(sums, nwin, nb))
+    want, k2b_plain = timed_once(torch, lambda: MK.aggregate_buckets_plain(sums, nwin, nb))
+    err = limb_err(F, MK.aggregate_buckets_aos32(sums, nwin, nb), want)
     require(err == 0, f"K2b equals its plain version at n = 2^{logn}")
     need = nwin * 2 * (nb - 1)
     bm, by = bound_ms(nwin * nb * 96 + nwin * 96, need * IMAD_PER_PADD)
     out["K2b"] = dict(
         ms=time_ms(torch, lambda: MK.aggregate_buckets_aos32(sums, nwin, nb), reps=10),
-        plain_ms=time_ms(torch, lambda: MK.aggregate_buckets_plain(sums, nwin, nb), reps=1),
-        bound_ms=bm, bound_by=by, max_abs_err=err, shape=f"nwin={nwin} nb={nb} (c={c})")
+        plain_ms=k2b_plain, bound_ms=bm, bound_by=by, max_abs_err=err,
+        shape=f"nwin={nwin} nb={nb} (c={c})")
     del sums, pts, digits, negs, bstart
     torch.cuda.empty_cache()
 
     tables = N.Twiddles(dev)
     x = F.to_mont(fr, random_fr(torch, batch << logn, gen, dev)).reshape(batch, 1 << logn, 4)
     tw = tables.twiddles(bn254.fr_root_of_unity(logn), 1 << logn)
-    err_b = limb_err(F, N.ntt_passes(x, tw), N.ntt_stages_plain(x, tw, tables))
+    want, k4_plain = timed_once(torch, lambda: N.ntt_stages_plain(x, tw, tables))
+    err_b = limb_err(F, N.ntt_passes(x, tw), want)
     require(err_b == 0, f"K4 equals the plain NTT at [{batch}, 2^{logn}]")
+    del want
     bb = ntt_bound_ms(batch, logn)
     coeffs = x[0]
     w_ext = bn254.fr_root_of_unity(logn + 2)
@@ -461,21 +494,21 @@ def geometry_kernels(torch, dev, gen, seed: int, logn: int, batch: int) -> dict:
         padded[0, :1 << logn] = F.mont_mul_plain(fr, coeffs, tables.powers(COSET_GEN, 1 << logn))
         return N.ntt_stages_plain(padded, tw_ext, tables)[0]
 
-    err_l = limb_err(F, lde, lde_plain())
+    want, lde_plain_ms = timed_once(torch, lde_plain)
+    err_l = limb_err(F, lde, want)
     require(err_l == 0, f"the coset LDE (K3 + K4) equals its plain version at "
                         f"2^{logn} -> 2^{logn + 2}")
-    del lde
+    del lde, want
     bl = ntt_bound_ms(1, logn + 2)
     out["K4"] = dict(
         ms=time_ms(torch, lambda: N.ntt_passes(x, tw), reps=10),
-        plain_ms=time_ms(torch, lambda: N.ntt_stages_plain(x, tw, tables), reps=1),
-        bound_ms=bb[0], bound_by=bb[1], max_abs_err=max(err_b, err_l),
+        plain_ms=k4_plain, bound_ms=bb[0], bound_by=bb[1], max_abs_err=max(err_b, err_l),
         shape=f"[{batch}, 2^{logn}]",
         passes={f"2^{logn}": N.ntt_plan(logn), f"2^{logn + 2}": N.ntt_plan(logn + 2)},
         **{f"coset_lde_2e{logn}_to_2e{logn + 2}": dict(
             ms=time_ms(torch, lambda: N.coset_lde(coeffs, w_ext, COSET_GEN, 4 << logn, tables),
                        reps=10),
-            plain_ms=time_ms(torch, lde_plain, reps=1), bound_ms=bl[0], bound_by=bl[1])})
+            plain_ms=lde_plain_ms, bound_ms=bl[0], bound_by=bl[1])})
     del x, coeffs, tables, tw, tw_ext
     torch.cuda.empty_cache()
     return out
@@ -671,19 +704,64 @@ def k1_fixed_phase(torch, dev, gen, pts) -> dict:
     return rec, walk_rec
 
 
+def k6_proofs(device: str, seed: int) -> dict:
+    """The devices phase's K=6 flex circuit keyed and proved on `device`,
+    vanilla and under SPECTRE_MSM_MODE=fixed, with the same blinding seed:
+    the two proofs, the kernels the fixed prove launched and the seconds.
+    On "cpu" it runs in the worker process, on four torch threads."""
+    import torch
+
+    from spectre_tpu_torch.fields import bn254
+    from spectre_tpu_torch.ops import kernel_lib as KL, msm as M
+    from spectre_tpu_torch.plonk.constraint_system import CircuitConfig
+    from spectre_tpu_torch.plonk.keygen import keygen
+    from spectre_tpu_torch.plonk.prover import prove
+    from spectre_tpu_torch.plonk.srs import SRS
+    from spectre_tpu_torch.witness import flex_circuit
+
+    if device == "cpu":
+        torch.set_num_threads(min(4, torch.get_num_threads()))
+    t0 = time.perf_counter()
+    small = CircuitConfig(k=6, num_advice=2, num_lookup_advice=1, num_fixed=1,
+                          lookup_bits=4, lookup_tables=("range",))
+    fc = flex_circuit(small, seed=seed, num_copies=16)
+    s6 = SRS.unsafe_setup(6, device=device)
+    pk6 = keygen(s6, small, fc.fixed, fc.selectors, fc.copies, device=device)
+    proofs = {}
+    for mode in ("vanilla", "fixed"):
+        r = random.Random(seed)
+        KL.reset_launch_counts()
+        with msm_mode(mode):
+            proofs[mode] = prove(pk6, s6, fc.assignment, device=device,
+                                 blinding_rng=lambda: r.randrange(bn254.R))
+    M.clear_tables()
+    return dict(proofs=proofs, fixed_launches=KL.launch_counts(),
+                seconds=time.perf_counter() - t0)
+
+
+def timed_call(fn, *args):
+    """(fn(*args), its seconds): a job of the worker process."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, time.perf_counter() - t0
+
+
 def circuit_path(torch, dev, seed: int, circuit, k: int, make_args, shape,
-                 describe, flip: int, check_args=None, modes=(), transcript_cls=None) -> dict:
+                 describe, flip: int, check_args=None, modes=(), transcript_cls=None,
+                 args_from=None) -> dict:
     """One application circuit at its pinned testnet shape, through the
     entry points a user calls: args, witness, pinning (Pinning.check against
     the tracked file), SRS, keygen, prove, verify. shape(cfg, args) is the
     tuple the pinned shape must give, with describe as its name; flip, the
-    instance flipped for the negative verify; check_args(spec), an extra
-    check of the args; modes, the MSM modes whose proofs of the same
+    instance flipped for the negative verify; check_args(spec, args), an
+    extra check of the args; modes, the MSM modes whose proofs of the same
     witness, key and blinding seed must equal the vanilla proof;
     transcript_cls, the prove's and the verifier's transcript (default
-    Blake2b). Returns the phase seconds, keygen's and the prove's phases,
-    peak memory and launch counts, per mode the same of its prove, and the
-    proof with its vk, SRS and instances."""
+    Blake2b); args_from, a future of (args, seconds) that timed_call gives
+    in the worker process, in place of make_args here. Returns the phase
+    seconds, keygen's and the prove's phases, peak memory and launch
+    counts, per mode the same of its prove, and the proof with its vk, SRS
+    and instances."""
     from spectre_tpu_torch import spec as SPEC
     from spectre_tpu_torch.fields import bn254
     from spectre_tpu_torch.ops import kernel_lib as KL, msm as M
@@ -696,8 +774,12 @@ def circuit_path(torch, dev, seed: int, circuit, k: int, make_args, shape,
     require(os.path.exists(circuit.pinning_path(spec, k)),
             f"the tracked {name} pinning file is present")
     t0 = time.perf_counter()
-    args = make_args(spec)
-    phases["args"] = time.perf_counter() - t0
+    if args_from is None:
+        args = make_args(spec)
+        phases["args"] = time.perf_counter() - t0
+    else:
+        args, phases["args"] = args_from.result()
+        phases["args_wait"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     ctx = circuit.build_context(args, spec, device=dev)
     phases["witness"] = time.perf_counter() - t0
@@ -709,7 +791,7 @@ def circuit_path(torch, dev, seed: int, circuit, k: int, make_args, shape,
         f"lookup_bits={cfg.lookup_bits} fixed={cfg.num_fixed} sha_slots={cfg.num_sha_slots}; "
         f"break points equal the pinning's; {json.dumps(ctx.stats())}")
     if check_args is not None:
-        check_args(spec)
+        check_args(spec, args)
     cached = [j for j in range(k, 27)
               if os.path.exists(os.path.join(PARAMS_DIR, f"kzg_bn254_{j}.srs"))]
     t0 = time.perf_counter()
@@ -778,14 +860,16 @@ def circuit_path(torch, dev, seed: int, circuit, k: int, make_args, shape,
         t0 = time.perf_counter()
         with msm_mode(mode):
             proof_m = circuit.prove(pk, srs, args, spec, device=dev, ctx=ctx,
-                                    blinding_rng=lambda: r.randrange(bn254.R), timer=timer_m)
+                                    blinding_rng=lambda: r.randrange(bn254.R), timer=timer_m,
+                                    transcript=transcript_cls())
         torch.cuda.synchronize()
         prove_s = time.perf_counter() - t0
         counts_m = KL.launch_counts()
         peak_m = torch.cuda.max_memory_allocated() / 2 ** 30
         table_bytes = M.lru_stats()["bytes"]
         require(proof_m == proof, f"the {mode} {name} proof equals the vanilla proof byte for byte")
-        require(circuit.verify(pk.vk, srs, instances, proof_m, device=dev),
+        require(circuit.verify(pk.vk, srs, instances, proof_m, device=dev,
+                               transcript_cls=transcript_cls),
                 f"the {mode} {name} proof verifies")
         require(M.COUNTERS["msm_fixed_degraded"] == degraded,
                 f"no fixed-base degrade in the {mode} prove")
@@ -823,17 +907,20 @@ def committee_path(torch, dev, seed: int) -> dict:
         transcript_cls=PoseidonTranscript)
 
 
-def step_path(torch, dev, seed: int) -> dict:
+def step_path(torch, dev, seed: int, args_from) -> dict:
     """The StepCircuit at build/sync_step_testnet_21.pinning.json: 512
-    pubkeys, k=21, 16 advice and 3 lookup columns, lookup_bits 18; args
-    with a wrong signature must fail the native pre-check."""
+    pubkeys, k=21, 16 advice and 3 lookup columns, lookup_bits 18, proved
+    under the Poseidon transcript (the proof stage 2 aggregates); args with
+    a wrong signature must fail the native pre-check. args_from: the
+    future of its default args, made in the worker process."""
     from spectre_tpu_torch.fields import bls12_381 as bls
     from spectre_tpu_torch.models import StepCircuit
+    from spectre_tpu_torch.plonk.transcript import PoseidonTranscript
     from spectre_tpu_torch.witness import default_sync_step_args
 
-    def wrong_signature_refused(spec):
-        bad = default_sync_step_args(spec)
-        bad.signature_compressed = bls.g2_compress(bls.g2_curve.mul(bls.G2_GEN, 123))
+    def wrong_signature_refused(spec, args):
+        bad = dataclasses.replace(
+            args, signature_compressed=bls.g2_compress(bls.g2_curve.mul(bls.G2_GEN, 123)))
         try:
             StepCircuit.build_context(bad, spec, device=dev)
             refused = False
@@ -847,7 +934,8 @@ def step_path(torch, dev, seed: int) -> dict:
         lambda cfg, a: (cfg.k, cfg.num_advice, cfg.num_lookup_advice, cfg.lookup_bits,
                         len(a.pubkeys_uncompressed)) == (STEP_K, 16, 3, 18, 512),
         "512 pubkeys, k=21, 16 advice, 3 lookup columns, lookup_bits 18", flip=1,
-        check_args=wrong_signature_refused, modes=STEP_MODES)
+        check_args=wrong_signature_refused, modes=STEP_MODES, transcript_cls=PoseidonTranscript,
+        args_from=args_from)
 
 
 def measured(torch, phases: dict, name: str, fn):
@@ -874,42 +962,104 @@ def measured(torch, phases: dict, name: str, fn):
     return out
 
 
-def tracked_proofs(committee: dict, circuit, vk, srs) -> dict:
-    """The port's verifiers on the reference's tracked proofs: the
-    committee's stage-1 proof under Poseidon with the port's committee vk,
-    and the compressed proof under Keccak with its instances and the port's
-    outer vk (AggregationCircuit.verify, pairing included). Either may fail
-    only because the vk differs since a re-pin: the outcome, the port's vk
-    digests and the digest the tracked verifier contract records are
-    returned, and never change the exit code."""
+# The compressed paths, genEvmProof_SyncStepCompressed and
+# genEvmProof_CommitteeUpdateCompressed: the inner circuit's name, the outer
+# circuit's shape (k, advice, lookup, lookup_bits, fixed, instance) and its
+# context's advice and lookup cells, the verifier contract's name, and the
+# reference's tracked fixtures in build/ (the inner Poseidon proof, the
+# verifier source, the compressed proof with its instances) with what its
+# records hold for the compressed proof: (gas_execution, gas_total, runtime
+# bytes). The step's outer shape is pinned by no file: outer_k sizes it.
+COMPRESSED = {
+    "step": dict(
+        inner="sync_step", shape=(STEP_K, 11, 2, 14, 1, 1), cells=(22454006, 2197024),
+        contract="Verifier_aggregation_sync_step", inner_proof="step_testnet_21_poseidon.proof",
+        sol="aggregation_sync_step_testnet_21_verifier.sol",
+        proof="agg_step_testnet_21_keccak.proof", evm=(944042, 1059110, 44380)),
+    "committee": dict(
+        inner="committee_update", shape=(AGG_K, 16, 2, 14, 1, 1), cells=(63690124, 6033491),
+        contract="Verifier_aggregation_committee",
+        inner_proof="committee_testnet_18_poseidon.proof",
+        sol="aggregation_committee_testnet_22_verifier.sol",
+        proof="agg_committee_testnet_22_keccak.proof", evm=(1142389, 1283113, 56636)),
+}
+# the reference flow's rule for an outer k that no file pins
+# (scripts/_compressed_flow.py, with the range and cap of
+# scripts/prove_step_compressed.py)
+OUTER_K_RANGE = (20, 25)
+MAX_OUTER_ADVICE = 12
+REF_GENERATOR = "// Auto-generated by spectre_tpu.evm.codegen — DO NOT EDIT."
+PORT_GENERATOR = "// Auto-generated by spectre_tpu_torch.evm.codegen — DO NOT EDIT."
+TAMPER_BYTE = 41
+# the card's proof costs the tracked proof's execution gas; its calldata's
+# zero bytes, and so its intrinsic gas, differ
+TOTAL_GAS_SLACK = 600
+# the revert reasons of a rejected stepCompressed or rotateCompressed: the
+# contract's own, or the verifier's, which the contract passes on
+VERIFIER_REVERTS = ("step proof invalid", "rotate proof invalid", "identity", "eval range",
+                    "ecMul", "ecAdd", "pairing")
+STEP_C_SIG = "stepCompressed((uint64,uint64,uint64,bytes32,bytes32),uint256[12],bytes)"
+ROTATE_C_SIG = "rotateCompressed(uint256,uint256,uint256,uint256,uint256[12],bytes)"
+
+
+def outer_k(ctx, lookup_bits: int) -> int:
+    """The least k in OUTER_K_RANGE whose shape, auto-sized from ctx, needs
+    at most MAX_OUTER_ADVICE advice columns (arithmetic on ctx's counts)."""
+    for k in range(*OUTER_K_RANGE):
+        if ctx.auto_config(k=k, lookup_bits=lookup_bits).num_advice <= MAX_OUTER_ADVICE:
+            return k
+    raise ValueError(f"no k in {OUTER_K_RANGE[0]}..{OUTER_K_RANGE[1] - 1} holds the outer "
+                     f"circuit in {MAX_OUTER_ADVICE} advice columns")
+
+
+def tracked_path(name: str, key: str) -> str:
+    return os.path.join(REPO, "build", COMPRESSED[name][key])
+
+
+def read_tracked_evm(name: str) -> tuple[str, list, bytes]:
+    """The tracked verifier source, compressed proof's instances and bytes."""
+    with open(tracked_path(name, "sol")) as f:
+        src = f.read()
+    with open(tracked_path(name, "proof"), "rb") as f:
+        pf = f.read()
+    with open(tracked_path(name, "proof") + ".instances.json") as f:
+        inst = [int(v, 16) for v in json.load(f)["instances"]]
+    return src, inst, pf
+
+
+def tracked_proofs(inner: dict, name: str, circuit, vk, srs) -> dict:
+    """The port's verifiers on the reference's tracked proofs: the inner
+    stage-1 proof under Poseidon with the port's inner vk (it verifies only
+    if that vk is the reference's), and the compressed proof under Keccak
+    with its instances and the port's outer vk (AggregationCircuit.verify,
+    pairing included); beside them the port's vk digests and the digest
+    the tracked verifier contract records."""
     import re
 
+    from spectre_tpu_torch.models.aggregation import NUM_ACC_LIMBS
     from spectre_tpu_torch.plonk.transcript import KeccakTranscript, PoseidonTranscript
     from spectre_tpu_torch.plonk.verifier import verify
 
-    out = {"committee_vk_digest": committee["vk"].digest().hex(),
-           "outer_vk_digest": vk.digest().hex()}
-    try:
-        sol, agg_inst, agg_proof = read_tracked_evm("committee")
-        with open(os.path.join(REPO, "build", "committee_testnet_18_poseidon.proof"), "rb") as f:
-            com_proof = f.read()
-        m = re.search(r"VK_DIGEST =\s*(0x[0-9a-f]+)", sol)
-        out["tracked_outer_vk_digest"] = m.group(1)[2:] if m else None
-        out["tracked_committee_instances_equal_ours"] = agg_inst[12:] == committee["instances"]
-        out["committee_proof_verifies"] = verify(committee["vk"], committee["srs"],
-                                                 [agg_inst[12:]], com_proof,
-                                                 transcript_cls=PoseidonTranscript)
-        out["outer_proof_verifies"] = circuit.verify(vk, srs, agg_inst, agg_proof,
-                                                     transcript_cls=KeccakTranscript)
-    except Exception as e:   # recorded, apart from the exit code
-        out["error"] = f"{type(e).__name__}: {e}"
-    return out
+    sol, agg_inst, agg_proof = read_tracked_evm(name)
+    with open(tracked_path(name, "inner_proof"), "rb") as f:
+        inner_proof = f.read()
+    m = re.search(r"VK_DIGEST =\s*(0x[0-9a-f]+)", sol)
+    return {
+        "inner_vk_digest": inner["vk"].digest().hex(), "outer_vk_digest": vk.digest().hex(),
+        "tracked_outer_vk_digest": m.group(1)[2:] if m else None,
+        "tracked_inner_instances_equal_ours": agg_inst[NUM_ACC_LIMBS:] == inner["instances"],
+        "inner_proof_verifies": verify(inner["vk"], inner["srs"], [agg_inst[NUM_ACC_LIMBS:]],
+                                       inner_proof, transcript_cls=PoseidonTranscript),
+        "outer_proof_verifies": circuit.verify(vk, srs, agg_inst, agg_proof,
+                                               transcript_cls=KeccakTranscript)}
 
 
-def aggregation_path(torch, dev, seed: int, committee: dict) -> dict:
-    """Stage 2 of the committee: its Poseidon proof aggregated at the
-    tracked k=22 pinning, the outer circuit proved under Keccak and checked
-    by AggregationCircuit.verify (the deferred pairing included)."""
+def aggregation_path(torch, dev, seed: int, inner: dict, name: str) -> dict:
+    """Stage 2 of an inner circuit's Poseidon proof (COMPRESSED[name]): the
+    outer circuit at its tracked pinning, or where none is tracked at the
+    k outer_k gives, proved under Keccak and checked by
+    AggregationCircuit.verify (the deferred pairing included); its vk and
+    verifiers held to the reference's tracked fixtures."""
     from spectre_tpu_torch import spec as SPEC
     from spectre_tpu_torch.fields import bn254
     from spectre_tpu_torch.models.aggregation import (NUM_ACC_LIMBS, AggregationArgs,
@@ -918,52 +1068,65 @@ def aggregation_path(torch, dev, seed: int, committee: dict) -> dict:
     from spectre_tpu_torch.plonk.srs import SRS
     from spectre_tpu_torch.plonk.transcript import KeccakTranscript
 
-    spec, phases = SPEC.TESTNET, {}
-    circuit = AggregationCircuit.variant("committee_update")
-    require(os.path.exists(circuit.pinning_path(spec, AGG_K)),
-            "the tracked aggregation pinning file is present")
-    # args: the inner snark, the committee phase's Poseidon proof
-    phases["args"] = dict(s=committee["phases"]["prove"], peak_gib=committee["peak_gib"],
-                          launches={k: v for k, v in committee["prove_launches"].items() if v})
-    log(f"aggregation: the inner snark is the committee's stage-1 proof "
-        f"({len(committee['proof'])} bytes, Poseidon)")
+    spec, phases, entry = SPEC.TESTNET, {}, COMPRESSED[name]
+    circuit = AggregationCircuit.variant(entry["inner"])
+    k = entry["shape"][0]
+    pinned = os.path.exists(circuit.pinning_path(spec, k))
+    # args: the inner snark, the inner phase's Poseidon proof
+    phases["args"] = dict(s=inner["phases"]["prove"], peak_gib=inner["peak_gib"],
+                          launches={key: v for key, v in inner["prove_launches"].items() if v})
+    log(f"{circuit.name}: the inner snark is the {entry['inner']} stage-1 proof "
+        f"({len(inner['proof'])} bytes, Poseidon)")
     log(f"  args (the inner proof): {phases['args']['s']:.3f} s, peak "
         f"{phases['args']['peak_gib']:.1f} GiB, launches " + json.dumps(phases["args"]["launches"]))
-    args = AggregationArgs(inner_vk=committee["vk"], srs=committee["srs"],
-                           inner_instances=[committee["instances"]], proof=committee["proof"])
+    args = AggregationArgs(inner_vk=inner["vk"], srs=inner["srs"],
+                           inner_instances=[inner["instances"]], proof=inner["proof"])
     ctx = measured(torch, phases, "build",
                    lambda: circuit.build_context(args, spec, device=dev))
-    cfg = measured(torch, phases, "pinning",
-                   lambda: circuit.pinning(spec, AGG_K, ctx).config)
+    stats = ctx.stats()
+    require((stats["advice_cells"], sum(stats["lookup_cells"].values())) == entry["cells"],
+            f"the outer context's advice and lookup cells {entry['cells']}")
+    if not pinned:
+        got_k = outer_k(ctx, circuit.default_lookup_bits)
+        require(got_k == k, f"the reference flow's rule sizes the outer circuit at k={k} "
+                            f"(got {got_k})")
+    cfg = measured(torch, phases, "pinning", lambda: circuit.pinning(spec, k, ctx).config)
     require((cfg.k, cfg.num_advice, cfg.num_lookup_advice, cfg.lookup_bits, cfg.num_fixed,
-             cfg.num_instance) == (AGG_K, 16, 2, 14, 1, 1),
-            "the pinned aggregation shape (k=22, 16 advice, 2 lookup, lookup_bits 14, "
-            "1 fixed, 1 instance)")
+             cfg.num_instance) == entry["shape"],
+            f"the outer shape (k, advice, lookup, lookup_bits, fixed, instance) = "
+            f"{entry['shape']}")
     log(f"  shape k={cfg.k} advice={cfg.num_advice} lookup={cfg.lookup_tables} "
-        f"lookup_bits={cfg.lookup_bits}; break points equal the pinning's; "
-        + json.dumps(ctx.stats()))
+        f"lookup_bits={cfg.lookup_bits} fixed={cfg.num_fixed}; "
+        + ("break points equal the tracked pinning's; " if pinned else
+           f"no tracked pinning: sized by the reference flow's rule (k in "
+           f"{OUTER_K_RANGE[0]}..{OUTER_K_RANGE[1] - 1}, <= {MAX_OUTER_ADVICE} advice); ")
+        + json.dumps(stats))
     instances = measured(torch, phases, "instances",
                          lambda: circuit.get_instances(args, spec))
     require(instances == [av.value for av in ctx.instance_cells],
             "the exposed cells equal get_instances")
-    require(len(instances) == NUM_ACC_LIMBS + len(committee["instances"])
-            and instances[NUM_ACC_LIMBS:] == committee["instances"],
-            "the statement is the 12 accumulator limbs, then the committee's instances")
-    srs = measured(torch, phases, "srs", lambda: SRS.load_or_setup(AGG_K, device=dev))
-    require(srs.g2_tau == committee["srs"].g2_tau, "the k=22 SRS has the inner SRS's tau")
+    require(len(instances) == NUM_ACC_LIMBS + len(inner["instances"])
+            and instances[NUM_ACC_LIMBS:] == inner["instances"],
+            f"the statement is the {NUM_ACC_LIMBS} accumulator limbs, then the inner instances")
+    if inner["srs"].k == k:
+        srs = inner["srs"]
+    else:
+        srs = measured(torch, phases, "srs", lambda: SRS.load_or_setup(k, device=dev))
+    require(srs.g2_tau == inner["srs"].g2_tau, f"the k={k} SRS has the inner SRS's tau")
     ktimer = PhaseTimer(torch.device(dev))
     pk = measured(torch, phases, "keygen",
-                  lambda: circuit.create_pk(srs, spec, AGG_K, args, device=dev, ctx=ctx,
+                  lambda: circuit.create_pk(srs, spec, k, args, device=dev, ctx=ctx,
                                             timer=ktimer))
     phases["keygen"]["phases"] = ktimer.seconds
-    log("  keygen phases (s): " + json.dumps({k: round(v, 3) for k, v in ktimer.seconds.items()}))
+    log("  keygen phases (s): " + json.dumps({key: round(v, 3)
+                                              for key, v in ktimer.seconds.items()}))
     timer = PhaseTimer(torch.device(dev))
     r = random.Random(seed)
     proof = measured(torch, phases, "prove", lambda: circuit.prove(
         pk, srs, args, spec, device=dev, ctx=ctx, transcript=KeccakTranscript(),
         blinding_rng=lambda: r.randrange(bn254.R), timer=timer))
     phases["prove"]["phases"] = timer.seconds
-    log("  prove phases (s): " + json.dumps({k: round(v, 3) for k, v in timer.seconds.items()}))
+    log("  prove phases (s): " + json.dumps({key: round(v, 3) for key, v in timer.seconds.items()}))
     del ctx
     ok = measured(torch, phases, "verify", lambda: circuit.verify(
         pk.vk, srs, instances, proof, device=dev, transcript_cls=KeccakTranscript))
@@ -976,42 +1139,60 @@ def aggregation_path(torch, dev, seed: int, committee: dict) -> dict:
     for kernel in PROVE_KERNELS:
         require(phases["prove"]["launches"].get(kernel, 0) > 0,
                 f"{kernel} launched in the outer prove")
+    tracked_len = os.path.getsize(tracked_path(name, "proof"))
+    require(len(proof) == tracked_len, f"the outer proof is {tracked_len} bytes, as the "
+                                       "tracked one")
     log(f"  outer proof {len(proof)} bytes (Keccak), AggregationCircuit.verify accepts it, "
         f"a flipped accumulator limb is rejected; vk digest {pk.vk.digest().hex()}")
-    tracked = tracked_proofs(committee, circuit, pk.vk, srs)
-    log("  tracked reference proofs (apart from the exit code): " + json.dumps(tracked))
-    return dict(phases=phases, tracked=tracked, proof_bytes=len(proof), pk=pk, srs=srs,
+    tracked = tracked_proofs(inner, name, circuit, pk.vk, srs)
+    log("  tracked reference fixtures: " + json.dumps(tracked))
+    # the inner vk first: the outer vk holds it, so a different inner vk
+    # explains a different outer digest
+    require(tracked["inner_proof_verifies"],
+            f"the tracked {entry['inner_proof']} verifies under the port's inner vk")
+    require(tracked["tracked_inner_instances_equal_ours"],
+            "the tracked compressed proof's inner instances are ours")
+    require(tracked["outer_vk_digest"] == tracked["tracked_outer_vk_digest"],
+            f"the outer vk digest equals the VK_DIGEST of build/{entry['sol']}")
+    require(tracked["outer_proof_verifies"],
+            f"the tracked {entry['proof']} passes AggregationCircuit.verify under the port's "
+            "outer vk")
+    return dict(phases=phases, tracked=tracked, proof_bytes=len(proof), vk=pk.vk, srs=srs,
                 instances=instances, proof=proof)
 
 
-# what build/compressed_committee_testnet_18.json and the reference's own run
-# of its VM record for the tracked compressed proofs: (gas_execution,
-# gas_total, runtime bytes)
-TRACKED_EVM = {
-    "committee": ("aggregation_committee_testnet_22_verifier.sol",
-                  "agg_committee_testnet_22_keccak.proof", (1142389, 1283113, 56636)),
-    "step": ("aggregation_sync_step_testnet_21_verifier.sol",
-             "agg_step_testnet_21_keccak.proof", (944042, 1059110, 44380)),
-}
-REF_GENERATOR = "// Auto-generated by spectre_tpu.evm.codegen — DO NOT EDIT."
-PORT_GENERATOR = "// Auto-generated by spectre_tpu_torch.evm.codegen — DO NOT EDIT."
-TAMPER_BYTE = 41
-# the revert reasons of a rejected rotateCompressed: the contract's own, or
-# the verifier's, which the contract passes on
-VERIFIER_REVERTS = ("rotate proof invalid", "identity", "eval range", "ecMul", "ecAdd",
-                    "pairing")
+def streamed_order(src: str) -> str:
+    """A generated verifier's source with its identity check in the order
+    of today's codegen. The reference's all_expressions became a generator
+    (commit 8cc0140, "Stream the quotient constraint fold"), so codegen now
+    emits each constraint's temporaries t[i] just before the line that folds
+    it into acc; a verifier generated before that (the step's tracked one)
+    has every temporary first, then `uint256 acc = 0;` and the fold. The
+    temporaries are numbered in the order they are made either way, so
+    moving each run of them down to the first fold line that names its last
+    one gives today's source. A source already in that order is returned as
+    it is."""
+    import re
 
-
-def read_tracked_evm(name: str) -> tuple[str, list, bytes]:
-    sol, proof, _ = TRACKED_EVM[name]
-    build = os.path.join(REPO, "build")
-    with open(os.path.join(build, sol)) as f:
-        src = f.read()
-    with open(os.path.join(build, proof), "rb") as f:
-        pf = f.read()
-    with open(os.path.join(build, proof + ".instances.json")) as f:
-        inst = [int(v, 16) for v in json.load(f)["instances"]]
-    return src, inst, pf
+    lines = src.split("\n")
+    start = next(i for i, ln in enumerate(lines) if ln.strip() == "uint256 acc = 0;")
+    first = start
+    while first > 0 and lines[first - 1].lstrip().startswith("t["):
+        first -= 1
+    pending, out = lines[first:start], lines[:first] + [lines[start]]
+    rest = iter(range(start + 1, len(lines)))
+    for i in rest:
+        m = re.fullmatch(r"\s*acc = addmod\(mulmod\(acc, y, R_MOD\), t\[(\d+)\], R_MOD\);",
+                         lines[i])
+        if m is None and not lines[i].lstrip().startswith("acc = addmod("):
+            out.extend(lines[i:])
+            break
+        while m and pending and int(pending[0].lstrip()[2:].split("]")[0]) <= int(m.group(1)):
+            out.append(pending.pop(0))
+        out.append(lines[i])
+    if pending:
+        raise ValueError("a temporary of the identity check is folded by no line")
+    return "\n".join(out)
 
 
 def tampered(proof: bytes, at: int = TAMPER_BYTE) -> bytes:
@@ -1020,49 +1201,60 @@ def tampered(proof: bytes, at: int = TAMPER_BYTE) -> bytes:
     return bytes(bad)
 
 
-def evm_path(agg: dict, header) -> dict:
-    """The EVM tail of genEvmProof_CommitteeUpdateCompressed: the Solidity
-    verifier generated from the port's outer vk (equal to the tracked one
-    but for its generator line), then evm_checks on the card's proof."""
+def generated_verifier(agg: dict, name: str) -> tuple[str, float]:
+    """The Solidity verifier generated from the port's outer vk of a
+    compressed path (COMPRESSED[name]), and the seconds it took."""
     from spectre_tpu_torch.evm import gen_evm_verifier
+    from spectre_tpu_torch.models.aggregation import NUM_ACC_LIMBS
 
     t0 = time.perf_counter()
-    sol = gen_evm_verifier(agg["pk"].vk, agg["srs"], num_instances=len(agg["instances"]),
-                           contract_name="Verifier_aggregation_committee", num_acc_limbs=12)
+    sol = gen_evm_verifier(agg["vk"], agg["srs"], num_instances=len(agg["instances"]),
+                           contract_name=COMPRESSED[name]["contract"], num_acc_limbs=NUM_ACC_LIMBS)
     gen_s = time.perf_counter() - t0
-    log(f"evm: verifier generated from the port's outer vk in {gen_s:.3f} s, "
+    log(f"evm {name}: verifier generated from the port's outer vk in {gen_s:.3f} s, "
         f"{len(sol)} source bytes")
-    out = evm_checks(sol, agg["instances"], agg["proof"], header)
-    out["seconds"]["generate"] = gen_s
-    return out
+    return sol, gen_s
 
 
-def evm_checks(sol: str, instances: list, proof: bytes, header) -> dict:
-    """The checks of the evm phase on a generated committee verifier `sol`
-    and one compressed proof with its 15 instances: the source against the
-    tracked verifier, the bytecode against the tracked source's; calldata;
-    the simulator and the metered VM accept the proof and reject it with a
-    byte flipped; the tracked committee and step proofs in the VM; the
-    Spectre contract's step and rotateCompressed through the compiled
-    verifier. header is the committee's finalized header (its slot and
-    root). Returns the seconds of each part and the numbers printed."""
-    from spectre_tpu_torch import spec as SPEC
-    from spectre_tpu_torch.contracts.sol_gen import gen_spectre_sol
-    from spectre_tpu_torch.contracts.spectre import StepInput
-    from spectre_tpu_torch.evm import encode_calldata, vm as V
+def evm_checks_apart(*args) -> tuple[dict, str]:
+    """evm_checks(*args) in a worker process: (its result, what it logged).
+    A failed check raises with the log so far."""
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            return evm_checks(*args), buf.getvalue()
+    except Exception as e:
+        raise RuntimeError(f"{buf.getvalue()}{type(e).__name__}: {e}") from None
+
+
+def evm_checks(sol: str, instances: list, proof: bytes, name: str, inner_args) -> dict:
+    """The checks of the evm phase on a generated verifier `sol` and one
+    compressed proof with its instances (COMPRESSED[name]): the source
+    against the tracked verifier, the bytecode against the tracked
+    source's; calldata; the simulator and the metered VM accept the proof
+    and reject it with a byte flipped; the tracked proof in the VM; then
+    the Spectre contract on chain (step_on_chain or rotate_on_chain).
+    Returns the seconds of each part and the numbers printed."""
+    from spectre_tpu_torch.evm import encode_calldata
     from spectre_tpu_torch.evm.simulator import run_verifier
     from spectre_tpu_torch.evm.solc import compile_verifier, vm_verify
-    from spectre_tpu_torch.evm.solc_spectre import compile_spectre
     from spectre_tpu_torch.plonk.transcript import keccak256
     from spectre_tpu_torch.prover_service import calldata as CD
 
-    secs, nums = {}, {}
+    secs, nums, entry = {}, {}, COMPRESSED[name]
+    g_exec, g_total, nbytes = entry["evm"]
     t_phase = time.perf_counter()
 
-    # 1. the source and its bytecode against the tracked verifier
+    # 1. the source and its bytecode against the tracked verifier, in the
+    # order today's codegen emits its identity check
     t0 = time.perf_counter()
-    tracked_src, _, _ = read_tracked_evm("committee")
-    got, want = sol.split("\n"), tracked_src.split("\n")
+    tracked_src, tracked_inst, tracked_proof = read_tracked_evm(name)
+    expected = streamed_order(tracked_src)
+    if expected != tracked_src:
+        log(f"  build/{entry['sol']} folds its identity check in the codegen's order of "
+            "before commit 8cc0140 (every temporary first); held to it in today's order "
+            "(streamed_order)")
+    got, want = sol.split("\n"), expected.split("\n")
     diff = [i for i in range(max(len(got), len(want)))
             if (got[i] if i < len(got) else None) != (want[i] if i < len(want) else None)]
     first = next((i for i in diff if i != 1), None)
@@ -1071,16 +1263,16 @@ def evm_checks(sol: str, instances: list, proof: bytes, header) -> dict:
             f"    generated: {got[first] if first < len(got) else '<end>'}\n"
             f"    tracked:   {want[first] if first < len(want) else '<end>'}")
     require(diff == [1] and got[1] == PORT_GENERATOR and want[1] == REF_GENERATOR,
-            "the generated verifier equals the tracked one but for its generator line")
+            f"the generated verifier equals build/{entry['sol']} (in today's order) but for "
+            "its generator line")
     runtime, init, meta = compile_verifier(sol)
-    t_runtime, t_init, _ = compile_verifier(tracked_src)
+    t_runtime, t_init, _ = compile_verifier(expected)
     require(runtime == t_runtime and init == t_init,
             "its bytecode equals the tracked source's, compiled by the port")
-    require(meta["runtime_bytes"] == TRACKED_EVM["committee"][2][2],
-            f"{TRACKED_EVM['committee'][2][2]} runtime bytes")
+    require(meta["runtime_bytes"] == nbytes, f"{nbytes} runtime bytes, the tracked verifier's")
     secs["source_and_bytecode"] = time.perf_counter() - t0
-    log(f"  source equal to build/{TRACKED_EVM['committee'][0]} but for line 2; bytecode "
-        f"equal: {meta['runtime_bytes']} runtime bytes, {meta['init_bytes']} init bytes, "
+    log(f"  source equal to build/{entry['sol']} but for line 2; bytecode equal: "
+        f"{meta['runtime_bytes']} runtime bytes, {meta['init_bytes']} init bytes, "
         f"eip170_ok {meta['eip170_ok']}")
 
     # 2. calldata, the simulator and the metered VM on the proof
@@ -1104,110 +1296,198 @@ def evm_checks(sol: str, instances: list, proof: bytes, header) -> dict:
     secs["vm"] = time.perf_counter() - t0
     require(r["ok"] and not r["reverted"], "the compiled verifier accepts the proof in the VM")
     require(r["tamper_rejected"], f"the VM rejects it with byte {TAMPER_BYTE} flipped")
-    want_total = TRACKED_EVM["committee"][2][1]
     nums["proof"] = dict(calldata_bytes=len(abi), flat_calldata_bytes=len(flat),
                          gas_execution=r["gas_execution"], gas_total=r["gas_total"],
-                         gas_total_minus_tracked=r["gas_total"] - want_total,
+                         gas_total_minus_tracked=r["gas_total"] - g_total,
                          runtime_bytes=r["runtime_bytes"], eip170_ok=r["eip170_ok"],
                          calldata_zero_bytes=abi.count(0))
     log(f"  the proof: calldata {len(abi)} bytes ({len(flat)} flat); simulator accepts "
         f"({secs['simulator']:.3f} s), rejects byte {TAMPER_BYTE} flipped; VM accepts, "
         f"rejects the flip; gas_execution {r['gas_execution']}, gas_total {r['gas_total']} "
-        f"({r['gas_total'] - want_total:+d} against the tracked proof's {want_total}), "
+        f"({r['gas_total'] - g_total:+d} against the tracked proof's {g_total}), "
         f"runtime {r['runtime_bytes']} bytes, eip170_ok {r['eip170_ok']} ({secs['vm']:.3f} s)")
+    require(r["gas_execution"] == g_exec, f"the VM's gas_execution is the tracked {g_exec}")
+    require(abs(r["gas_total"] - g_total) <= TOTAL_GAS_SLACK,
+            f"the VM's gas_total is within {TOTAL_GAS_SLACK} of the tracked {g_total}")
 
-    # 3. the tracked reference proofs in the port's VM
-    for name, (_, _, (g_exec, g_total, nbytes)) in TRACKED_EVM.items():
-        t0 = time.perf_counter()
-        src, inst, pf = read_tracked_evm(name)
-        rt = vm_verify(src, inst, pf, tamper_byte=TAMPER_BYTE)
-        secs[f"tracked_{name}"] = time.perf_counter() - t0
-        require(rt["ok"] and (rt["gas_execution"], rt["gas_total"], rt["runtime_bytes"])
-                == (g_exec, g_total, nbytes),
-                f"the tracked {name} proof: ok, gas {g_exec} / {g_total}, {nbytes} bytes")
-        require(rt["tamper_rejected"], f"the tracked {name} proof with byte {TAMPER_BYTE} "
-                                       "flipped is rejected")
-        nums[f"tracked_{name}"] = {k: rt[k] for k in ("gas_execution", "gas_total",
-                                                      "runtime_bytes", "eip170_ok")}
-        log(f"  tracked {name}: ok, gas {rt['gas_execution']} / {rt['gas_total']}, "
-            f"{rt['runtime_bytes']} bytes, flip rejected ({secs[f'tracked_{name}']:.3f} s)")
-
-    # 4. on chain: Spectre, a constant-true step verifier, the committee verifier
+    # 3. the tracked reference proof in the port's VM
     t0 = time.perf_counter()
+    rt = vm_verify(tracked_src, tracked_inst, tracked_proof, tamper_byte=TAMPER_BYTE)
+    secs["tracked"] = time.perf_counter() - t0
+    require(rt["ok"] and (rt["gas_execution"], rt["gas_total"], rt["runtime_bytes"])
+            == (g_exec, g_total, nbytes),
+            f"the tracked {name} proof: ok, gas {g_exec} / {g_total}, {nbytes} bytes")
+    require(rt["tamper_rejected"], f"the tracked {name} proof with byte {TAMPER_BYTE} "
+                                   "flipped is rejected")
+    nums["tracked"] = {key: rt[key] for key in ("gas_execution", "gas_total", "runtime_bytes",
+                                                "eip170_ok")}
+    log(f"  tracked {name}: ok, gas {rt['gas_execution']} / {rt['gas_total']}, "
+        f"{rt['runtime_bytes']} bytes, flip rejected ({secs['tracked']:.3f} s)")
+
+    # 4. on chain
+    t0 = time.perf_counter()
+    on_chain = step_on_chain if name == "step" else rotate_on_chain
+    nums["on_chain"] = on_chain(init, instances, proof, inner_args)
+    secs["on_chain"] = time.perf_counter() - t0
+    secs["phase"] = time.perf_counter() - t_phase
+    return dict(seconds=secs, numbers=nums)
+
+
+class Chain:
+    """One VM World with the Spectre contract for the testnet spec deployed
+    over two verifiers (init code), its first period and committee
+    Poseidon."""
+
+    def __init__(self, step_init: bytes, rotate_init: bytes, period: int, poseidon: int):
+        from spectre_tpu_torch import spec as SPEC
+        from spectre_tpu_torch.contracts.sol_gen import gen_spectre_sol
+        from spectre_tpu_torch.evm import vm as V
+        from spectre_tpu_torch.evm.solc_spectre import compile_spectre
+
+        self.V = V
+        self.world = V.World()
+        step_v, self.step_deploy_gas = self.world.deploy(step_init, enforce_eip170=False)
+        rotate_v, self.rotate_deploy_gas = self.world.deploy(rotate_init, enforce_eip170=False)
+        _, spectre_init, meta = compile_spectre(gen_spectre_sol(SPEC.TESTNET))
+        self.runtime_bytes = meta["runtime_bytes"]
+        self.spectre, self.deploy_gas = self.world.deploy(
+            spectre_init, words(period, poseidon, step_v, rotate_v))
+
+    def view(self, sig: str, *args) -> int:
+        ok, out, _ = self.world.call_view(self.spectre, selector(sig) + words(*args))
+        require(ok, f"{sig} answers")
+        return int.from_bytes(out, "big")
+
+    def transact(self, sig: str, body: bytes) -> tuple[bool, str, int]:
+        """(success, revert reason, gas) of one transaction."""
+        ok, out, gas = self.world.transact(self.spectre, selector(sig) + body, gas=100_000_000)
+        return ok, self.V.revert_reason(out), gas
+
+
+def selector(sig: str) -> bytes:
+    from spectre_tpu_torch.plonk.transcript import keccak256
+    return keccak256(sig.encode())[:4]
+
+
+def words(*vals) -> bytes:
+    return b"".join(int(v).to_bytes(32, "big") for v in vals)
+
+
+def padded(pf: bytes) -> bytes:
+    """A bytes argument: its length, then its bytes padded to a word."""
+    return len(pf).to_bytes(32, "big") + pf + b"\x00" * (-len(pf) % 32)
+
+
+def step_on_chain(init: bytes, instances: list, proof: bytes, args) -> dict:
+    """Spectre with the compiled step verifier and the committee Poseidon
+    of instances[13] for the attested period: stepCompressed with the
+    StepInput of the step's args (its commitment is instances[12]) reverts
+    on the flipped proof, leaving head() where it was, and takes the
+    card's proof: head() moves to the finalized slot and both roots are
+    stored."""
+    from spectre_tpu_torch import spec as SPEC
+    from spectre_tpu_torch.contracts.spectre import StepInput
+    from spectre_tpu_torch.models.aggregation import NUM_ACC_LIMBS
+
     spec = SPEC.TESTNET
+    inp = StepInput(attested_slot=args.attested_header.slot,
+                    finalized_slot=args.finalized_header.slot,
+                    participation=sum(args.participation_bits),
+                    finalized_header_root=args.finalized_header.hash_tree_root(),
+                    execution_payload_root=args.execution_payload_root)
+    require(inp.to_public_inputs_commitment() == instances[NUM_ACC_LIMBS],
+            "the StepInput's public-input commitment is instances[12]")
+    chain = Chain(init, constant_verifier(False), spec.sync_period(inp.attested_slot),
+                  instances[NUM_ACC_LIMBS + 1])
+
+    def step(pf: bytes):
+        return chain.transact(STEP_C_SIG, words(
+            inp.attested_slot, inp.finalized_slot, inp.participation)
+            + inp.finalized_header_root + inp.execution_payload_root
+            + words(*instances[:NUM_ACC_LIMBS]) + words(32 * 18) + padded(pf))
+
+    ok_bad, reason, bad_gas = step(tampered(proof))
+    require(not ok_bad and reason in VERIFIER_REVERTS,
+            f"stepCompressed with byte {TAMPER_BYTE} flipped reverts (reason {reason!r})")
+    require(chain.view("head()") == 0 and chain.view("blockHeaderRoots(uint256)",
+                                                     inp.finalized_slot) == 0,
+            "the reverted step moved no head and stored no root")
+    ok, why, gas = step(proof)
+    require(ok, f"stepCompressed accepts the proof ({why})")
+    require(chain.view("head()") == inp.finalized_slot
+            and chain.view("blockHeaderRoots(uint256)", inp.finalized_slot)
+            == int.from_bytes(inp.finalized_header_root, "big")
+            and chain.view("executionPayloadRoots(uint256)", inp.finalized_slot)
+            == int.from_bytes(inp.execution_payload_root, "big"),
+            "head() is the finalized slot, whose header and payload roots are stored")
+    out = dict(spectre_runtime_bytes=chain.runtime_bytes, spectre_deploy_gas=chain.deploy_gas,
+               verifier_deploy_gas=chain.step_deploy_gas, step_compressed_gas=gas,
+               tampered_step_gas=bad_gas, tampered_revert=reason,
+               finalized_slot=inp.finalized_slot)
+    log(f"  on chain: Spectre {chain.runtime_bytes} runtime bytes with the compiled step "
+        f"verifier (deploy gas {chain.step_deploy_gas}); stepCompressed gas {gas}, head() = "
+        f"{inp.finalized_slot}; with byte {TAMPER_BYTE} flipped it reverts, reason "
+        f"{reason!r}, gas {bad_gas}, head() unmoved")
+    return out
+
+
+def rotate_on_chain(init: bytes, instances: list, proof: bytes, args) -> dict:
+    """Spectre with a constant-true step verifier and the compiled committee
+    verifier: one step to the committee's finalized header, then
+    rotateCompressed with the card's proof stores instances[12] as the next
+    period's committee, and the flipped proof reverts."""
+    from spectre_tpu_torch import spec as SPEC
+    from spectre_tpu_torch.contracts.spectre import StepInput
+    from spectre_tpu_torch.models.aggregation import NUM_ACC_LIMBS
+    from spectre_tpu_torch.plonk.transcript import keccak256
+
+    spec = SPEC.TESTNET
+    header = args.finalized_header
     lo, hi = instances[13], instances[14]
     root = hi.to_bytes(16, "big") + lo.to_bytes(16, "big")
     require(root == header.hash_tree_root(), "instances[13:15] encode the committee's "
                                              "finalized header root")
-    world = V.World()
-    step_v, _ = world.deploy(constant_verifier(True))
-    rotate_v, verifier_deploy_gas = world.deploy(init, enforce_eip170=False)
-    spectre_rt, spectre_init, spectre_meta = compile_spectre(gen_spectre_sol(spec))
     inp = StepInput(attested_slot=header.slot + 3, finalized_slot=header.slot,
-                    participation=spec.sync_committee_size,
-                    finalized_header_root=root,
+                    participation=spec.sync_committee_size, finalized_header_root=root,
                     execution_payload_root=keccak256(b"execution payload root"))
-    period = spec.sync_period(inp.attested_slot)
     current_poseidon = int.from_bytes(keccak256(b"current committee"), "big") % (1 << 253)
-    spectre, spectre_deploy_gas = world.deploy(spectre_init, b"".join(
-        int(v).to_bytes(32, "big") for v in (period, current_poseidon, step_v, rotate_v)))
-
-    def sel(sig: str) -> bytes:
-        return keccak256(sig.encode())[:4]
-
-    def words(*vals) -> bytes:
-        return b"".join(int(v).to_bytes(32, "big") for v in vals)
-
-    def padded(pf: bytes) -> bytes:
-        return len(pf).to_bytes(32, "big") + pf + b"\x00" * (-len(pf) % 32)
-
-    def view(sig: str, *args) -> int:
-        ok, out, _ = world.call_view(spectre, sel(sig) + words(*args))
-        require(ok, f"{sig} answers")
-        return int.from_bytes(out, "big")
-
-    ok, out, step_gas = world.transact(spectre, sel(
-        "step((uint64,uint64,uint64,bytes32,bytes32),bytes)") + words(
-        inp.attested_slot, inp.finalized_slot, inp.participation) + root
+    chain = Chain(constant_verifier(True), init, spec.sync_period(inp.attested_slot),
+                  current_poseidon)
+    ok, why, step_gas = chain.transact(
+        "step((uint64,uint64,uint64,bytes32,bytes32),bytes)",
+        words(inp.attested_slot, inp.finalized_slot, inp.participation) + root
         + inp.execution_payload_root + words(192) + padded(b""))
-    require(ok, f"the step transaction succeeds ({V.revert_reason(out)})")
-    require(view("head()") == header.slot and view("blockHeaderRoots(uint256)", header.slot)
+    require(ok, f"the step transaction succeeds ({why})")
+    require(chain.view("head()") == header.slot
+            and chain.view("blockHeaderRoots(uint256)", header.slot)
             == int.from_bytes(root, "big"), "the step stored the finalized header root")
-    rotate_sig = "rotateCompressed(uint256,uint256,uint256,uint256,uint256[12],bytes)"
 
     def rotate(pf: bytes):
-        return world.transact(spectre, sel(rotate_sig) + words(
-            header.slot, instances[12], lo, hi) + words(*instances[:12]) + words(32 * 17)
-            + padded(pf), gas=100_000_000)
+        return chain.transact(ROTATE_C_SIG, words(header.slot, instances[12], lo, hi)
+                              + words(*instances[:NUM_ACC_LIMBS]) + words(32 * 17) + padded(pf))
 
     next_period = spec.sync_period(header.slot) + 1
-    ok_bad, out_bad, bad_gas = rotate(tampered(proof))
-    reason = V.revert_reason(out_bad)
+    ok_bad, reason, bad_gas = rotate(tampered(proof))
     # a false verdict hits the contract's require; a verifier that reverts
     # has its reason bubbled through the contract (solc 0.8 behaviour)
     require(not ok_bad and reason in VERIFIER_REVERTS,
-            f"rotateCompressed with byte {TAMPER_BYTE} flipped reverts "
-            f"(reason {reason!r})")
-    require(view("syncCommitteePoseidons(uint256)", next_period) == 0,
+            f"rotateCompressed with byte {TAMPER_BYTE} flipped reverts (reason {reason!r})")
+    require(chain.view("syncCommitteePoseidons(uint256)", next_period) == 0,
             "the reverted rotation stored nothing")
-    ok, out, rotate_gas = rotate(proof)
-    require(ok, f"rotateCompressed accepts the proof ({V.revert_reason(out)})")
-    require(view("syncCommitteePoseidons(uint256)", next_period) == instances[12],
+    ok, why, rotate_gas = rotate(proof)
+    require(ok, f"rotateCompressed accepts the proof ({why})")
+    require(chain.view("syncCommitteePoseidons(uint256)", next_period) == instances[12],
             "syncCommitteePoseidons(next period) reads instances[12]")
-    secs["on_chain"] = time.perf_counter() - t0
-    nums["on_chain"] = dict(spectre_runtime_bytes=spectre_meta["runtime_bytes"],
-                            spectre_deploy_gas=spectre_deploy_gas,
-                            verifier_deploy_gas=verifier_deploy_gas, step_gas=step_gas,
-                            rotate_compressed_gas=rotate_gas,
-                            tampered_rotate_gas=bad_gas, tampered_revert=reason,
-                            next_period=next_period)
-    log(f"  on chain: Spectre {spectre_meta['runtime_bytes']} runtime bytes (deploy gas "
-        f"{spectre_deploy_gas}), the verifier deployed with EIP-170 waived (deploy gas "
-        f"{verifier_deploy_gas}); step gas {step_gas}; rotateCompressed gas {rotate_gas}, "
-        f"syncCommitteePoseidons({next_period}) = instances[12]; with byte {TAMPER_BYTE} "
-        f"flipped it reverts, reason {reason!r}, gas {bad_gas} ({secs['on_chain']:.3f} s)")
-    secs["phase"] = time.perf_counter() - t_phase
-    return dict(seconds=secs, numbers=nums)
+    out = dict(spectre_runtime_bytes=chain.runtime_bytes, spectre_deploy_gas=chain.deploy_gas,
+               verifier_deploy_gas=chain.rotate_deploy_gas, step_gas=step_gas,
+               rotate_compressed_gas=rotate_gas, tampered_rotate_gas=bad_gas,
+               tampered_revert=reason, next_period=next_period)
+    log(f"  on chain: Spectre {chain.runtime_bytes} runtime bytes (deploy gas "
+        f"{chain.deploy_gas}), the committee verifier deployed with EIP-170 waived (deploy "
+        f"gas {chain.rotate_deploy_gas}); step gas {step_gas}; rotateCompressed gas "
+        f"{rotate_gas}, syncCommitteePoseidons({next_period}) = instances[12]; with byte "
+        f"{TAMPER_BYTE} flipped it reverts, reason {reason!r}, gas {bad_gas}")
+    return out
 
 
 def constant_verifier(result: bool) -> bytes:
@@ -1226,13 +1506,28 @@ def constant_verifier(result: bool) -> bytes:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--k", type=int, default=None,
-                    help="rows 2^k of the slice (default: the pinning's k)")
+    ap.add_argument("--k", type=int, default=FLEX_K,
+                    help=f"rows 2^k of the flex slice (default {FLEX_K}; the pinning's is 21)")
     ap.add_argument("--seed", type=int, default=1)
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     # a crash (a signal, not an exception) prints every thread's Python stack
     faulthandler.enable()
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    # host work that needs no card (the K=6 proofs on the CPU, the step's
+    # args, the EVM checks) runs in a second process beside the card's
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        return run(args, t_start, pool)
+
+
+def run(args, t_start: float, pool) -> int:
+    """The phases, in order; `pool` runs the host jobs."""
+    import torch
 
     def mark(phase: str) -> None:
         # on both streams, so that the end of the standard error says which
@@ -1241,22 +1536,20 @@ def main(argv=None) -> int:
         log(msg)
         print(msg, file=sys.stderr, flush=True)
 
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    sys.path.insert(0, REPO)
+    from spectre_tpu_torch import spec as SPEC
     from spectre_tpu_torch.fields import bn254
     from spectre_tpu_torch.ops import (ec, field_ops as F, kernel_lib as KL,
                                        msm as M, msm_kernels as MK, ntt as N)
     from spectre_tpu_torch.plonk.backend import TorchBackend
-    from spectre_tpu_torch.plonk.constraint_system import CircuitConfig
     from spectre_tpu_torch.plonk.keygen import keygen
     from spectre_tpu_torch.plonk.prover import PhaseTimer, prove
     from spectre_tpu_torch.plonk.srs import SRS, g1_powers_device
     from spectre_tpu_torch.plonk.verifier import verify
-    from spectre_tpu_torch.witness import config_from_pinning, flex_circuit
+    from spectre_tpu_torch.witness import (config_from_pinning, default_sync_step_args,
+                                           flex_circuit)
 
+    cpu_k6 = pool.submit(k6_proofs, "cpu", args.seed)
+    step_args = pool.submit(timed_call, default_sync_step_args, SPEC.TESTNET)
     dev = torch.device("cuda")
     fr, fq = F.fr_ctx(), F.fq_ctx()
     # K1's four kernels and the name each has in a profiler trace
@@ -1538,33 +1831,19 @@ def main(argv=None) -> int:
 
     # --- devices: one circuit, GPU and CPU, same proof bytes ------------------
     mark("devices")
-    small = CircuitConfig(k=6, num_advice=2, num_lookup_advice=1, num_fixed=1,
-                          lookup_bits=4, lookup_tables=("range",))
-    fc = flex_circuit(small, seed=args.seed, num_copies=16)
-    proofs, keys = {}, {}
-    for d in ("cuda", "cpu"):
-        s6 = SRS.unsafe_setup(6, device=d)
-        keys[d] = s6, keygen(s6, small, fc.fixed, fc.selectors, fc.copies, device=d)
-        r = random.Random(args.seed)
-        proofs[d] = prove(keys[d][1], s6, fc.assignment, device=d,
-                          blinding_rng=lambda: r.randrange(bn254.R))
-    require(proofs["cuda"] == proofs["cpu"], "GPU and CPU proofs are byte-identical")
-    for d in ("cuda", "cpu"):
-        s6, pk6 = keys[d]
-        r = random.Random(args.seed)
-        KL.reset_launch_counts()
-        with msm_mode("fixed"):
-            fixed_proof = prove(pk6, s6, fc.assignment, device=d,
-                                blinding_rng=lambda: r.randrange(bn254.R))
-        require(fixed_proof == proofs["cuda"], f"the fixed-mode K=6 proof on {d} equals "
-                                               "the vanilla proof")
-        if d == "cuda":
-            require(all(KL.launch_counts()[k] > 0 for k in FIXED_ONLY),
-                    "the fixed form (its scatter and walk) launched at K=6")
-    del keys
-    M.clear_tables()
-    log("devices: K=6 proof bytes equal on cuda and cpu, vanilla and under "
-        "SPECTRE_MSM_MODE=fixed")
+    gpu = k6_proofs("cuda", args.seed)
+    require(gpu["proofs"]["fixed"] == gpu["proofs"]["vanilla"],
+            "the fixed-mode K=6 proof on cuda equals the vanilla proof")
+    require(all(gpu["fixed_launches"][k] > 0 for k in FIXED_ONLY),
+            "the fixed form (its scatter and walk) launched at K=6")
+    cpu = cpu_k6.result()
+    require(cpu["proofs"]["vanilla"] == gpu["proofs"]["vanilla"],
+            "GPU and CPU proofs are byte-identical")
+    require(cpu["proofs"]["fixed"] == gpu["proofs"]["vanilla"],
+            "the fixed-mode K=6 proof on cpu equals the vanilla proof")
+    log(f"devices: K=6 proof bytes equal on cuda and cpu, vanilla and under "
+        f"SPECTRE_MSM_MODE=fixed (cuda {gpu['seconds']:.1f} s; cpu {cpu['seconds']:.1f} s in "
+        f"the worker process)")
 
     # --- slice ---------------------------------------------------------------
     mark("slice")
@@ -1619,22 +1898,39 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     log("resident before the step: " + resident(torch))
     mark("step")
-    step = step_path(torch, dev, args.seed)
+    step = step_path(torch, dev, args.seed, step_args)
     torch.cuda.empty_cache()
-    # --- aggregation-kernels, aggregation ----------------------------------------
+    log("resident before the step's aggregation: " + resident(torch))
+    mark("step-aggregation")
+    step_agg = aggregation_path(torch, dev, args.seed, step, "step")
+    torch.cuda.empty_cache()
+    # the EVM checks are host work on the card's proofs: the worker process
+    # runs them beside the next phases
+    step_sol, step_gen_s = generated_verifier(step_agg, "step")
+    step_evm = pool.submit(evm_checks_apart, step_sol, step_agg["instances"], step_agg["proof"],
+                           "step", step["args"])
+    # --- aggregation, aggregation-kernels ----------------------------------------
+    log("resident before the aggregation: " + resident(torch))
+    mark("aggregation")
+    agg = aggregation_path(torch, dev, args.seed, committee, "committee")
+    committee_sol, committee_gen_s = generated_verifier(agg, "committee")
+    committee_evm = pool.submit(evm_checks_apart, committee_sol, agg["instances"], agg["proof"],
+                                "committee", committee["args"])
+    torch.cuda.empty_cache()
     mark("aggregation-kernels")
     geometry = geometry_kernels(torch, dev, gen, args.seed, AGG_K, 2)
     log("aggregation-kernels: " + json.dumps(geometry))
     for name, key in (("K1c_bucket_walk", "K1"), ("K2b_bucket_aggregate", "K2b"),
                       ("K4_ntt", "K4")):
         records[name]["aggregation_geometry"] = geometry[key]
-    log("resident before the aggregation: " + resident(torch))
-    mark("aggregation")
-    agg = aggregation_path(torch, dev, args.seed, committee)
     # --- evm -----------------------------------------------------------------------
     mark("evm")
-    evm = evm_path(agg, committee["args"].finalized_header)
-    log("evm: " + json.dumps(evm))
+    for name, job, gen_s in (("step", step_evm, step_gen_s),
+                             ("committee", committee_evm, committee_gen_s)):
+        evm, text = job.result()
+        evm["seconds"]["generate"] = gen_s
+        log(f"evm {name} (in the worker process):\n{text.rstrip()}\nevm {name}: "
+            + json.dumps(evm))
 
     kernels = []
     for name, info in KL.KERNELS.items():
@@ -1650,6 +1946,9 @@ def main(argv=None) -> int:
             "committee_keygen_launches": committee["keygen_launches"][name],
             "step_launches": step["prove_launches"][name],
             "step_keygen_launches": step["keygen_launches"][name],
+            "step_aggregation_launches": step_agg["phases"]["prove"]["launches"].get(name, 0),
+            "step_aggregation_keygen_launches":
+                step_agg["phases"]["keygen"]["launches"].get(name, 0),
             "aggregation_launches": agg["phases"]["prove"]["launches"].get(name, 0),
             "aggregation_keygen_launches": agg["phases"]["keygen"]["launches"].get(name, 0),
             **{key: rec.pop(key) for key in ("max_abs_err", "ms", "plain_ms",

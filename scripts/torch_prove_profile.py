@@ -6,6 +6,7 @@
     python3 scripts/torch_prove_profile.py --circuit committee
     python3 scripts/torch_prove_profile.py --circuit step
     python3 scripts/torch_prove_profile.py --circuit aggregation
+    python3 scripts/torch_prove_profile.py --circuit step-aggregation
     python3 scripts/torch_prove_profile.py --circuit committee --transcripts blake2b,poseidon
     python3 scripts/torch_prove_profile.py --circuit step --sigma-merge   # host only
 
@@ -20,7 +21,10 @@ witness from default_sync_step_args), or (--circuit aggregation) stage 2:
 the committee's stage-1 proof under the Poseidon transcript, aggregated at
 build/aggregation_committee_update_testnet_22.pinning.json (k=22) and the
 outer circuit proved under the Keccak transcript (its set-up seconds are
-printed, and the outer proof must pass AggregationCircuit.verify). Prints the
+printed, and the outer proof must pass AggregationCircuit.verify), or
+(--circuit step-aggregation) the same for the step's stage-1 proof at the
+outer k that chip_smoke.outer_k, the reference flow's rule, gives (21: 11
+advice, 2 lookup columns; the step's k=21 SRS). Prints the
 device's busy and idle share of the traced prove, per-phase seconds, the
 device time and launches of each of the port's kernels, the top device rows
 by time, then the same as one JSON line. Exits non-zero without CUDA.
@@ -97,8 +101,8 @@ def sigma_merge(args) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--k", type=int, default=None, help="rows of the flex circuit")
-    ap.add_argument("--circuit", choices=("flex", "committee", "step", "aggregation"),
-                    default="flex")
+    ap.add_argument("--circuit", default="flex",
+                    choices=("flex", "committee", "step", "aggregation", "step-aggregation"))
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--transcripts", default=None,
                     help="comma list of " + ",".join(TRANSCRIPTS)
@@ -110,7 +114,7 @@ def main(argv=None) -> int:
     if any(t not in TRANSCRIPTS for t in compare):
         ap.error(f"--transcripts: expected names among {TRANSCRIPTS}")
     if args.sigma_merge:
-        if args.circuit == "aggregation":
+        if args.circuit not in ("flex", "committee", "step"):
             ap.error("--sigma-merge: flex, committee or step")
         return sigma_merge(args)
 
@@ -141,19 +145,25 @@ def main(argv=None) -> int:
 
     transcript = Blake2bTranscript
     setup = {}
-    if args.circuit == "aggregation":
+    if args.circuit in ("aggregation", "step-aggregation"):
         from spectre_tpu_torch import spec as SPEC
-        from spectre_tpu_torch.models import CommitteeUpdateCircuit
+        from spectre_tpu_torch.models import CommitteeUpdateCircuit, StepCircuit
         from spectre_tpu_torch.models.aggregation import AggregationArgs, AggregationCircuit
         from spectre_tpu_torch.plonk.transcript import KeccakTranscript, PoseidonTranscript
-        from spectre_tpu_torch.witness import default_committee_update_args
+        from spectre_tpu_torch.witness import (default_committee_update_args,
+                                               default_sync_step_args)
 
-        spec, inner = SPEC.TESTNET, CommitteeUpdateCircuit
+        from chip_smoke import outer_k
+
+        spec = SPEC.TESTNET
+        inner, k_in, make_args = {
+            "aggregation": (CommitteeUpdateCircuit, 18, default_committee_update_args),
+            "step-aggregation": (StepCircuit, 21, default_sync_step_args)}[args.circuit]
         t0 = time.perf_counter()
-        c_args = default_committee_update_args(spec)
+        c_args = make_args(spec)
         ctx = inner.build_context(c_args, spec, device=dev)
-        srs_in = SRS.load_or_setup(18, device=dev)
-        pk_in = inner.create_pk(srs_in, spec, 18, c_args, device=dev, ctx=ctx)
+        srs_in = SRS.load_or_setup(k_in, device=dev)
+        pk_in = inner.create_pk(srs_in, spec, k_in, c_args, device=dev, ctx=ctx)
         r = random.Random(args.seed)
         proof_in = inner.prove(pk_in, srs_in, c_args, spec, device=dev, ctx=ctx,
                                transcript=PoseidonTranscript(),
@@ -164,13 +174,16 @@ def main(argv=None) -> int:
                                    proof=proof_in)
         del pk_in, ctx
         torch.cuda.empty_cache()
-        circuit = AggregationCircuit.variant("committee_update")
+        circuit = AggregationCircuit.variant(inner.name)
         t0 = time.perf_counter()
         ctx = circuit.build_context(agg_args, spec, device=dev)
         setup["build_s"] = time.perf_counter() - t0
-        cfg = circuit.pinning(spec, 22, ctx).config
+        # the committee's outer shape is pinned at k=22; the step's is sized
+        # by the reference flow's rule
+        k = 22 if inner is CommitteeUpdateCircuit else outer_k(ctx, circuit.default_lookup_bits)
+        cfg = circuit.pinning(spec, k, ctx).config
         t0 = time.perf_counter()
-        srs = SRS.load_or_setup(cfg.k, device=dev)
+        srs = srs_in if k == k_in else SRS.load_or_setup(k, device=dev)
         setup["srs_s"] = time.perf_counter() - t0
         ktimer = PhaseTimer(dev)
         t0 = time.perf_counter()
@@ -231,7 +244,7 @@ def main(argv=None) -> int:
     proof = one_prove(timer)
     untraced = time.perf_counter() - t0
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    if args.circuit == "aggregation":
+    if args.circuit in ("aggregation", "step-aggregation"):
         if not circuit.verify(pk.vk, srs, instances, proof, device=dev,
                               transcript_cls=KeccakTranscript):
             print("torch_prove_profile: the outer proof does not verify", file=sys.stderr)

@@ -318,3 +318,35 @@ def test_outer_prove_k17_equals_reference_record(dev):
     bad[0] = (bad[0] + 1) % bn254.R
     assert not circuit.verify(pk.vk, srs, bad, proof, device=dev,
                               transcript_cls=KeccakTranscript)
+
+
+def test_step_shaped_outer_prove_verifies(dev):
+    """AggregationCircuit.variant("sync_step") over the step-shaped inner
+    proof (tests/_torch_step_inner.py: its lookup columns over the nibble,
+    nibble_op and range tables, as the sync step's), the inner and the outer
+    circuit keyed and proved on the card, the outer at k=17 under Keccak:
+    the statement is the exposed cells, AggregationCircuit.verify accepts
+    the proof and rejects a flipped accumulator limb."""
+    import _torch_step_inner as S
+    from spectre_tpu_torch.models.aggregation import (NUM_ACC_LIMBS, AggregationArgs,
+                                                      AggregationCircuit)
+    from spectre_tpu_torch.plonk.srs import SRS
+    from spectre_tpu_torch.plonk.transcript import KeccakTranscript
+
+    pk_in, srs_in, inst, proof_in = S.port_inner(dev)
+    assert pk_in.vk.config.lookup_tables == S.TABLES
+    args = AggregationArgs(inner_vk=pk_in.vk, srs=srs_in, inner_instances=inst, proof=proof_in)
+    circuit = AggregationCircuit.variant("sync_step")
+    ctx = circuit.build_context(args, S.OuterSpec, device=dev)
+    srs = SRS.unsafe_setup(S.OUTER_K, device=dev)
+    pk = circuit.create_pk(srs, S.OuterSpec, S.OUTER_K, args, device=dev, ctx=ctx)
+    proof = circuit.prove(pk, srs, args, S.OuterSpec, device=dev, ctx=ctx,
+                          transcript=KeccakTranscript(), blinding_rng=S.seeded(S.OUTER_SEED))
+    stmt = circuit.get_instances(args, S.OuterSpec)
+    assert stmt == [av.value for av in ctx.instance_cells]
+    assert stmt[NUM_ACC_LIMBS:] == inst[0] and len(inst[0]) == 2
+    assert circuit.verify(pk.vk, srs, stmt, proof, device=dev, transcript_cls=KeccakTranscript)
+    bad = list(stmt)
+    bad[0] = (bad[0] + 1) % bn254.R
+    assert not circuit.verify(pk.vk, srs, bad, proof, device=dev,
+                              transcript_cls=KeccakTranscript)
