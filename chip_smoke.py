@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Run spectre_tpu_torch's stage-1 and stage-2 proves on one CUDA GPU, and
-hold each of its kernels against its plain PyTorch version.
+"""Run spectre_tpu_torch's witness acquisition and its stage-1 and stage-2
+proves on one CUDA GPU, and hold each of its kernels against its plain
+PyTorch version.
 
     python3 chip_smoke.py           # every path, full size
     python3 chip_smoke.py --k 21    # the flex slice on the pinning's 2^21 rows
@@ -10,7 +11,7 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
   build    nvcc builds the kernels from spectre_tpu_torch/csrc; prints the
            SASS instruction count of one Montgomery product (cuobjdump on
            the probe kernel) and the registers a thread of K1c, K1c_fixed,
-           K2 and K2b
+           K2, K2b and K6
   K2       complete addition, 2^16 point pairs plus P+P, P+(-P), inf+P and
            inf+inf: equal limb for limb; timed at 2^21 pairs
   K3       Montgomery product at 2^23 elements: equal; timed
@@ -44,6 +45,12 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
            the cross-window K2 fold and K2b over one window of 4096 buckets
            (64 blocks; equal to its plain version); the fixed and glv MSMs
            equal the vanilla MSM
+  K6       BLS12-381 G1 decompression's square root at the committee's 512
+           keys (seeded points, two negations, x = 0 with either sign): equal
+           to its plain version limb for limb and, through
+           g1_decompress_batch, to the host's bls12_381.g1_decompress key for
+           key; an x off the curve raises; K6, its plain version and the host
+           loop timed
   devices  a K=6 circuit proved on the GPU and on the CPU gives the same
            bytes, vanilla and under SPECTRE_MSM_MODE=fixed (the CPU side runs
            in the worker process from the start of the run)
@@ -57,22 +64,42 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
            2^18 -> 2^20 coset LDE (the committee prove's geometry): equal to
            their plain versions, K1's plan kernels K1a and K1b to theirs;
            timed, each of K1's four kernels under torch.profiler
+  acquire  witness acquisition: a TESTNET light_client/sync fixture (512
+           keys, a real aggregate signature; generate_spec_test in the worker
+           process from the start of the run, into a temporary directory)
+           served as Beacon-API JSON by an HTTP server on 127.0.0.1; the
+           port's BeaconClient fetches the head root, the bootstrap, the
+           finality update and the attested period's committee update;
+           step_args_from_finality_update (its pubkeys through K6, its
+           branches and signature checked natively) and
+           rotation_args_from_update make the args, the domain from
+           ssz.compute_domain over the fixture's genesis_validators_root;
+           read_test_files_and_gen_witness gives the same args; the
+           bootstrap's period and committee Poseidon
+           (get_initial_sync_committee_poseidon) are the contract's genesis;
+           the launch counts set to 0 before and read after: K6 launched
   committee
            the CommitteeUpdateCircuit at build/committee_update_testnet_18
-           .pinning.json (512 pubkeys, k=18, 2070 SHA slots): witness,
-           keygen with the k=18 SRS cut from a larger one, prove under the
-           Poseidon transcript (the proof stage 2 takes), verify with it;
-           the instances equal get_instances, a flipped instance fails; the
-           prove's launch count of every kernel on its path must be > 0
+           .pinning.json (512 pubkeys, k=18, 2070 SHA slots): keyed as the
+           prover service keys it, on the default args (made in the worker
+           process): their witness, keygen with the k=18 SRS cut from a
+           larger one; then the acquired rotation args' witness (Pinning.check
+           again), proved under the Poseidon transcript (the proof stage 2
+           takes) and verified under that key; the instances equal
+           get_instances and differ from the default args', a flipped
+           instance fails; the prove's launch count of every kernel on its
+           path must be > 0
   step     the StepCircuit at build/sync_step_testnet_21.pinning.json (512
            pubkeys, k=21, 16 advice, 3 lookup columns, lookup_bits 18):
-           args (made in the worker process from the start of the run),
-           witness, Pinning.check against the tracked file, the k=21
-           SRS, keygen, prove under the Poseidon transcript (the proof stage
-           2 takes), verify; the instances equal get_instances, a flipped
-           instance fails, args with a wrong signature fail the native
-           pre-check; the prove's launch count of every kernel on its path
-           must be > 0; then the same witness, key and blinding seed proved
+           keyed on the default args (made in the worker process): their
+           witness, Pinning.check against the tracked file, the k=21 SRS,
+           keygen; then the acquired step args' witness (Pinning.check
+           again), prove under the Poseidon transcript (the proof stage 2
+           takes), verify under that key; the instances equal get_instances,
+           a flipped instance fails, a copy of the acquired args with a wrong
+           signature fails the native pre-check; the prove's launch count of
+           every kernel on its path must be > 0; then the same witness, key
+           and blinding seed proved
            under SPECTRE_MSM_MODE=glv+signed and =fixed: each proof equal to
            the vanilla proof byte for byte and verified, the fixed form and
            K2 launched in the fixed prove (the fixed walk once a fixed-form
@@ -111,22 +138,24 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
            compiled verifier in the metered VM accept the proof (the tracked
            execution gas, the total within TOTAL_GAS_SLACK) and reject it
            with byte 41 flipped; the tracked proof in the VM gives its
-           recorded gas and size. On chain, in the VM's World: Spectre with
-           the compiled step verifier takes the card's step proof through
-           stepCompressed (the StepInput of the step's args, the committee
-           Poseidon of instances[13]) and reverts on the flipped proof;
-           Spectre with a constant-true step verifier and the compiled
-           committee verifier takes one step to the committee's finalized
-           header, then rotateCompressed with the card's committee proof
-           stores instances[12] as the next period's committee, and the
+           recorded gas and size. On chain, in the VM's World, Spectre
+           constructed with the bootstrap's period and committee Poseidon:
+           with the compiled step verifier it takes the card's step proof
+           through stepCompressed (the StepInput of the acquired step args;
+           the bootstrap's Poseidon is instances[13]) and reverts on the
+           flipped proof; with a constant-true step verifier and the
+           compiled committee verifier it takes one step to the committee's
+           finalized header, then rotateCompressed with the card's committee
+           proof stores instances[12] as the next period's committee, and the
            flipped proof reverts; the phase's seconds
 
 Host jobs that need no card run in one worker process (spawned, no CUDA)
-beside the card's phases: the devices phase's CPU proofs, the step's args
-and the EVM checks. Each phase's start is logged as "[elapsed s] phase",
-on the standard error too; a crash prints the Python stacks there
-(faulthandler). It prints one JSON line of kernel records, then the device line
-{"ok": true, "device": {...}} last. It imports neither jax nor spectre_tpu.
+beside the card's phases: the devices phase's CPU proofs, the beacon data's
+fixture, the committee's and the step's default args and the EVM checks.
+Each phase's start is logged as "[elapsed s] phase", on the standard error
+too; a crash prints the Python stacks there (faulthandler). It prints one
+JSON line of kernel records, then the device line {"ok": true, "device":
+{...}} last. It imports neither jax nor spectre_tpu.
 """
 
 from __future__ import annotations
@@ -143,6 +172,7 @@ import os
 import random
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -180,6 +210,14 @@ IMAD_PER_MONT = 257
 IMAD_PER_PADD = 12 * IMAD_PER_MONT
 # the fixed walk's mixed add: 11 products
 IMAD_PER_MADD = 11 * IMAD_PER_MONT
+# a 384-bit Montgomery product (K6): 144 limb products of a*b and 144 of
+# m*p, each a low and a high half, plus m, counted once as in IMAD_PER_MONT;
+# a squaring needs 78 limb products of a*a (12 squares, 66 doubled cross
+# products) in place of the 144
+IMAD_PER_MONT384 = 4 * 144 + 1
+IMAD_PER_SQR384 = 2 * 78 + 2 * 144 + 1
+# the committee's pubkeys: K6's batch on the main path
+COMMITTEE_KEYS = 512
 
 
 def log(msg: str) -> None:
@@ -215,6 +253,31 @@ def timed_once(torch, fn):
     out = fn()
     torch.cuda.synchronize()
     return out, (time.perf_counter() - t0) * 1e3
+
+
+def window_chain(e: int) -> tuple[int, int, int]:
+    """(squarings, multiplies, window) of the shortest sliding-window
+    addition chain for x^e over windows of 1-8 bits: the odd powers up to
+    the largest digit used (one squaring, then a multiply each), the first
+    window's power as the start, then a squaring a bit and a multiply for
+    each later window."""
+    bits = bin(e)[2:]
+    best = None
+    for w in range(1, 9):
+        i, zeros, windows, top = 0, 0, [], 1
+        while i < len(bits):
+            if bits[i] == "0":
+                zeros, i = zeros + 1, i + 1
+                continue
+            j = min(i + w, len(bits))
+            while bits[j - 1] == "0":
+                j -= 1
+            windows.append(j - i)
+            top, i = max(top, int(bits[i:j], 2)), j
+        counts = (zeros + sum(windows[1:]) + (top > 1), len(windows) - 1 + (top - 1) // 2, w)
+        if best is None or counts[0] + counts[1] < best[0] + best[1]:
+            best = counts
+    return best
 
 
 def limb_err(F, got, want) -> int:
@@ -739,6 +802,237 @@ def k6_proofs(device: str, seed: int) -> dict:
                 seconds=time.perf_counter() - t0)
 
 
+def g1_decompress_phase(torch, dev, seed: int) -> dict:
+    """K6 at the main path's shape, the committee's 512 keys: seeded points
+    and two negations (both sign bits for one x), and x = 0 (on the curve,
+    y = +-2) with either sign. K6 equals its plain version limb for limb
+    (its comparison run is its plain time) and, through
+    g1_decompress_batch, the host's one-key-at-a-time decompression (timed);
+    an x off the curve raises. Returns K6's record."""
+    from spectre_tpu_torch.fields import bls12_381 as bls
+    from spectre_tpu_torch.ops import field384 as F384
+
+    g1 = bls.g1_curve
+    q = g1.mul(bls.G1_GEN, random.Random(seed).randrange(1, bls.R))
+    pts = [q]
+    while len(pts) < COMMITTEE_KEYS - 4:
+        pts.append(g1.add(pts[-1], q))
+    keys = [bls.g1_compress(p) for p in pts] + [bls.g1_compress(g1.neg(p)) for p in pts[:2]]
+    keys += [bytes([0x80]) + bytes(47), bytes([0xA0]) + bytes(47)]
+    require({k[0] & 0x20 for k in keys} == {0, 0x20}, "the keys carry both sign bits")
+    ctx = F384.bls_fq_ctx()
+    xm = ctx.to_tensor([int.from_bytes(bytes([k[0] & 0x1F]) + k[1:], "big") for k in keys], dev)
+    y, ok = F384.decompress_y(xm)
+    (y_plain, ok_plain), plain_ms = timed_once(torch, lambda: F384.decompress_y_plain(xm))
+    err = int((F384._limbs16(y) - F384._limbs16(y_plain)).abs().max())
+    require(err == 0 and torch.equal(ok, ok_plain), "K6 equals its plain version limb for limb")
+    require(bool(ok.all()), "every key's x is on the curve")
+    got = F384.g1_decompress_batch(keys, device=dev)
+    t0 = time.perf_counter()
+    host = [bls.g1_decompress(k) for k in keys]
+    host_ms = (time.perf_counter() - t0) * 1e3
+    require(got == [(int(x), int(y)) for x, y in host],
+            "g1_decompress_batch on the card equals bls12_381.g1_decompress key for key")
+    require(got[-2][0] == 0 and got[-2][1] in (2, ctx.p - 2) and got[-1][1] == ctx.p - got[-2][1],
+            "x = 0 decompresses to y = +-2 by its sign bit")
+    try:
+        F384.g1_decompress_batch([bytes([0x80]) + (1).to_bytes(47, "big")], device=dev)
+        refused = False
+    except ValueError as e:
+        refused = "not on curve" in str(e)
+    require(refused, "an x off the curve (x = 1: 5 is no square) raises")
+    k6_ms = time_ms(torch, lambda: F384.decompress_y(xm), reps=20)
+    # the bound's work: x^3 (a squaring, a multiply), the pow by the
+    # shortest window chain found, the check y^2 (a squaring); K6 itself
+    # runs the binary ladder, a squaring a bit and a multiply a set bit
+    e = ctx.sqrt_exp
+    chain_sq, chain_mul, window = window_chain(e)
+    squarings, multiplies = 1 + chain_sq + 1, 1 + chain_mul
+    kernel_products = 2 + (e.bit_length() - 1) + (bin(e).count("1") - 1) + 1
+    n = len(keys)
+    bm, by = bound_ms(n * (48 + 48 + 4),
+                      n * (squarings * IMAD_PER_SQR384 + multiplies * IMAD_PER_MONT384))
+    log(f"K6: equal to its plain version and to the host on {n} keys (both signs, x = 0); "
+        f"an x off the curve raises; {k6_ms:.3f} ms (plain {plain_ms:.1f} ms, host loop "
+        f"{host_ms:.1f} ms; bound {bm:.4f} ms by {by}: {squarings} squarings and "
+        f"{multiplies} multiplies a key, the pow by a {window}-bit window chain of "
+        f"{chain_sq} + {chain_mul}; K6 runs {kernel_products} products a key)")
+    return dict(ms=k6_ms, plain_ms=plain_ms, bound_ms=bm, bound_by=by, max_abs_err=err,
+                host_ms=host_ms, shape=f"{n} keys", bound_squarings_a_key=squarings,
+                bound_multiplies_a_key=multiplies, chain=dict(
+                    window=window, squarings=chain_sq, multiplies=chain_mul),
+                kernel_products_a_key=kernel_products,
+                library_note="no PyTorch call computes a square root mod p")
+
+
+def beacon_routes(test_dir: str, spec) -> tuple[int, dict]:
+    """A consensus-spec-test fixture as Beacon-API JSON: {path: body} of the
+    head root, the bootstrap, the finality update (the flattened shape the
+    preprocessor reads: plain headers, the execution payload root and
+    branch at the top level, the bits in hex) and the committee update of
+    the attested period (its finalized header is the step's attested
+    header, its branch the chain's container-depth one), with that
+    period."""
+    from spectre_tpu_torch.preprocessor import spec_tests as ST, ssz
+
+    boot = ST.load_snappy_ssz(os.path.join(test_dir, "bootstrap.ssz_snappy"),
+                              ssz.light_client_bootstrap(spec))
+    update = ST.valid_updates_from_test_path(test_dir, spec)[0]
+    root = ST.read_meta(test_dir)["trusted_block_root"]
+    exec_type = ssz.execution_payload_header(spec.bytes_per_logs_bloom, spec.max_extra_data_bytes)
+    hx = lambda b: "0x" + bytes(b).hex()  # noqa: E731
+
+    def header(h):
+        return {"slot": str(h.slot), "proposer_index": str(h.proposer_index),
+                "parent_root": hx(h.parent_root), "state_root": hx(h.state_root),
+                "body_root": hx(h.body_root)}
+
+    def committee(c):
+        return {"pubkeys": [hx(pk) for pk in c.pubkeys], "aggregate_pubkey": hx(c.aggregate_pubkey)}
+
+    agg = update.sync_aggregate
+    period = spec.sync_period(update.attested_header.beacon.slot)
+    return period, {
+        "/eth/v1/beacon/blocks/head/root": {"data": {"root": root}},
+        f"/eth/v1/beacon/light_client/bootstrap/{root}": {"data": {
+            "header": {"beacon": header(boot.header.beacon)},
+            "current_sync_committee": committee(boot.current_sync_committee),
+            "current_sync_committee_branch": [hx(b) for b in boot.current_sync_committee_branch]}},
+        "/eth/v1/beacon/light_client/finality_update": {"data": {
+            "attested_header": header(update.attested_header.beacon),
+            "finalized_header": header(update.finalized_header.beacon),
+            "finality_branch": [hx(b) for b in update.finality_branch],
+            "execution_payload_root": hx(exec_type.hash_tree_root(
+                update.finalized_header.execution)),
+            "execution_branch": [hx(b) for b in update.finalized_header.execution_branch],
+            "sync_aggregate": {
+                "sync_committee_bits": hx(ssz.Bitvector(spec.sync_committee_size).encode(
+                    agg.sync_committee_bits)),
+                "sync_committee_signature": hx(agg.sync_committee_signature)}}},
+        f"/eth/v1/beacon/light_client/updates?start_period={period}&count=1": [{"data": {
+            "finalized_header": header(update.attested_header.beacon),
+            "next_sync_committee": committee(update.next_sync_committee),
+            "next_sync_committee_branch": [hx(b) for b in update.next_sync_committee_branch]}}],
+    }
+
+
+@contextlib.contextmanager
+def beacon_server(routes: dict, answer=None):
+    """A Beacon-API server on 127.0.0.1 (a free port) that answers GETs from
+    routes, in a thread; yields its URL and is stopped on exit. answer, if
+    given, sees each path first: a (status, headers) it returns is sent
+    with an empty body in place of the route (a flaky beacon's 503)."""
+    import threading
+    from http.server import BaseHTTPRequestHandler, HTTPServer
+
+    class Handler(BaseHTTPRequestHandler):
+        def do_GET(self):
+            early = answer(self.path) if answer is not None else None
+            if early is not None:
+                status, headers = early
+                self.send_response(status)
+                for k, v in headers.items():
+                    self.send_header(k, v)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+                return
+            body = routes.get(self.path)
+            data = b"" if body is None else json.dumps(body).encode()
+            self.send_response(404 if body is None else 200)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+
+        def log_message(self, *a):
+            pass
+
+    httpd = HTTPServer(("127.0.0.1", 0), Handler)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{httpd.server_port}"
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join()
+
+
+def acquire(torch, dev, fixture, test_dir: str) -> dict:
+    """Witness acquisition on the fixture that `fixture` (a future: the
+    worker process's generate_spec_test) writes into test_dir: the fixture
+    served as Beacon-API JSON on 127.0.0.1, the port's BeaconClient fetches
+    the head root, the bootstrap, the finality update and the committee
+    updates of the attested period; step_args_from_finality_update (its
+    pubkeys through K6) and rotation_args_from_update make the args, with
+    the domain from ssz.compute_domain over the fixture's
+    genesis_validators_root. The spec-test loader must give the same args,
+    every branch verifies, and the bootstrap gives the contract's genesis
+    (period, committee Poseidon). The launch counts are set to 0 before and
+    read after: K6 must have run."""
+    from spectre_tpu_torch import spec as SPEC
+    from spectre_tpu_torch.ops import kernel_lib as KL
+    from spectre_tpu_torch.preprocessor import (BeaconClient, rotation_args_from_update,
+                                                spec_tests as ST, ssz,
+                                                step_args_from_finality_update)
+
+    spec, secs = SPEC.TESTNET, {}
+    t0 = time.perf_counter()
+    _, secs["fixture"] = fixture.result()
+    secs["fixture_wait"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    period, routes = beacon_routes(test_dir, spec)
+    gvr = bytes.fromhex(ST.read_meta(test_dir)["genesis_validators_root"][2:])
+    domain = ssz.compute_domain(ssz.DOMAIN_SYNC_COMMITTEE, ST.CAPELLA_FORK_VERSION[spec.name], gvr)
+    secs["serve_json"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    KL.reset_launch_counts()
+    t_path = time.perf_counter()
+    with beacon_server(routes) as url:
+        client = BeaconClient(url, timeout=30.0)
+        root = client.head_block_root()
+        bootstrap = client.bootstrap(root)
+        finality = client.finality_update()
+        attested_period = client.sync_period(spec, int(finality["attested_header"]["slot"]))
+        committee_update = client.committee_updates(attested_period)[0]
+    secs["fetch"] = time.perf_counter() - t_path
+    t0 = time.perf_counter()
+    step_args = step_args_from_finality_update(
+        finality, bootstrap["current_sync_committee"]["pubkeys"], domain, spec, device=dev)
+    secs["step_args"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rotation_args = rotation_args_from_update(committee_update, spec)
+    secs["rotation_args"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = ST.read_test_files_and_gen_witness(test_dir, spec, device=dev)
+    secs["loader"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    genesis = ST.get_initial_sync_committee_poseidon(test_dir, spec, device=dev)
+    secs["genesis"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    secs["path"] = time.perf_counter() - t_path
+    launches = KL.launch_counts()
+    require(attested_period == period and len(step_args.pubkeys_uncompressed) == COMMITTEE_KEYS,
+            "the committee update of the attested period, 512 pubkeys")
+    require(loaded == (step_args, rotation_args),
+            "read_test_files_and_gen_witness gives the args fetched over HTTP")
+    ST.verify_witness_branches(spec, step_args, rotation_args)
+    require(rotation_args.finalized_header == step_args.attested_header
+            and ST.update_has_finality(step_args),
+            "the rotation's finalized header is the step's attested header; the update is final")
+    require(genesis[0] == spec.sync_period(step_args.attested_header.slot),
+            "the bootstrap's period is the attested slot's")
+    require(launches["K6_g1_decompress"] == 3, "K6 launched once a decompression (the "
+            "preprocessor, the loader, the bootstrap's Poseidon)")
+    log(f"acquire: the fixture (seed-made in the worker process, {secs['fixture']:.1f} s) over "
+        f"HTTP at {url}; args equal the loader's, branches verify, signature verified; "
+        f"genesis period {genesis[0]}, committee Poseidon {hex(genesis[1])}; seconds "
+        + json.dumps({k: round(v, 3) for k, v in secs.items()})
+        + "; launches " + json.dumps({k: v for k, v in launches.items() if v}))
+    return dict(step_args=step_args, rotation_args=rotation_args, genesis=genesis,
+                seconds=secs, launches=launches)
+
+
 def timed_call(fn, *args):
     """(fn(*args), its seconds): a job of the worker process."""
     t0 = time.perf_counter()
@@ -746,22 +1040,23 @@ def timed_call(fn, *args):
     return out, time.perf_counter() - t0
 
 
-def circuit_path(torch, dev, seed: int, circuit, k: int, make_args, shape,
-                 describe, flip: int, check_args=None, modes=(), transcript_cls=None,
-                 args_from=None) -> dict:
+def circuit_path(torch, dev, seed: int, circuit, k: int, args_from, prove_args, shape,
+                 describe, flip: int, check_args=None, modes=(), transcript_cls=None) -> dict:
     """One application circuit at its pinned testnet shape, through the
-    entry points a user calls: args, witness, pinning (Pinning.check against
-    the tracked file), SRS, keygen, prove, verify. shape(cfg, args) is the
-    tuple the pinned shape must give, with describe as its name; flip, the
-    instance flipped for the negative verify; check_args(spec, args), an
-    extra check of the args; modes, the MSM modes whose proofs of the same
-    witness, key and blinding seed must equal the vanilla proof;
-    transcript_cls, the prove's and the verifier's transcript (default
-    Blake2b); args_from, a future of (args, seconds) that timed_call gives
-    in the worker process, in place of make_args here. Returns the phase
-    seconds, keygen's and the prove's phases, peak memory and launch
-    counts, per mode the same of its prove, and the proof with its vk, SRS
-    and instances."""
+    entry points a user calls, keyed as the prover service keys it and
+    proving what a light client serves: the default args' witness, pinning
+    (Pinning.check against the tracked file), SRS and keygen; then the
+    witness of prove_args (acquired from beacon data), its pinning check,
+    prove and verify under that key. args_from is a future of the default
+    args and their seconds (timed_call in the worker process). shape(cfg,
+    args) is the tuple the pinned shape must give, with describe as its
+    name; flip, the instance flipped for the negative verify;
+    check_args(spec, args), an extra check of prove_args; modes, the MSM
+    modes whose proofs of the same witness, key and blinding seed must equal
+    the vanilla proof; transcript_cls, the prove's and the verifier's
+    transcript (default Blake2b). Returns the phase seconds, keygen's and the
+    prove's phases, peak memory and launch counts, per mode the same of its
+    prove, and the proof with its vk, SRS, instances and args."""
     from spectre_tpu_torch import spec as SPEC
     from spectre_tpu_torch.fields import bn254
     from spectre_tpu_torch.ops import kernel_lib as KL, msm as M
@@ -774,24 +1069,19 @@ def circuit_path(torch, dev, seed: int, circuit, k: int, make_args, shape,
     require(os.path.exists(circuit.pinning_path(spec, k)),
             f"the tracked {name} pinning file is present")
     t0 = time.perf_counter()
-    if args_from is None:
-        args = make_args(spec)
-        phases["args"] = time.perf_counter() - t0
-    else:
-        args, phases["args"] = args_from.result()
-        phases["args_wait"] = time.perf_counter() - t0
+    key_args, phases["key_args"] = args_from.result()
+    phases["key_args_wait"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    ctx = circuit.build_context(args, spec, device=dev)
-    phases["witness"] = time.perf_counter() - t0
+    key_ctx = circuit.build_context(key_args, spec, device=dev)
+    phases["key_witness"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    cfg = circuit.pinning(spec, k, ctx).config
+    cfg = circuit.pinning(spec, k, key_ctx).config
     phases["pinning"] = time.perf_counter() - t0
-    require(shape(cfg, args), f"the pinned {name} shape ({describe})")
+    require(shape(cfg, key_args), f"the pinned {name} shape ({describe})")
     log(f"{name}: {describe}, k={cfg.k} advice={cfg.num_advice} lookup={cfg.lookup_tables} "
         f"lookup_bits={cfg.lookup_bits} fixed={cfg.num_fixed} sha_slots={cfg.num_sha_slots}; "
-        f"break points equal the pinning's; {json.dumps(ctx.stats())}")
-    if check_args is not None:
-        check_args(spec, args)
+        f"keyed on the default args, whose break points equal the pinning's; "
+        f"{json.dumps(key_ctx.stats())}")
     cached = [j for j in range(k, 27)
               if os.path.exists(os.path.join(PARAMS_DIR, f"kzg_bn254_{j}.srs"))]
     t0 = time.perf_counter()
@@ -804,10 +1094,33 @@ def circuit_path(torch, dev, seed: int, circuit, k: int, make_args, shape,
     KL.reset_launch_counts()
     ktimer = PhaseTimer(torch.device(dev))
     t0 = time.perf_counter()
-    pk = circuit.create_pk(srs, spec, k, args, device=dev, ctx=ctx, timer=ktimer)
+    pk = circuit.create_pk(srs, spec, k, key_args, device=dev, ctx=key_ctx, timer=ktimer)
     torch.cuda.synchronize()
     phases["keygen"] = time.perf_counter() - t0
     keygen_counts = KL.launch_counts()
+    del key_ctx
+
+    # the acquired args: their witness at the same pinning, under that key
+    args = prove_args
+    t0 = time.perf_counter()
+    ctx = circuit.build_context(args, spec, device=dev)
+    phases["witness"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    require(circuit.pinning(spec, k, ctx).config == cfg and shape(cfg, args),
+            f"the acquired args' {name} witness has the pinned shape")
+    phases["witness_pinning"] = time.perf_counter() - t0
+    # its layout (memoized on the context; keygen laid out the key's), apart
+    # from the prove's seconds
+    t0 = time.perf_counter()
+    ctx.layout(cfg)
+    phases["layout"] = time.perf_counter() - t0
+    key_instances = circuit.get_instances(key_args, spec)
+    require(circuit.get_instances(args, spec) != key_instances,
+            "the acquired args' instances differ from the default args'")
+    log(f"  the acquired args' witness: {phases['witness']:.1f} s, break points equal the "
+        f"pinning's; {json.dumps(ctx.stats())}")
+    if check_args is not None:
+        check_args(spec, args)
 
     timer = PhaseTimer(torch.device(dev))
     r = random.Random(seed)
@@ -843,8 +1156,10 @@ def circuit_path(torch, dev, seed: int, circuit, k: int, make_args, shape,
                                              for key, v in timer.seconds.items()}))
     log(f"  transcript {transcript_cls.__name__}; "
         f"vk digest {pk.vk.digest().hex()}")
-    log(f"  proof {len(proof)} bytes, verified, flipped instance rejected; instances "
-        f"{[hex(v) for v in instances]}; peak device memory {peak:.1f} GiB")
+    log(f"  proof of the acquired args {len(proof)} bytes, verified under the key of the "
+        f"default args, flipped instance rejected; instances {[hex(v) for v in instances]} "
+        f"(the default args': {[hex(v) for v in key_instances]}); peak device memory "
+        f"{peak:.1f} GiB")
     log(f"  launches: keygen {json.dumps(keygen_counts)}, prove {json.dumps(prove_counts)}")
 
     by_mode = {}
@@ -888,35 +1203,38 @@ def circuit_path(torch, dev, seed: int, circuit, k: int, make_args, shape,
     M.clear_tables()
     return dict(phases=phases, keygen_phases=ktimer.seconds, prove_phases=timer.seconds,
                 peak_gib=peak, keygen_launches=keygen_counts, prove_launches=prove_counts,
-                modes=by_mode, proof=proof, vk=pk.vk, srs=srs, instances=instances, args=args)
+                modes=by_mode, proof=proof, vk=pk.vk, srs=srs, instances=instances, args=args,
+                key_instances=key_instances)
 
 
-def committee_path(torch, dev, seed: int) -> dict:
+def committee_path(torch, dev, seed: int, args_from, acquired) -> dict:
     """The CommitteeUpdateCircuit at build/committee_update_testnet_18
     .pinning.json: 512 pubkeys, k=18, 22 advice columns, 2070 SHA slots,
-    proved under the Poseidon transcript (the proof stage 2 aggregates)."""
+    keyed on its default args (args_from: their future, made in the worker
+    process), proving the acquired rotation args under the Poseidon
+    transcript (the proof stage 2 aggregates)."""
     from spectre_tpu_torch.models import CommitteeUpdateCircuit
     from spectre_tpu_torch.plonk.transcript import PoseidonTranscript
-    from spectre_tpu_torch.witness import default_committee_update_args
 
     return circuit_path(
-        torch, dev, seed, CommitteeUpdateCircuit, COMMITTEE_K, default_committee_update_args,
+        torch, dev, seed, CommitteeUpdateCircuit, COMMITTEE_K, args_from,
+        acquired["rotation_args"],
         lambda cfg, a: (cfg.k, cfg.num_advice, cfg.num_sha_slots,
                         len(a.pubkeys_compressed)) == (COMMITTEE_K, 22, 2070, 512),
         "512 pubkeys, k=18, 22 advice, 2070 SHA slots", flip=0,
         transcript_cls=PoseidonTranscript)
 
 
-def step_path(torch, dev, seed: int, args_from) -> dict:
+def step_path(torch, dev, seed: int, args_from, acquired) -> dict:
     """The StepCircuit at build/sync_step_testnet_21.pinning.json: 512
-    pubkeys, k=21, 16 advice and 3 lookup columns, lookup_bits 18, proved
-    under the Poseidon transcript (the proof stage 2 aggregates); args with
-    a wrong signature must fail the native pre-check. args_from: the
-    future of its default args, made in the worker process."""
+    pubkeys, k=21, 16 advice and 3 lookup columns, lookup_bits 18, keyed on
+    its default args (args_from: their future, made in the worker process),
+    proving the acquired step args under the Poseidon transcript (the proof
+    stage 2 aggregates); a copy of the acquired args with a wrong signature
+    must fail the native pre-check."""
     from spectre_tpu_torch.fields import bls12_381 as bls
     from spectre_tpu_torch.models import StepCircuit
     from spectre_tpu_torch.plonk.transcript import PoseidonTranscript
-    from spectre_tpu_torch.witness import default_sync_step_args
 
     def wrong_signature_refused(spec, args):
         bad = dataclasses.replace(
@@ -930,12 +1248,11 @@ def step_path(torch, dev, seed: int, args_from) -> dict:
         log("  a wrong signature fails the native pre-check")
 
     return circuit_path(
-        torch, dev, seed, StepCircuit, STEP_K, default_sync_step_args,
+        torch, dev, seed, StepCircuit, STEP_K, args_from, acquired["step_args"],
         lambda cfg, a: (cfg.k, cfg.num_advice, cfg.num_lookup_advice, cfg.lookup_bits,
                         len(a.pubkeys_uncompressed)) == (STEP_K, 16, 3, 18, 512),
         "512 pubkeys, k=21, 16 advice, 3 lookup columns, lookup_bits 18", flip=1,
-        check_args=wrong_signature_refused, modes=STEP_MODES, transcript_cls=PoseidonTranscript,
-        args_from=args_from)
+        check_args=wrong_signature_refused, modes=STEP_MODES, transcript_cls=PoseidonTranscript)
 
 
 def measured(torch, phases: dict, name: str, fn):
@@ -1047,7 +1364,7 @@ def tracked_proofs(inner: dict, name: str, circuit, vk, srs) -> dict:
     return {
         "inner_vk_digest": inner["vk"].digest().hex(), "outer_vk_digest": vk.digest().hex(),
         "tracked_outer_vk_digest": m.group(1)[2:] if m else None,
-        "tracked_inner_instances_equal_ours": agg_inst[NUM_ACC_LIMBS:] == inner["instances"],
+        "tracked_inner_instances_are_the_keys": agg_inst[NUM_ACC_LIMBS:] == inner["key_instances"],
         "inner_proof_verifies": verify(inner["vk"], inner["srs"], [agg_inst[NUM_ACC_LIMBS:]],
                                        inner_proof, transcript_cls=PoseidonTranscript),
         "outer_proof_verifies": circuit.verify(vk, srs, agg_inst, agg_proof,
@@ -1150,8 +1467,9 @@ def aggregation_path(torch, dev, seed: int, inner: dict, name: str) -> dict:
     # explains a different outer digest
     require(tracked["inner_proof_verifies"],
             f"the tracked {entry['inner_proof']} verifies under the port's inner vk")
-    require(tracked["tracked_inner_instances_equal_ours"],
-            "the tracked compressed proof's inner instances are ours")
+    require(tracked["tracked_inner_instances_are_the_keys"],
+            "the tracked compressed proof's inner instances are those of the default args, "
+            "which key the inner circuit")
     require(tracked["outer_vk_digest"] == tracked["tracked_outer_vk_digest"],
             f"the outer vk digest equals the VK_DIGEST of build/{entry['sol']}")
     require(tracked["outer_proof_verifies"],
@@ -1227,14 +1545,17 @@ def evm_checks_apart(*args) -> tuple[dict, str]:
         raise RuntimeError(f"{buf.getvalue()}{type(e).__name__}: {e}") from None
 
 
-def evm_checks(sol: str, instances: list, proof: bytes, name: str, inner_args) -> dict:
+def evm_checks(sol: str, instances: list, proof: bytes, name: str, inner_args,
+               genesis: tuple) -> dict:
     """The checks of the evm phase on a generated verifier `sol` and one
     compressed proof with its instances (COMPRESSED[name]): the source
     against the tracked verifier, the bytecode against the tracked
     source's; calldata; the simulator and the metered VM accept the proof
     and reject it with a byte flipped; the tracked proof in the VM; then
-    the Spectre contract on chain (step_on_chain or rotate_on_chain).
-    Returns the seconds of each part and the numbers printed."""
+    the Spectre contract on chain (step_on_chain or rotate_on_chain),
+    constructed with genesis = (period, committee Poseidon) of the beacon
+    data's bootstrap. Returns the seconds of each part and the numbers
+    printed."""
     from spectre_tpu_torch.evm import encode_calldata
     from spectre_tpu_torch.evm.simulator import run_verifier
     from spectre_tpu_torch.evm.solc import compile_verifier, vm_verify
@@ -1327,7 +1648,7 @@ def evm_checks(sol: str, instances: list, proof: bytes, name: str, inner_args) -
     # 4. on chain
     t0 = time.perf_counter()
     on_chain = step_on_chain if name == "step" else rotate_on_chain
-    nums["on_chain"] = on_chain(init, instances, proof, inner_args)
+    nums["on_chain"] = on_chain(init, instances, proof, inner_args, genesis)
     secs["on_chain"] = time.perf_counter() - t0
     secs["phase"] = time.perf_counter() - t_phase
     return dict(seconds=secs, numbers=nums)
@@ -1378,13 +1699,14 @@ def padded(pf: bytes) -> bytes:
     return len(pf).to_bytes(32, "big") + pf + b"\x00" * (-len(pf) % 32)
 
 
-def step_on_chain(init: bytes, instances: list, proof: bytes, args) -> dict:
-    """Spectre with the compiled step verifier and the committee Poseidon
-    of instances[13] for the attested period: stepCompressed with the
-    StepInput of the step's args (its commitment is instances[12]) reverts
-    on the flipped proof, leaving head() where it was, and takes the
-    card's proof: head() moves to the finalized slot and both roots are
-    stored."""
+def step_on_chain(init: bytes, instances: list, proof: bytes, args, genesis: tuple) -> dict:
+    """Spectre with the compiled step verifier, constructed as the
+    reference's test-utils constructs it from the bootstrap: genesis =
+    (its period, which is the attested slot's, and its committee's
+    Poseidon, which is instances[13]). stepCompressed with the StepInput of
+    the step's args (its commitment is instances[12]) reverts on the
+    flipped proof, leaving head() where it was, and takes the card's proof:
+    head() moves to the finalized slot and both roots are stored."""
     from spectre_tpu_torch import spec as SPEC
     from spectre_tpu_torch.contracts.spectre import StepInput
     from spectre_tpu_torch.models.aggregation import NUM_ACC_LIMBS
@@ -1397,8 +1719,12 @@ def step_on_chain(init: bytes, instances: list, proof: bytes, args) -> dict:
                     execution_payload_root=args.execution_payload_root)
     require(inp.to_public_inputs_commitment() == instances[NUM_ACC_LIMBS],
             "the StepInput's public-input commitment is instances[12]")
-    chain = Chain(init, constant_verifier(False), spec.sync_period(inp.attested_slot),
-                  instances[NUM_ACC_LIMBS + 1])
+    period, poseidon = genesis
+    require(period == spec.sync_period(inp.attested_slot)
+            and poseidon == instances[NUM_ACC_LIMBS + 1],
+            "the bootstrap's period is the attested slot's and its committee Poseidon is "
+            "instances[13]")
+    chain = Chain(init, constant_verifier(False), period, poseidon)
 
     def step(pf: bytes):
         return chain.transact(STEP_C_SIG, words(
@@ -1431,11 +1757,13 @@ def step_on_chain(init: bytes, instances: list, proof: bytes, args) -> dict:
     return out
 
 
-def rotate_on_chain(init: bytes, instances: list, proof: bytes, args) -> dict:
+def rotate_on_chain(init: bytes, instances: list, proof: bytes, args, genesis: tuple) -> dict:
     """Spectre with a constant-true step verifier and the compiled committee
-    verifier: one step to the committee's finalized header, then
-    rotateCompressed with the card's proof stores instances[12] as the next
-    period's committee, and the flipped proof reverts."""
+    verifier, constructed with genesis = (period, committee Poseidon) of the
+    bootstrap: one step to the committee's finalized header (the step's
+    attested header), then rotateCompressed with the card's proof stores
+    instances[12] as the next period's committee, and the flipped proof
+    reverts."""
     from spectre_tpu_torch import spec as SPEC
     from spectre_tpu_torch.contracts.spectre import StepInput
     from spectre_tpu_torch.models.aggregation import NUM_ACC_LIMBS
@@ -1450,9 +1778,10 @@ def rotate_on_chain(init: bytes, instances: list, proof: bytes, args) -> dict:
     inp = StepInput(attested_slot=header.slot + 3, finalized_slot=header.slot,
                     participation=spec.sync_committee_size, finalized_header_root=root,
                     execution_payload_root=keccak256(b"execution payload root"))
-    current_poseidon = int.from_bytes(keccak256(b"current committee"), "big") % (1 << 253)
-    chain = Chain(constant_verifier(True), init, spec.sync_period(inp.attested_slot),
-                  current_poseidon)
+    period, poseidon = genesis
+    require(period == spec.sync_period(inp.attested_slot),
+            "the bootstrap's period is the committee's finalized header's")
+    chain = Chain(constant_verifier(True), init, period, poseidon)
     ok, why, step_gas = chain.transact(
         "step((uint64,uint64,uint64,bytes32,bytes32),bytes)",
         words(inp.attested_slot, inp.finalized_slot, inp.participation) + root
@@ -1518,15 +1847,18 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    # host work that needs no card (the K=6 proofs on the CPU, the step's
-    # args, the EVM checks) runs in a second process beside the card's
-    with concurrent.futures.ProcessPoolExecutor(
-            1, mp_context=multiprocessing.get_context("spawn")) as pool:
-        return run(args, t_start, pool)
+    # host work that needs no card (the K=6 proofs on the CPU, the beacon
+    # data's fixture, the default args, the EVM checks) runs in a second
+    # process beside the card's; the fixture lives in a temporary directory
+    with tempfile.TemporaryDirectory(prefix="spectre-beacon-") as fixture_dir, \
+            concurrent.futures.ProcessPoolExecutor(
+                1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        return run(args, t_start, pool, fixture_dir)
 
 
-def run(args, t_start: float, pool) -> int:
-    """The phases, in order; `pool` runs the host jobs."""
+def run(args, t_start: float, pool, fixture_dir: str) -> int:
+    """The phases, in order; `pool` runs the host jobs, the beacon data's
+    fixture is written into fixture_dir."""
     import torch
 
     def mark(phase: str) -> None:
@@ -1545,10 +1877,15 @@ def run(args, t_start: float, pool) -> int:
     from spectre_tpu_torch.plonk.prover import PhaseTimer, prove
     from spectre_tpu_torch.plonk.srs import SRS, g1_powers_device
     from spectre_tpu_torch.plonk.verifier import verify
-    from spectre_tpu_torch.witness import (config_from_pinning, default_sync_step_args,
-                                           flex_circuit)
+    from spectre_tpu_torch.preprocessor.spec_tests import generate_spec_test
+    from spectre_tpu_torch.witness import (config_from_pinning, default_committee_update_args,
+                                           default_sync_step_args, flex_circuit)
 
+    # the worker's jobs, in the order the phases need them
     cpu_k6 = pool.submit(k6_proofs, "cpu", args.seed)
+    fixture = pool.submit(timed_call, generate_spec_test, fixture_dir, SPEC.TESTNET, args.seed,
+                          "sync", "cpu")
+    committee_args = pool.submit(timed_call, default_committee_update_args, SPEC.TESTNET)
     step_args = pool.submit(timed_call, default_sync_step_args, SPEC.TESTNET)
     dev = torch.device("cuda")
     fr, fq = F.fr_ctx(), F.fq_ctx()
@@ -1590,9 +1927,10 @@ def run(args, t_start: float, pool) -> int:
     sass = KL.sass_opcodes(KL._target("field_kernels"))
     probe = next(v for k, v in sass.items() if "mont_mul_probe_kernel" in k)
     regs = KL.ptxas_registers(os.path.join(KL.BUILD_DIR, "msm_kernels.log"))
+    regs.update(KL.ptxas_registers(os.path.join(KL.BUILD_DIR, "field384_kernels.log")))
     reg_of = {rec: next(v for k, v in regs.items() if KL.KERNELS[rec].symbol in k)
               for rec in ("K1c_bucket_walk", "K1c_fixed_walk", "K2_padd",
-                          "K2b_bucket_aggregate")}
+                          "K2b_bucket_aggregate", "K6_g1_decompress")}
     top = sorted(probe.items(), key=lambda kv: -kv[1])[:8]
     log(f"sass: one Montgomery product (probe kernel, its 16 loads and 8 stores "
         f"included) {sum(probe.values())} instructions, {dict(top)}; registers a thread "
@@ -1829,6 +2167,10 @@ def run(args, t_start: float, pool) -> int:
     records["K1_fixed"], records["K1c_fixed_walk"] = k1_fixed_phase(torch, dev, gen, pts)
     del pts
 
+    # --- K6 --------------------------------------------------------------------
+    mark("K6")
+    records["K6_g1_decompress"] = g1_decompress_phase(torch, dev, args.seed)
+
     # --- devices: one circuit, GPU and CPU, same proof bytes ------------------
     mark("devices")
     gpu = k6_proofs("cuda", args.seed)
@@ -1892,13 +2234,16 @@ def run(args, t_start: float, pool) -> int:
     for name, key in (("K1c_bucket_walk", "K1"), ("K2b_bucket_aggregate", "K2b"),
                       ("K4_ntt", "K4")):
         records[name]["committee_geometry"] = geometry[key]
+    # --- acquire: beacon data -> the args the committee and the step prove ---
+    mark("acquire")
+    acquired = acquire(torch, dev, fixture, fixture_dir)
     log("resident before the committee: " + resident(torch))
     mark("committee")
-    committee = committee_path(torch, dev, args.seed)
+    committee = committee_path(torch, dev, args.seed, committee_args, acquired)
     torch.cuda.empty_cache()
     log("resident before the step: " + resident(torch))
     mark("step")
-    step = step_path(torch, dev, args.seed, step_args)
+    step = step_path(torch, dev, args.seed, step_args, acquired)
     torch.cuda.empty_cache()
     log("resident before the step's aggregation: " + resident(torch))
     mark("step-aggregation")
@@ -1908,14 +2253,14 @@ def run(args, t_start: float, pool) -> int:
     # runs them beside the next phases
     step_sol, step_gen_s = generated_verifier(step_agg, "step")
     step_evm = pool.submit(evm_checks_apart, step_sol, step_agg["instances"], step_agg["proof"],
-                           "step", step["args"])
+                           "step", step["args"], acquired["genesis"])
     # --- aggregation, aggregation-kernels ----------------------------------------
     log("resident before the aggregation: " + resident(torch))
     mark("aggregation")
     agg = aggregation_path(torch, dev, args.seed, committee, "committee")
     committee_sol, committee_gen_s = generated_verifier(agg, "committee")
     committee_evm = pool.submit(evm_checks_apart, committee_sol, agg["instances"], agg["proof"],
-                                "committee", committee["args"])
+                                "committee", committee["args"], acquired["genesis"])
     torch.cuda.empty_cache()
     mark("aggregation-kernels")
     geometry = geometry_kernels(torch, dev, gen, args.seed, AGG_K, 2)
@@ -1936,11 +2281,14 @@ def run(args, t_start: float, pool) -> int:
     for name, info in KL.KERNELS.items():
         rec = dict(records[name])
         by_mode = {mode: v["launches"][name] for mode, v in step["modes"].items()}
+        # the fixed form's path is the fixed-mode step prove, K6's the
+        # acquisition, every other kernel's the slice
+        launches = (by_mode["fixed"] if name in FIXED_ONLY else
+                    acquired["launches"][name] if name == "K6_g1_decompress" else counts[name])
         kernels.append({
             "name": name, "route": "cuda", "source": info.source,
-            "replaces": info.replaces,
-            # the fixed form's path is the fixed-mode step prove
-            "launches": by_mode["fixed"] if name in FIXED_ONLY else counts[name],
+            "replaces": info.replaces, "launches": launches,
+            "acquire_launches": acquired["launches"][name],
             "step_launches_by_mode": by_mode,
             "committee_launches": committee["prove_launches"][name],
             "committee_keygen_launches": committee["keygen_launches"][name],

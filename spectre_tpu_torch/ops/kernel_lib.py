@@ -2,8 +2,8 @@
 
 The sources live in `spectre_tpu_torch/csrc/`: `bn254.cuh` (the shared
 field and curve arithmetic), `bucket.cuh`, `aggregate.cuh` and `ntt.cuh`
-(the per-block bodies of K1, K2b and K4) and one `.cu` file per library
-with a plain C
+(the per-block bodies of K1, K2b and K4), `field384.cuh` (BLS12-381 Fq and
+K6's per-key body) and one `.cu` file per library with a plain C
 interface. At first use each library is compiled by `nvcc` for `sm_90a` into
 `build/torch_kernels/` at the repository root (a directory git ignores),
 every source in its own `nvcc` process, all started together, and loaded
@@ -56,8 +56,11 @@ LIBRARIES = {
         "spt_mont_mul": [_VP, _VP, _LONG, _VP, _LONG, _INT, _VP],
         "spt_ntt_pass": [_VP, _VP, _VP, _LONG, _INT, _INT, _INT, _INT, _VP],
     }),
+    "field384_kernels": ("field384_kernels.cu", {
+        "spt_g1_sqrt": [_VP, _VP, _VP, _LONG, _VP],
+    }),
 }
-HEADERS = ("aggregate.cuh", "bn254.cuh", "bucket.cuh", "ntt.cuh")
+HEADERS = ("aggregate.cuh", "bn254.cuh", "bucket.cuh", "field384.cuh", "ntt.cuh")
 
 # host library -> (source file, {C function: argtypes}), built by the host
 # C++ compiler
@@ -105,6 +108,9 @@ KERNELS = {k.name: k for k in (
                "spectre_tpu/ops/field_ops.py:136 (XLA, no Pallas kernel)", "mont_mul_kernel"),
     KernelInfo("K4_ntt", _FIELD_CU,
                "spectre_tpu/ops/ntt.py:460 (XLA, no Pallas kernel)", "ntt_pass_kernel"),
+    KernelInfo("K6_g1_decompress", "spectre_tpu_torch/csrc/field384_kernels.cu",
+               "spectre_tpu/ops/field384.py:152 _decompress_fn (XLA, no Pallas kernel)",
+               "g1_sqrt_kernel"),
 )}
 
 

@@ -350,3 +350,30 @@ def test_step_shaped_outer_prove_verifies(dev):
     bad[0] = (bad[0] + 1) % bn254.R
     assert not circuit.verify(pk.vk, srs, bad, proof, device=dev,
                               transcript_cls=KeccakTranscript)
+
+
+def test_k6_g1_decompress(dev):
+    """K6 on 64 keys (both sign bits, x = 0) equals its plain version limb
+    for limb and the host's per-key decompression; an x off the curve is
+    flagged and raises; one launch a batch."""
+    from spectre_tpu_torch.fields import bls12_381 as bls
+    from spectre_tpu_torch.ops import field384 as F384
+
+    r = random.Random(6)
+    pts = [bls.g1_curve.mul(bls.G1_GEN, r.randrange(1, 1 << 64)) for _ in range(31)]
+    keys = [bls.g1_compress(p) for p in pts] + [bls.g1_compress(bls.g1_curve.neg(p))
+                                                for p in pts]
+    keys += [bytes([0x80]) + bytes(47), bytes([0xA0]) + bytes(47)]
+    ctx = F384.bls_fq_ctx()
+    xs = [int.from_bytes(bytes([k[0] & 0x1F]) + k[1:], "big") for k in keys] + [1]
+    xm = ctx.to_tensor(xs, dev)
+    before = KL.KERNELS["K6_g1_decompress"].launches
+    y, ok = F384.decompress_y(xm)
+    y_plain, ok_plain = F384.decompress_y_plain(xm)
+    assert torch.equal(y, y_plain) and torch.equal(ok, ok_plain)
+    assert ok.tolist() == [1] * len(keys) + [0]
+    assert KL.KERNELS["K6_g1_decompress"].launches == before + 1
+    got = F384.g1_decompress_batch(keys, device=dev)
+    assert got == [(int(x), int(y)) for x, y in map(bls.g1_decompress, keys)]
+    with pytest.raises(ValueError, match="not on curve"):
+        F384.g1_decompress_batch([bytes([0x80]) + (1).to_bytes(47, "big")], device=dev)

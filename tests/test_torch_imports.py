@@ -100,6 +100,39 @@ def test_evm_tail_modules_import_nothing_of_jax_or_the_reference():
     assert callable(gen_evm_verifier) and callable(encode_calldata) and callable(decode_calldata)
 
 
+ACQUISITION = ("spectre_tpu_torch.utils.health", "spectre_tpu_torch.utils.faults",
+               "spectre_tpu_torch.utils.breaker", "spectre_tpu_torch.utils.profiling",
+               "spectre_tpu_torch.observability", "spectre_tpu_torch.observability.metrics",
+               "spectre_tpu_torch.observability.tracing", "spectre_tpu_torch.preprocessor",
+               "spectre_tpu_torch.preprocessor.snappy_codec",
+               "spectre_tpu_torch.preprocessor.ssz", "spectre_tpu_torch.ops.field384",
+               "spectre_tpu_torch.preprocessor.step", "spectre_tpu_torch.preprocessor.rotation",
+               "spectre_tpu_torch.preprocessor.beacon",
+               "spectre_tpu_torch.preprocessor.spec_tests",
+               "spectre_tpu_torch.gadgets.multiproof", "spectre_tpu_torch.witness.ref_fixtures",
+               "spectre_tpu_torch.test_utils")
+
+
+def test_acquisition_modules_import_nothing_of_jax_or_the_reference():
+    """The witness-acquisition slice's modules, imported one after another
+    under the same refusal with the reference's modules checked after each,
+    and the package walk finds each of them."""
+    prelude = BLOCKED_IMPORTS.split("\nimport spectre_tpu_torch\n")[0]
+    script = prelude + textwrap.dedent(f"""
+        import importlib
+        for name in {ACQUISITION!r}:
+            importlib.import_module(name)
+            bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "spectre_tpu")]
+            assert not bad, (name, bad)
+        import spectre_tpu_torch
+        names = {{m.name for m in pkgutil.walk_packages(spectre_tpu_torch.__path__,
+                                                       "spectre_tpu_torch.")}}
+        assert set({ACQUISITION!r}) <= names, set({ACQUISITION!r}) - names
+    """)
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True,
+                         text=True, timeout=300, env=dict(os.environ, PYTHONPATH=REPO))
+    assert out.returncode == 0, out.stderr
+
 def test_chip_smoke_refuses_without_a_gpu(tmp_path):
     """Alone in a directory, or on a machine without CUDA, the smoke exits
     non-zero and prints no result line."""
