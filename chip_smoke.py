@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Run spectre_tpu_torch's witness acquisition and its stage-1 and stage-2
-proves on one CUDA GPU, and hold each of its kernels against its plain
-PyTorch version.
+"""Run spectre_tpu_torch's witness acquisition, its prover service and its
+stage-1 and stage-2 proves on one CUDA GPU, and hold each of its kernels
+against its plain PyTorch version.
 
     python3 chip_smoke.py           # every path, full size
     python3 chip_smoke.py --k 21    # the flex slice on the pinning's 2^21 rows
@@ -78,24 +78,25 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
            bootstrap's period and committee Poseidon
            (get_initial_sync_committee_poseidon) are the contract's genesis;
            the launch counts set to 0 before and read after: K6 launched
+  boot     the prover service's ProverState(TESTNET, k_step=21,
+           k_committee=18) on the card, its SRS set up in a temporary
+           params_dir (no key file written): both keys made from the default
+           args (made in the worker process; their witnesses checked against
+           the tracked pinnings), the K=6 self-check proved and verified on
+           the card; each key's keygen launches (compilelog's entry points)
   committee
            the CommitteeUpdateCircuit at build/committee_update_testnet_18
-           .pinning.json (512 pubkeys, k=18, 2070 SHA slots): keyed as the
-           prover service keys it, on the default args (made in the worker
-           process): their witness, keygen with the k=18 SRS cut from a
-           larger one; then the acquired rotation args' witness (Pinning.check
-           again), proved under the Poseidon transcript (the proof stage 2
-           takes) and verified under that key; the instances equal
-           get_instances and differ from the default args', a flipped
-           instance fails; the prove's launch count of every kernel on its
-           path must be > 0
+           .pinning.json (512 pubkeys, k=18, 2070 SHA slots) under the boot's
+           key: the acquired rotation args' witness (Pinning.check), proved
+           under the Poseidon transcript (the proof stage 2 takes) and
+           verified under that key; the instances equal get_instances and
+           differ from the default args', a flipped instance fails; the
+           prove's launch count of every kernel on its path must be > 0
   step     the StepCircuit at build/sync_step_testnet_21.pinning.json (512
-           pubkeys, k=21, 16 advice, 3 lookup columns, lookup_bits 18):
-           keyed on the default args (made in the worker process): their
-           witness, Pinning.check against the tracked file, the k=21 SRS,
-           keygen; then the acquired step args' witness (Pinning.check
-           again), prove under the Poseidon transcript (the proof stage 2
-           takes), verify under that key; the instances equal get_instances,
+           pubkeys, k=21, 16 advice, 3 lookup columns, lookup_bits 18) under
+           the boot's key: the acquired step args' witness (Pinning.check),
+           prove under the Poseidon transcript (the proof stage 2 takes),
+           verify under that key; the instances equal get_instances,
            a flipped instance fails, a copy of the acquired args with a wrong
            signature fails the native pre-check; the prove's launch count of
            every kernel on its path must be > 0; then the same witness, key
@@ -104,6 +105,22 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
            the vanilla proof byte for byte and verified, the fixed form and
            K2 launched in the fixed prove (the fixed walk once a fixed-form
            MSM, K1c never), no fixed-base degrade
+  service  rpc.serve over the boot's state (journal in the temporary
+           directory), driven through the port's ProverClient with requests
+           made from the acquire phase's Beacon-API JSON: /healthz 503 until
+           a fresh self-check passes on the card, then 200; the blocking
+           genEvmProof_SyncStepCompressed, then
+           submitProof_CommitteeUpdateCompressed polled by getProofStatus and
+           getProofResult; each answer's instances equal get_instances of the
+           acquired args, its proof verifies under the state's vk (a flipped
+           instance does not), its calldata decodes back, the committee's
+           Poseidon is the committee phase's; resubmits are dedup hits (K1
+           not launched); a wrong signature answers -32000; each manifest
+           shows its phases and 0 kernel builds; /metrics counts two proofs
+           and exports the launch counters; one `service` line: boot seconds,
+           each request's queue wait, preprocess, witness, layout, prove and
+           verify seconds, peak device memory, launches of K1a-K1d, K2, K2b,
+           K3, K4, K6; the state and its keys are dropped after it
   step-aggregation
            stage 2 of the step (COMPRESSED["step"]): the step's Poseidon
            proof aggregated by AggregationCircuit.variant("sync_step"), whose
@@ -151,7 +168,8 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
 
 Host jobs that need no card run in one worker process (spawned, no CUDA)
 beside the card's phases: the devices phase's CPU proofs, the beacon data's
-fixture, the committee's and the step's default args and the EVM checks.
+fixture, the committee's and the step's default args (the boot's key args)
+and the EVM checks.
 Each phase's start is logged as "[elapsed s] phase", on the standard error
 too; a crash prints the Python stacks there (faulthandler). It prints one
 JSON line of kernel records, then the device line {"ok": true, "device":
@@ -165,6 +183,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import faulthandler
+import gc
 import io
 import json
 import multiprocessing
@@ -1030,7 +1049,8 @@ def acquire(torch, dev, fixture, test_dir: str) -> dict:
         + json.dumps({k: round(v, 3) for k, v in secs.items()})
         + "; launches " + json.dumps({k: v for k, v in launches.items() if v}))
     return dict(step_args=step_args, rotation_args=rotation_args, genesis=genesis,
-                seconds=secs, launches=launches)
+                seconds=secs, launches=launches, routes=routes, root=root, period=period,
+                domain=domain)
 
 
 def timed_call(fn, *args):
@@ -1040,65 +1060,42 @@ def timed_call(fn, *args):
     return out, time.perf_counter() - t0
 
 
-def circuit_path(torch, dev, seed: int, circuit, k: int, args_from, prove_args, shape,
+def circuit_path(torch, dev, seed: int, circuit, k: int, keyed: dict, prove_args, shape,
                  describe, flip: int, check_args=None, modes=(), transcript_cls=None) -> dict:
     """One application circuit at its pinned testnet shape, through the
-    entry points a user calls, keyed as the prover service keys it and
-    proving what a light client serves: the default args' witness, pinning
-    (Pinning.check against the tracked file), SRS and keygen; then the
-    witness of prove_args (acquired from beacon data), its pinning check,
-    prove and verify under that key. args_from is a future of the default
-    args and their seconds (timed_call in the worker process). shape(cfg,
-    args) is the tuple the pinned shape must give, with describe as its
-    name; flip, the instance flipped for the negative verify;
-    check_args(spec, args), an extra check of prove_args; modes, the MSM
-    modes whose proofs of the same witness, key and blinding seed must equal
-    the vanilla proof; transcript_cls, the prove's and the verifier's
-    transcript (default Blake2b). Returns the phase seconds, keygen's and the
-    prove's phases, peak memory and launch counts, per mode the same of its
-    prove, and the proof with its vk, SRS, instances and args."""
+    entry points a user calls, under the key the prover service's boot made
+    (keyed: its pk, SRS, the default args it was made from and the boot's
+    keygen launches; the boot checked the key's witness against the
+    tracked pinning), proving what a light client serves: the witness of
+    prove_args (acquired from beacon data), its pinning check, prove and
+    verify under that key. shape(cfg, args) is the tuple the pinned shape
+    must give, with describe as its name; flip, the instance flipped for
+    the negative verify; check_args(spec, args), an extra check of
+    prove_args; modes, the MSM modes whose proofs of the same witness, key
+    and blinding seed must equal the vanilla proof; transcript_cls, the
+    prove's and the verifier's transcript (default Blake2b). Returns the
+    phase seconds, the prove's phases, peak memory and launch counts, per
+    mode the same of its prove, and the proof with its vk, SRS, instances
+    and args."""
     from spectre_tpu_torch import spec as SPEC
     from spectre_tpu_torch.fields import bn254
     from spectre_tpu_torch.ops import kernel_lib as KL, msm as M
     from spectre_tpu_torch.plonk.prover import PhaseTimer
-    from spectre_tpu_torch.plonk.srs import PARAMS_DIR, SRS
     from spectre_tpu_torch.plonk.transcript import Blake2bTranscript
 
     spec, phases, name = SPEC.TESTNET, {}, circuit.name
     transcript_cls = transcript_cls or Blake2bTranscript
     require(os.path.exists(circuit.pinning_path(spec, k)),
             f"the tracked {name} pinning file is present")
-    t0 = time.perf_counter()
-    key_args, phases["key_args"] = args_from.result()
-    phases["key_args_wait"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    key_ctx = circuit.build_context(key_args, spec, device=dev)
-    phases["key_witness"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    cfg = circuit.pinning(spec, k, key_ctx).config
-    phases["pinning"] = time.perf_counter() - t0
-    require(shape(cfg, key_args), f"the pinned {name} shape ({describe})")
+    pk, srs, key_args = keyed["pk"], keyed["srs"], keyed["args"]
+    cfg = pk.vk.config
+    require(cfg == circuit.pinning(spec, k).config and shape(cfg, key_args),
+            f"the boot's {name} key has the pinned shape ({describe})")
     log(f"{name}: {describe}, k={cfg.k} advice={cfg.num_advice} lookup={cfg.lookup_tables} "
         f"lookup_bits={cfg.lookup_bits} fixed={cfg.num_fixed} sha_slots={cfg.num_sha_slots}; "
-        f"keyed on the default args, whose break points equal the pinning's; "
-        f"{json.dumps(key_ctx.stats())}")
-    cached = [j for j in range(k, 27)
-              if os.path.exists(os.path.join(PARAMS_DIR, f"kzg_bn254_{j}.srs"))]
-    t0 = time.perf_counter()
-    srs = SRS.load_or_setup(k, device=dev)
-    phases["srs"] = time.perf_counter() - t0
-    log(f"  srs: k={srs.k}, " + (f"from the cached k={cached[0]} file" if cached
-                                 else "set up on the card (no cached file)"))
-
-    torch.cuda.synchronize()
-    KL.reset_launch_counts()
-    ktimer = PhaseTimer(torch.device(dev))
-    t0 = time.perf_counter()
-    pk = circuit.create_pk(srs, spec, k, key_args, device=dev, ctx=key_ctx, timer=ktimer)
-    torch.cuda.synchronize()
-    phases["keygen"] = time.perf_counter() - t0
-    keygen_counts = KL.launch_counts()
-    del key_ctx
+        f"keyed by the prover service's boot on the default args ({keyed['seconds']:.1f} s, "
+        f"their witness checked against the pinning), the SRS k={srs.k} of its params_dir")
+    keygen_counts = keyed["keygen_launches"]
 
     # the acquired args: their witness at the same pinning, under that key
     args = prove_args
@@ -1150,8 +1147,6 @@ def circuit_path(torch, dev, seed: int, circuit, k: int, args_from, prove_args, 
     for kernel in PROVE_KERNELS:
         require(prove_counts[kernel] > 0, f"{kernel} launched in the {name} prove")
     log(f"  phases (s): " + json.dumps({key: round(v, 3) for key, v in phases.items()}))
-    log(f"  keygen phases (s): " + json.dumps({key: round(v, 3)
-                                              for key, v in ktimer.seconds.items()}))
     log(f"  prove phases (s): " + json.dumps({key: round(v, 3)
                                              for key, v in timer.seconds.items()}))
     log(f"  transcript {transcript_cls.__name__}; "
@@ -1201,23 +1196,22 @@ def circuit_path(torch, dev, seed: int, circuit, k: int, args_from, prove_args, 
         by_mode[mode] = dict(prove_s=prove_s, prove_phases=timer_m.seconds, peak_gib=peak_m,
                              table_bytes=table_bytes, launches=counts_m)
     M.clear_tables()
-    return dict(phases=phases, keygen_phases=ktimer.seconds, prove_phases=timer.seconds,
+    return dict(phases=phases, prove_phases=timer.seconds,
                 peak_gib=peak, keygen_launches=keygen_counts, prove_launches=prove_counts,
                 modes=by_mode, proof=proof, vk=pk.vk, srs=srs, instances=instances, args=args,
                 key_instances=key_instances)
 
 
-def committee_path(torch, dev, seed: int, args_from, acquired) -> dict:
+def committee_path(torch, dev, seed: int, keyed: dict, acquired) -> dict:
     """The CommitteeUpdateCircuit at build/committee_update_testnet_18
     .pinning.json: 512 pubkeys, k=18, 22 advice columns, 2070 SHA slots,
-    keyed on its default args (args_from: their future, made in the worker
-    process), proving the acquired rotation args under the Poseidon
-    transcript (the proof stage 2 aggregates)."""
+    under the boot's key (keyed), proving the acquired rotation args under
+    the Poseidon transcript (the proof stage 2 aggregates)."""
     from spectre_tpu_torch.models import CommitteeUpdateCircuit
     from spectre_tpu_torch.plonk.transcript import PoseidonTranscript
 
     return circuit_path(
-        torch, dev, seed, CommitteeUpdateCircuit, COMMITTEE_K, args_from,
+        torch, dev, seed, CommitteeUpdateCircuit, COMMITTEE_K, keyed,
         acquired["rotation_args"],
         lambda cfg, a: (cfg.k, cfg.num_advice, cfg.num_sha_slots,
                         len(a.pubkeys_compressed)) == (COMMITTEE_K, 22, 2070, 512),
@@ -1225,13 +1219,12 @@ def committee_path(torch, dev, seed: int, args_from, acquired) -> dict:
         transcript_cls=PoseidonTranscript)
 
 
-def step_path(torch, dev, seed: int, args_from, acquired) -> dict:
+def step_path(torch, dev, seed: int, keyed: dict, acquired) -> dict:
     """The StepCircuit at build/sync_step_testnet_21.pinning.json: 512
-    pubkeys, k=21, 16 advice and 3 lookup columns, lookup_bits 18, keyed on
-    its default args (args_from: their future, made in the worker process),
-    proving the acquired step args under the Poseidon transcript (the proof
-    stage 2 aggregates); a copy of the acquired args with a wrong signature
-    must fail the native pre-check."""
+    pubkeys, k=21, 16 advice and 3 lookup columns, lookup_bits 18, under
+    the boot's key (keyed), proving the acquired step args under the
+    Poseidon transcript (the proof stage 2 aggregates); a copy of the
+    acquired args with a wrong signature must fail the native pre-check."""
     from spectre_tpu_torch.fields import bls12_381 as bls
     from spectre_tpu_torch.models import StepCircuit
     from spectre_tpu_torch.plonk.transcript import PoseidonTranscript
@@ -1248,11 +1241,198 @@ def step_path(torch, dev, seed: int, args_from, acquired) -> dict:
         log("  a wrong signature fails the native pre-check")
 
     return circuit_path(
-        torch, dev, seed, StepCircuit, STEP_K, args_from, acquired["step_args"],
+        torch, dev, seed, StepCircuit, STEP_K, keyed, acquired["step_args"],
         lambda cfg, a: (cfg.k, cfg.num_advice, cfg.num_lookup_advice, cfg.lookup_bits,
                         len(a.pubkeys_uncompressed)) == (STEP_K, 16, 3, 18, 512),
         "512 pubkeys, k=21, 16 advice, 3 lookup columns, lookup_bits 18", flip=1,
         check_args=wrong_signature_refused, modes=STEP_MODES, transcript_cls=PoseidonTranscript)
+
+
+def boot_service(torch, dev, committee_args, step_args, params_dir: str) -> dict:
+    """The prover service's state on the card at the testnet shapes:
+    ProverState(TESTNET, k_step=21, k_committee=18, compress=False), its SRS
+    set up in params_dir (a temporary directory; no key file is written),
+    keyed on the default args the worker process made (committee_args and
+    step_args: their futures), its tiny self-check proved and verified on
+    the card. This is the keying of the committee and step phases. Returns
+    the state, its boot seconds and each key's keygen launches."""
+    from spectre_tpu_torch import spec as SPEC
+    from spectre_tpu_torch.observability import compilelog
+    from spectre_tpu_torch.ops import kernel_lib as KL
+    from spectre_tpu_torch.prover_service.state import ProverState
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = ProverState(SPEC.TESTNET, STEP_K, COMMITTEE_K, device=dev, params_dir=params_dir,
+                        key_args={"step": lambda: step_args.result()[0],
+                                  "committee": lambda: committee_args.result()[0]})
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    by_entry = compilelog.launches_by_entry()
+    keygen = {kind: {k: by_entry.get(f"boot/{kind}_pk", {}).get(k, 0) for k in KL.KERNELS}
+              for kind in ("step", "committee")}
+    check = state.self_check.snapshot()
+    require(check["ok"], f"the self-check's K=6 circuit proved and verified on the card ({check})")
+    require(not any(os.path.exists(c.pk_path(SPEC.TESTNET, k, params_dir))
+                    for c, k in ((state.step_circuit, STEP_K),
+                                 (state.committee_circuit, COMMITTEE_K))),
+            "the boot wrote no key file")
+    log(f"boot: ProverState on {state.device} in {seconds:.1f} s; "
+        + json.dumps({k: round(v, 3) for k, v in state.boot_seconds.items()})
+        + f"; self-check {check}; keygen launches step "
+        + json.dumps({k: v for k, v in keygen["step"].items() if v}) + ", committee "
+        + json.dumps({k: v for k, v in keygen["committee"].items() if v}))
+
+    def keyed(kind: str, pk, k: int, args_from) -> dict:
+        return dict(pk=pk, srs=state.srs[k], args=args_from.result()[0],
+                    keygen_launches=keygen[kind], seconds=state.boot_seconds[f"{kind}_pk"])
+
+    return dict(state=state, seconds=seconds,
+                committee=keyed("committee", state.committee_pk, COMMITTEE_K, committee_args),
+                step=keyed("step", state.step_pk, STEP_K, step_args))
+
+
+SERVICE_KERNELS = (*SHARED_K1, "K2_padd", "K2b_bucket_aggregate", "K3_mont_mul", "K4_ntt",
+                   "K6_g1_decompress")
+
+
+def service_path(torch, dev, boot: dict, acquired: dict, committee: dict,
+                 journal_dir: str) -> dict:
+    """The prover service on the card: rpc.serve over the boot's state (its
+    journal in journal_dir), requests made from the Beacon-API JSON the
+    acquire phase served, sent through the port's ProverClient: the
+    blocking genEvmProof_SyncStepCompressed (the finality update, the
+    bootstrap's compressed pubkeys, the domain), then
+    submitProof_CommitteeUpdateCompressed (the committee update) polled
+    with getProofStatus and getProofResult. /healthz answers 503 until a
+    fresh self-check has passed on the card, then 200; each answer's
+    instances equal get_instances of the acquired args, its proof verifies
+    under the state's vk and a flipped instance does not, its calldata
+    decodes back; the committee's Poseidon is the committee phase's (the
+    next committee: not the bootstrap's); a resubmit is a dedup hit (the
+    same job id, K1 not launched); a step request with a wrong signature
+    answers -32000; each job's manifest shows its phases and 0 kernel
+    builds; /metrics exports the prove-latency histogram with count 2 and
+    the kernels' launch counters. The launch counts are set to 0 before the
+    requests and read after."""
+    from spectre_tpu_torch import spec as SPEC
+    from spectre_tpu_torch.fields import bls12_381 as bls
+    from spectre_tpu_torch.models import CommitteeUpdateCircuit, StepCircuit
+    from spectre_tpu_torch.ops import kernel_lib as KL
+    from spectre_tpu_torch.prover_service import calldata, rpc, selfverify
+    from spectre_tpu_torch.prover_service.rpc_client import ProverClient, RpcError
+
+    spec, state, routes = SPEC.TESTNET, boot["state"], acquired["routes"]
+    finality = routes["/eth/v1/beacon/light_client/finality_update"]["data"]
+    bootstrap = routes[f"/eth/v1/beacon/light_client/bootstrap/{acquired['root']}"]["data"]
+    update = routes[f"/eth/v1/beacon/light_client/updates?start_period={acquired['period']}"
+                    f"&count=1"][0]["data"]
+    pubkeys = bootstrap["current_sync_committee"]["pubkeys"]
+    domain = "0x" + acquired["domain"].hex()
+    want = {"step": StepCircuit.get_instances(acquired["step_args"], spec),
+            "committee": CommitteeUpdateCircuit.get_instances(acquired["rotation_args"], spec)}
+
+    server = rpc.serve(state, port=0, background=True, journal_dir=journal_dir,
+                       scrub_interval=0)
+    out = {}
+    try:
+        client = ProverClient(f"http://127.0.0.1:{server.server_address[1]}/rpc", timeout=900)
+        state.self_check = selfverify.SelfCheck(device=dev)
+        status_before, _ = client.healthz()
+        t0 = time.perf_counter()
+        require(state.self_check.run(), "a fresh self-check passes on the card")
+        out["self_check_s"] = time.perf_counter() - t0
+        status_after, health = client.healthz()
+        require((status_before, status_after) == (503, 200) and health["self_check"]["ok"],
+                f"/healthz is 503 before the self-check, 200 after ({status_before}, "
+                f"{status_after})")
+
+        torch.cuda.synchronize()
+        KL.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        step_res = client.gen_evm_proof_sync_step_compressed(finality, pubkeys, domain)
+        out["step_request_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        jid = client.submit_committee_update(update)
+        committee_res = client.wait_for_proof(jid, poll=0.5, timeout=900)
+        out["committee_request_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = KL.launch_counts()
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        jobs = {}
+        for kind, res in (("step", step_res), ("committee", committee_res)):
+            proof, inst = selfverify.decode_result(res)
+            require(inst == want[kind], f"the {kind} answer's instances equal get_instances of "
+                                        f"the acquired args")
+            require(state.verify_proof(kind, proof, inst), f"the {kind} proof verifies under "
+                                                           f"the state's vk")
+            flipped = list(inst)
+            flipped[0] ^= 1
+            require(not state.verify_proof(kind, proof, flipped),
+                    f"the {kind} proof with a flipped instance is rejected")
+            require(calldata.decode_calldata(bytes.fromhex(res["calldata"][2:]), len(inst))
+                    == (inst, proof), f"the {kind} calldata decodes to the instances and proof")
+            jobs[kind] = dict(proof_bytes=len(proof), instances=len(inst))
+        require(int(committee_res["committee_poseidon"], 16) == committee["instances"][0]
+                != acquired["genesis"][1],
+                "committee_poseidon is the committee phase's (the next committee's, not the "
+                "bootstrap's)")
+
+        # a resubmit of the same params: the same job, nothing proved again
+        k1 = KL.launch_counts()["K1c_bucket_walk"]
+        step_jid = client.submit_sync_step(finality, pubkeys, domain)
+        status = client.proof_status(step_jid)
+        require(status["status"] == "done" and client.proof_result(step_jid) == step_res
+                and KL.launch_counts()["K1c_bucket_walk"] == k1,
+                "a resubmit of the step's params is a dedup hit (its job, K1 not launched)")
+        require(client.submit_committee_update(update) == jid,
+                "a resubmit of the committee's params is a dedup hit")
+
+        bad_sig = "0x" + bls.g2_compress(bls.g2_curve.mul(bls.G2_GEN, 123)).hex()
+        bad = dict(finality, sync_aggregate=dict(finality["sync_aggregate"],
+                                                 sync_committee_signature=bad_sig))
+        try:
+            client.gen_evm_proof_sync_step_compressed(bad, pubkeys, domain)
+            rejected = None
+        except RpcError as e:
+            rejected = (e.code, e.message)
+        require(rejected == (rpc.WITNESS_REJECTED,
+                             "witness rejected: aggregate signature does not verify"),
+                f"a wrong signature answers -32000 witness rejected ({rejected})")
+        launches_all = KL.launch_counts()
+
+        for kind, job_id in (("step", step_jid), ("committee", jid)):
+            man = client.get_manifest(job_id)
+            ph = man["phase_seconds"]
+            require({"job/preprocess", "prove/witness", "prove/layout", "prove/snark",
+                     "prove/self_verify"} <= set(ph) and man["kernels"]["builds"] == 0,
+                    f"the {kind} job's manifest shows its phases and 0 kernel builds")
+            jobs[kind].update(queue_wait_s=man["queue_wait_s"], prove_s=man["prove_s"],
+                              preprocess_s=ph["job/preprocess"], witness_s=ph["prove/witness"],
+                              layout_s=ph["prove/layout"], snark_s=ph["prove/snark"],
+                              verify_s=ph["prove/self_verify"],
+                              snark_phases={k[len("snark/"):]: v for k, v in ph.items()
+                                            if k.startswith("snark/")},
+                              launches=man["kernels"]["launches"])
+        text = client.metrics_text()
+        require("spectre_prove_latency_seconds_count 2" in text,
+                "/metrics: the prove-latency histogram counts the two proofs")
+        for name in SERVICE_KERNELS:
+            require(f'spectre_kernel_launches_total{{kernel="{name}"}} {launches_all[name]}'
+                    in text, f"/metrics exports {name}'s launch counter")
+        for name in (*PROVE_KERNELS, "K6_g1_decompress"):
+            require(launches[name] > 0, f"{name} launched by the service's requests")
+        out.update(jobs=jobs, launches=launches)
+    finally:
+        server.shutdown()
+        server.server_close()
+        state.jobs.stop()
+    line = {"boot_s": boot["seconds"], "boot": boot["state"].boot_seconds, **out,
+            "launches": {k: out["launches"][k] for k in SERVICE_KERNELS}}
+    log("service: " + json.dumps(line))
+    return out
 
 
 def measured(torch, phases: dict, name: str, fn):
@@ -1286,7 +1466,8 @@ def measured(torch, phases: dict, name: str, fn):
 # reference's tracked fixtures in build/ (the inner Poseidon proof, the
 # verifier source, the compressed proof with its instances) with what its
 # records hold for the compressed proof: (gas_execution, gas_total, runtime
-# bytes). The step's outer shape is pinned by no file: outer_k sizes it.
+# bytes). The step's outer shape is pinned by no file: models.aggregation
+# .outer_k sizes it.
 COMPRESSED = {
     "step": dict(
         inner="sync_step", shape=(STEP_K, 11, 2, 14, 1, 1), cells=(22454006, 2197024),
@@ -1300,11 +1481,6 @@ COMPRESSED = {
         sol="aggregation_committee_testnet_22_verifier.sol",
         proof="agg_committee_testnet_22_keccak.proof", evm=(1142389, 1283113, 56636)),
 }
-# the reference flow's rule for an outer k that no file pins
-# (scripts/_compressed_flow.py, with the range and cap of
-# scripts/prove_step_compressed.py)
-OUTER_K_RANGE = (20, 25)
-MAX_OUTER_ADVICE = 12
 REF_GENERATOR = "// Auto-generated by spectre_tpu.evm.codegen — DO NOT EDIT."
 PORT_GENERATOR = "// Auto-generated by spectre_tpu_torch.evm.codegen — DO NOT EDIT."
 TAMPER_BYTE = 41
@@ -1317,16 +1493,6 @@ VERIFIER_REVERTS = ("step proof invalid", "rotate proof invalid", "identity", "e
                     "ecMul", "ecAdd", "pairing")
 STEP_C_SIG = "stepCompressed((uint64,uint64,uint64,bytes32,bytes32),uint256[12],bytes)"
 ROTATE_C_SIG = "rotateCompressed(uint256,uint256,uint256,uint256,uint256[12],bytes)"
-
-
-def outer_k(ctx, lookup_bits: int) -> int:
-    """The least k in OUTER_K_RANGE whose shape, auto-sized from ctx, needs
-    at most MAX_OUTER_ADVICE advice columns (arithmetic on ctx's counts)."""
-    for k in range(*OUTER_K_RANGE):
-        if ctx.auto_config(k=k, lookup_bits=lookup_bits).num_advice <= MAX_OUTER_ADVICE:
-            return k
-    raise ValueError(f"no k in {OUTER_K_RANGE[0]}..{OUTER_K_RANGE[1] - 1} holds the outer "
-                     f"circuit in {MAX_OUTER_ADVICE} advice columns")
 
 
 def tracked_path(name: str, key: str) -> str:
@@ -1379,8 +1545,9 @@ def aggregation_path(torch, dev, seed: int, inner: dict, name: str) -> dict:
     verifiers held to the reference's tracked fixtures."""
     from spectre_tpu_torch import spec as SPEC
     from spectre_tpu_torch.fields import bn254
-    from spectre_tpu_torch.models.aggregation import (NUM_ACC_LIMBS, AggregationArgs,
-                                                      AggregationCircuit)
+    from spectre_tpu_torch.models.aggregation import (MAX_OUTER_ADVICE, NUM_ACC_LIMBS,
+                                                      OUTER_K_RANGE, AggregationArgs,
+                                                      AggregationCircuit, outer_k)
     from spectre_tpu_torch.plonk.prover import PhaseTimer
     from spectre_tpu_torch.plonk.srs import SRS
     from spectre_tpu_torch.plonk.transcript import KeccakTranscript
@@ -1851,14 +2018,16 @@ def main(argv=None) -> int:
     # data's fixture, the default args, the EVM checks) runs in a second
     # process beside the card's; the fixture lives in a temporary directory
     with tempfile.TemporaryDirectory(prefix="spectre-beacon-") as fixture_dir, \
+            tempfile.TemporaryDirectory(prefix="spectre-service-") as service_dir, \
             concurrent.futures.ProcessPoolExecutor(
                 1, mp_context=multiprocessing.get_context("spawn")) as pool:
-        return run(args, t_start, pool, fixture_dir)
+        return run(args, t_start, pool, fixture_dir, service_dir)
 
 
-def run(args, t_start: float, pool, fixture_dir: str) -> int:
+def run(args, t_start: float, pool, fixture_dir: str, service_dir: str) -> int:
     """The phases, in order; `pool` runs the host jobs, the beacon data's
-    fixture is written into fixture_dir."""
+    fixture is written into fixture_dir, the prover service's SRS files and
+    job journal into service_dir."""
     import torch
 
     def mark(phase: str) -> None:
@@ -2237,13 +2406,27 @@ def run(args, t_start: float, pool, fixture_dir: str) -> int:
     # --- acquire: beacon data -> the args the committee and the step prove ---
     mark("acquire")
     acquired = acquire(torch, dev, fixture, fixture_dir)
+    # --- boot: the prover service's state keys both circuits ------------------
+    mark("boot")
+    boot = boot_service(torch, dev, committee_args, step_args,
+                        os.path.join(service_dir, "params"))
     log("resident before the committee: " + resident(torch))
     mark("committee")
-    committee = committee_path(torch, dev, args.seed, committee_args, acquired)
+    committee = committee_path(torch, dev, args.seed, boot["committee"], acquired)
     torch.cuda.empty_cache()
     log("resident before the step: " + resident(torch))
     mark("step")
-    step = step_path(torch, dev, args.seed, step_args, acquired)
+    step = step_path(torch, dev, args.seed, boot["step"], acquired)
+    torch.cuda.empty_cache()
+    # --- service: the state's keys serve requests over HTTP ------------------
+    log("resident before the service: " + resident(torch))
+    mark("service")
+    service = service_path(torch, dev, boot, acquired, committee,
+                           os.path.join(service_dir, "journal"))
+    # the keys leave the card with the state
+    boot["state"].step_pk = boot["state"].committee_pk = None
+    del boot
+    gc.collect()
     torch.cuda.empty_cache()
     log("resident before the step's aggregation: " + resident(torch))
     mark("step-aggregation")
@@ -2294,6 +2477,7 @@ def run(args, t_start: float, pool, fixture_dir: str) -> int:
             "committee_keygen_launches": committee["keygen_launches"][name],
             "step_launches": step["prove_launches"][name],
             "step_keygen_launches": step["keygen_launches"][name],
+            "service_launches": service["launches"][name],
             "step_aggregation_launches": step_agg["phases"]["prove"]["launches"].get(name, 0),
             "step_aggregation_keygen_launches":
                 step_agg["phases"]["keygen"]["launches"].get(name, 0),

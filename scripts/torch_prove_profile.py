@@ -23,7 +23,7 @@ build/aggregation_committee_update_testnet_22.pinning.json (k=22) and the
 outer circuit proved under the Keccak transcript (its set-up seconds are
 printed, and the outer proof must pass AggregationCircuit.verify), or
 (--circuit step-aggregation) the same for the step's stage-1 proof at the
-outer k that chip_smoke.outer_k, the reference flow's rule, gives (21: 11
+outer k that models.aggregation.outer_k, the reference flow's rule, gives (21: 11
 advice, 2 lookup columns; the step's k=21 SRS). Prints the
 device's busy and idle share of the traced prove, per-phase seconds, the
 device time and launches of each of the port's kernels, the top device rows
@@ -148,12 +148,11 @@ def main(argv=None) -> int:
     if args.circuit in ("aggregation", "step-aggregation"):
         from spectre_tpu_torch import spec as SPEC
         from spectre_tpu_torch.models import CommitteeUpdateCircuit, StepCircuit
-        from spectre_tpu_torch.models.aggregation import AggregationArgs, AggregationCircuit
+        from spectre_tpu_torch.models.aggregation import (AggregationArgs, AggregationCircuit,
+                                                          outer_k)
         from spectre_tpu_torch.plonk.transcript import KeccakTranscript, PoseidonTranscript
         from spectre_tpu_torch.witness import (default_committee_update_args,
                                                default_sync_step_args)
-
-        from chip_smoke import outer_k
 
         spec = SPEC.TESTNET
         inner, k_in, make_args = {

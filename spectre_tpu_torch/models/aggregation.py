@@ -30,6 +30,24 @@ ACC_LIMB_BITS = 88
 ACC_LIMBS_PER_COORD = 3  # 12 limbs in all: (lhs.x, lhs.y, rhs.x, rhs.y) x 3
 NUM_ACC_LIMBS = 12
 
+# The reference flow's rule for an outer circuit no file pins, the step's
+# (`scripts/_compressed_flow.py`, with the range and cap of
+# `scripts/prove_step_compressed.py`): the least k in OUTER_K_RANGE whose shape, auto-sized from the context,
+# needs at most MAX_OUTER_ADVICE advice columns. At the testnet step it
+# gives k=21, 11 advice, 2 lookup columns.
+OUTER_K_RANGE = (20, 25)
+MAX_OUTER_ADVICE = 12
+
+
+def outer_k(ctx, lookup_bits: int) -> int:
+    """The least k in OUTER_K_RANGE whose shape, auto-sized from ctx, needs
+    at most MAX_OUTER_ADVICE advice columns (arithmetic on ctx's counts)."""
+    for k in range(*OUTER_K_RANGE):
+        if ctx.auto_config(k=k, lookup_bits=lookup_bits).num_advice <= MAX_OUTER_ADVICE:
+            return k
+    raise ValueError(f"no k in {OUTER_K_RANGE[0]}..{OUTER_K_RANGE[1] - 1} holds the outer "
+                     f"circuit in {MAX_OUTER_ADVICE} advice columns")
+
 
 @dataclass
 class Accumulator:

@@ -1,14 +1,14 @@
 """Metric primitives: counters, gauges, fixed-bucket histograms (the port's
-copy of `spectre_tpu/observability/metrics.py`), and the one series the
-port feeds so far: PHASE_SECONDS, observed by `utils/profiling.phase`.
+copy of `spectre_tpu/observability/metrics.py`), and the series the port
+feeds: PHASE_SECONDS (`utils/profiling.phase`), PROVE_LATENCY and
+QUEUE_WAIT (the job queue's worker), KERNEL_BUILD_SECONDS
+(`observability/compilelog`, from the kernel builds of `ops/kernel_lib`).
 
 ServiceHealth (utils/health.py) stays the single source of truth for
 degradation counters. What lives here is the machinery it lacks:
 *distributions* — the per-phase decomposition central to the
 hardware-acceleration literature (zkSpeed/SZKP, PAPERS.md) needs latency
-histograms per prover phase, not one running mean. The service's series
-(prove latency, queue wait, kernel build seconds) come with the code that
-observes them.
+histograms per prover phase, not one running mean.
 
 Buckets are fixed at construction (cumulative `le` semantics, implicit
 +Inf overflow bucket) so exposition is allocation-free and quantile
@@ -28,6 +28,16 @@ import threading
 # production compressed proofs
 LATENCY_BUCKETS = (0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0,
                    60.0, 120.0, 300.0, 600.0, 1800.0)
+
+# queue wait (admission -> worker start): near-zero on an idle box, up
+# to the admission controller's 600s retry_after cap (and beyond, when
+# a replayed journal re-queues jobs across an outage)
+QUEUE_WAIT_BUCKETS = (0.001, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 10.0,
+                      30.0, 60.0, 300.0, 600.0, 1800.0)
+
+# kernel builds: a host C++ library in seconds, an nvcc library that
+# includes nothing of PyTorch's in seconds to a minute
+BUILD_BUCKETS = (0.1, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0, 120.0, 300.0)
 
 # per-phase wall clock: phases span ~ms (transcript hashing) to minutes
 # (quotient on a large k)
@@ -226,8 +236,15 @@ class MetricsRegistry:
             m.reset()
 
 
-# process-global registry
+# process-global registry the /metrics endpoint renders
 REGISTRY = MetricsRegistry()
+
+# end-to-end prove latency (observed by the JobQueue worker on every
+# completed job)
+PROVE_LATENCY = REGISTRY.histogram(
+    "spectre_prove_latency_seconds",
+    "End-to-end prove latency per completed job (seconds)",
+    LATENCY_BUCKETS)
 
 # per-phase wall clock, fed by utils/profiling.phase — the production
 # counterpart of bench.py's MSM/NTT phase decomposition
@@ -235,3 +252,28 @@ PHASE_SECONDS = REGISTRY.histogram_vec(
     "spectre_phase_seconds",
     "Wall-clock seconds per instrumented prover phase",
     PHASE_BUCKETS, ("phase",))
+
+
+# admission -> worker-start wait, observed by the JobQueue worker with
+# the same value the job's provenance manifest records as queue_wait_s
+QUEUE_WAIT = REGISTRY.histogram(
+    "spectre_queue_wait_seconds",
+    "Seconds between job admission and worker start",
+    QUEUE_WAIT_BUCKETS)
+
+# seconds of each kernel library build (nvcc, or the host C++ compiler),
+# attributed to the entry point that was open when it ran; fed by
+# observability/compilelog. No observation after boot = every prove ran
+# on libraries built before it (the port's counterpart of the reference's
+# XLA compile series).
+KERNEL_BUILD_SECONDS = REGISTRY.histogram_vec(
+    "spectre_kernel_build_seconds",
+    "Kernel library build seconds per triggering entry point",
+    BUILD_BUCKETS, ("fn",))
+
+
+def queue_latency_histogram() -> Histogram:
+    """Fresh unregistered prove-latency histogram. Each JobQueue prices
+    retry_after off its own instance (queue-local load); the registered
+    PROVE_LATENCY aggregates process-wide for exposition."""
+    return Histogram("prove_latency_seconds", buckets=LATENCY_BUCKETS)

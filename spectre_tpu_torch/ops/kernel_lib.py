@@ -16,7 +16,9 @@ permutation's cycle merge) are built the same way by the host C++ compiler
 
 Every kernel has a `KernelInfo` in `KERNELS`; its wrapper adds one to
 `launches` where it launches the kernel and nowhere else, so a run can show
-which kernels its path went through.
+which kernels its path went through. Every library this process builds is
+reported to the callbacks in `BUILD_OBSERVERS` (`observability/compilelog`
+registers one), so a service can show that a prove built nothing.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import os
 import re
 import shutil
 import subprocess
+import time
 from dataclasses import dataclass
 
 import torch
@@ -114,6 +117,16 @@ KERNELS = {k.name: k for k in (
 )}
 
 
+# callbacks (library name, seconds) called after each library this process
+# builds, on the building thread
+BUILD_OBSERVERS: list = []
+
+
+def _built(name: str, seconds: float) -> None:
+    for fn in list(BUILD_OBSERVERS):
+        fn(name, seconds)
+
+
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
@@ -150,6 +163,7 @@ def build_all() -> dict:
     library as `<library>.log`."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
+    t0 = time.perf_counter()
     for name, (src, _) in LIBRARIES.items():
         out = _target(name)
         if os.path.exists(out):
@@ -168,6 +182,7 @@ def build_all() -> dict:
             failed.append(name)
             continue
         os.replace(tmp, out)
+        _built(name, time.perf_counter() - t0)
     if failed:
         logs = "\n".join(open(os.path.join(BUILD_DIR, f"{n}.log")).read()
                          for n in failed)
@@ -248,6 +263,7 @@ def host_library(name: str):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
         log_path = os.path.join(BUILD_DIR, f"{name}.log")
+        t0 = time.perf_counter()
         with open(log_path, "w") as log:
             rc = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, os.path.join(CSRC, src)],
                                 stdout=log, stderr=subprocess.STDOUT).returncode
@@ -255,6 +271,7 @@ def host_library(name: str):
             with open(log_path) as log:
                 raise RuntimeError(f"{cxx} failed for {name}:\n{log.read()}")
         os.replace(tmp, out)
+        _built(name, time.perf_counter() - t0)
     lib = ctypes.CDLL(out)
     for fn, argtypes in fns.items():
         getattr(lib, fn).argtypes = argtypes

@@ -234,6 +234,15 @@ class TableLRU:
         self._d.clear()
         self._bytes = 0
 
+    def keep_only(self, base_keys) -> int:
+        """Drop every entry whose base is not named in base_keys; returns
+        the bytes freed."""
+        freed = 0
+        for key in [k for k in self._d if k[0] not in base_keys]:
+            freed += self._d.pop(key)[2]
+        self._bytes -= freed
+        return freed
+
     def stats(self) -> dict:
         return {"hits": self.hits, "builds": self.builds, "evictions": self.evictions,
                 "recomputes": self.recomputes, "bytes": self._bytes,
@@ -270,6 +279,16 @@ def clear_tables() -> None:
     _EXPANDED.clear()
 
 
+def release_tables(base_keys) -> int:
+    """Keep the tables and expanded bases of the bases named in base_keys
+    (SRS digests) and drop the rest: a service holding several keys keeps
+    only the caches of the circuit about to prove. Returns the table bytes
+    freed."""
+    for key in [k for k in _EXPANDED if k[0] not in base_keys]:
+        del _EXPANDED[key]
+    return TABLES.keep_only(base_keys)
+
+
 def fixed_table_bytes(n: int, c: int, nbits: int) -> int:
     """The reference's byte count of an n-point GLV window table (its
     [nwin, 2n, 3, 16] uint32 layout): what the budget is held to, so both
@@ -290,6 +309,9 @@ def _degrade_fixed(n: int, c: int, nbits: int) -> bool:
     if need <= TABLES.budget:
         return False
     COUNTERS["msm_fixed_degraded"] += 1
+    from ..observability.manifest import record_event
+    record_event("msm_fixed_degraded", n=n, window=c, table_mb=need >> 20,
+                 budget_mb=TABLES.budget >> 20)
     print(f"[msm] fixed-base table of {n} points at c={c} ({need >> 20} MB) exceeds "
           f"{TABLES.budget_var} budget ({TABLES.budget >> 20} MB): this MSM runs "
           f"glv+signed", file=sys.stderr, flush=True)

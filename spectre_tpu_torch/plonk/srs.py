@@ -109,7 +109,9 @@ class SRS:
                       device=None) -> "SRS":
         """The cached `kzg_bn254_<k>.srs`; else the prefix of a larger
         cached one (the powers of one tau), written as the k file; else a
-        fresh `unsafe_setup`, written."""
+        fresh `unsafe_setup`, written. Fault-injection site `srs.load`."""
+        from ..utils import faults
+        faults.check("srs.load")
         directory = directory or PARAMS_DIR
         os.makedirs(directory, exist_ok=True)
         path = os.path.join(directory, f"kzg_bn254_{k}.srs")

@@ -69,7 +69,8 @@ SITES = {
     "beacon.fetch": ("spectre_tpu_torch/preprocessor/beacon.py",
                      "every beacon REST GET attempt"),
     "srs.load": ("spectre_tpu_torch/plonk/srs.py", "SRS file read / setup"),
-    "backend.prove": ("spectre_tpu_torch/plonk/backend.py", "prove_with_fallback entry"),
+    "backend.prove": ("spectre_tpu_torch/prover_service/state.py",
+                      "served prove entry (fails the job: no CPU retry)"),
     "journal.write": ("spectre_tpu_torch/prover_service/jobs.py",
                       "each fsync'd job-journal append"),
     "journal.compact": ("spectre_tpu_torch/prover_service/jobs.py",

@@ -377,3 +377,36 @@ def test_k6_g1_decompress(dev):
     assert got == [(int(x), int(y)) for x, y in map(bls.g1_decompress, keys)]
     with pytest.raises(ValueError, match="not on curve"):
         F384.g1_decompress_batch([bytes([0x80]) + (1).to_bytes(47, "big")], device=dev)
+
+
+def test_step_mock_tiny(dev):
+    """The TINY step (24.6 M cells) through AppCircuit.mock on the card at
+    k=19, the least k whose rows hold its 2^18-entry range table (the
+    reference's own step mock asks for k=17, where that table does not
+    fit): satisfied; with one copied advice cell changed, the copy check
+    names it in the reference's words."""
+    import numpy as np
+
+    from spectre_tpu_torch import spec as SPEC
+    from spectre_tpu_torch.models import StepCircuit
+    from spectre_tpu_torch.ops import limbs as L
+    from spectre_tpu_torch.plonk.constraint_system import column_std
+    from spectre_tpu_torch.plonk.mock import mock_prove
+    from spectre_tpu_torch.witness import default_sync_step_args
+
+    args = default_sync_step_args(SPEC.TINY)
+    assert StepCircuit.mock(args, SPEC.TINY, k=19, device=dev) is True
+    ctx = StepCircuit.build_context(args, SPEC.TINY, device=dev)
+    cfg = ctx.auto_config(k=19, lookup_bits=StepCircuit.default_lookup_bits)
+    asg = ctx.assignment(cfg)
+    advice = {cfg.col_gate_advice(j): j for j in range(cfg.num_advice)}
+    ca, ra = next((int(c), int(r)) for c, r, _, _ in np.asarray(asg.copies).reshape(-1, 4)
+                  if int(c) in advice)
+    j = advice[ca]
+    col = column_std(asg.advice[j], cfg.n).copy()     # [n, 4] limbs
+    old = L.limbs_to_ints(col[ra:ra + 1])[0]
+    col[ra] = L.ints_to_limbs([old + 1])[0]
+    asg.advice[j] = col
+    with pytest.raises(ValueError,
+                       match=rf"^copy constraint violated: .*col{ca}\[{ra}\]={old + 1}\b"):
+        mock_prove(cfg, asg, device=dev)

@@ -8,7 +8,7 @@ argument only here. The step-shaped inner circuit of
 `tests/_torch_step_inner.py` has the same tables at k=10: its Poseidon proof
 is byte-identical in both packages, and the outer context over it equals the
 reference's stream for stream. The outer shape rule of the reference's flow
-(`scripts/_compressed_flow.py`) is `chip_smoke.outer_k`; the variant's
+(`scripts/_compressed_flow.py`) is `models.aggregation.outer_k`; the variant's
 pinning auto-sizes without writing a file. The tracked step fixtures of
 build/: the port's default step args give the tracked statement, the
 tracked verifier compiled by the port accepts the tracked compressed proof
@@ -164,15 +164,15 @@ def test_statement_and_get_instances(inner, agg):
 
 
 def test_outer_shape_rule_gives_the_reference_flows_k(agg):
-    """chip_smoke.outer_k on the port's context is the k the reference's flow
+    """models.aggregation.outer_k on the port's context is the k the reference's flow
     picks on its own, and the shape auto-sized there is the reference's."""
     ctx, _, _, rk, rcfg = agg
     lookup_bits = A.AggregationCircuit.default_lookup_bits
-    assert chip_smoke.outer_k(ctx, lookup_bits) == rk
+    assert A.outer_k(ctx, lookup_bits) == rk
     cfg = ctx.auto_config(k=rk, lookup_bits=lookup_bits)
     assert (cfg.k, cfg.num_advice, cfg.num_lookup_advice, cfg.num_fixed, cfg.lookup_tables) == (
         rcfg.k, rcfg.num_advice, rcfg.num_lookup_advice, rcfg.num_fixed, rcfg.lookup_tables)
-    assert cfg.num_advice <= chip_smoke.MAX_OUTER_ADVICE
+    assert cfg.num_advice <= A.MAX_OUTER_ADVICE
     assert rk == 20 or ctx.auto_config(k=rk - 1, lookup_bits=lookup_bits).num_advice > 12
 
 
