@@ -46,11 +46,11 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
            (64 blocks; equal to its plain version); the fixed and glv MSMs
            equal the vanilla MSM
   K6       BLS12-381 G1 decompression's square root at the committee's 512
-           keys (seeded points, two negations, x = 0 with either sign): equal
-           to its plain version limb for limb and, through
-           g1_decompress_batch, to the host's bls12_381.g1_decompress key for
-           key; an x off the curve raises; K6, its plain version and the host
-           loop timed
+           keys (seeded points, two negations, x = 0 with either sign) and at
+           513 (a part-filled warp): equal to its plain version limb for limb
+           and, through g1_decompress_batch, to the host's
+           bls12_381.g1_decompress key for key; an x off the curve raises;
+           K6, its plain version and the host loop timed at 512
   devices  a K=6 circuit proved on the GPU and on the CPU gives the same
            bytes, vanilla and under SPECTRE_MSM_MODE=fixed (the CPU side runs
            in the worker process from the start of the run)
@@ -826,26 +826,48 @@ def g1_decompress_phase(torch, dev, seed: int) -> dict:
     and two negations (both sign bits for one x), and x = 0 (on the curve,
     y = +-2) with either sign. K6 equals its plain version limb for limb
     (its comparison run is its plain time) and, through
-    g1_decompress_batch, the host's one-key-at-a-time decompression (timed);
-    an x off the curve raises. Returns K6's record."""
+    g1_decompress_batch, the host's one-key-at-a-time decompression (timed
+    at 512); an x off the curve raises. At 513 keys, one more point, so that
+    a warp is filled in part, the 512 rows stay as they were and the last is
+    the square root of its x^3 + 4, the host's y up to sign. Returns K6's
+    record."""
     from spectre_tpu_torch.fields import bls12_381 as bls
     from spectre_tpu_torch.ops import field384 as F384
 
     g1 = bls.g1_curve
     q = g1.mul(bls.G1_GEN, random.Random(seed).randrange(1, bls.R))
     pts = [q]
-    while len(pts) < COMMITTEE_KEYS - 4:
+    while len(pts) < COMMITTEE_KEYS - 3:
         pts.append(g1.add(pts[-1], q))
-    keys = [bls.g1_compress(p) for p in pts] + [bls.g1_compress(g1.neg(p)) for p in pts[:2]]
+    keys = [bls.g1_compress(p) for p in pts[:-1]]
+    keys += [bls.g1_compress(g1.neg(p)) for p in pts[:2]]
     keys += [bytes([0x80]) + bytes(47), bytes([0xA0]) + bytes(47)]
-    require({k[0] & 0x20 for k in keys} == {0, 0x20}, "the keys carry both sign bits")
+    more = keys + [bls.g1_compress(pts[-1])]
+    require(len(keys) == COMMITTEE_KEYS and {k[0] & 0x20 for k in keys} == {0, 0x20},
+            "the keys carry both sign bits")
     ctx = F384.bls_fq_ctx()
-    xm = ctx.to_tensor([int.from_bytes(bytes([k[0] & 0x1F]) + k[1:], "big") for k in keys], dev)
+
+    def xm_of(ks):
+        return ctx.to_tensor([int.from_bytes(bytes([k[0] & 0x1F]) + k[1:], "big") for k in ks],
+                             dev)
+
+    xm = xm_of(keys)
     y, ok = F384.decompress_y(xm)
     (y_plain, ok_plain), plain_ms = timed_once(torch, lambda: F384.decompress_y_plain(xm))
     err = int((F384._limbs16(y) - F384._limbs16(y_plain)).abs().max())
     require(err == 0 and torch.equal(ok, ok_plain), "K6 equals its plain version limb for limb")
     require(bool(ok.all()), "every key's x is on the curve")
+    # at 513 keys, so that a warp is filled in part: the first 512 rows as
+    # at 512, the last the square root of that key's x^3 + 4 and the host's y
+    y_more, ok_more = F384.decompress_y(xm_of(more))
+    x_last, y_host = bls.g1_decompress(more[-1])
+    y_last = ctx.to_ints(y_more[-1:])[0]
+    require(torch.equal(y_more[:-1], y) and torch.equal(ok_more[:-1], ok)
+            and int(ok_more[-1]) == 1
+            and y_last == pow((int(x_last) ** 3 + 4) % ctx.p, ctx.sqrt_exp, ctx.p)
+            and y_last in (int(y_host), ctx.p - int(y_host)),
+            f"K6 at {len(more)} keys: the first {len(keys)} rows unchanged, the last the "
+            "square root of its x^3 + 4 and the host's y up to sign")
     got = F384.g1_decompress_batch(keys, device=dev)
     t0 = time.perf_counter()
     host = [bls.g1_decompress(k) for k in keys]
@@ -861,26 +883,27 @@ def g1_decompress_phase(torch, dev, seed: int) -> dict:
         refused = "not on curve" in str(e)
     require(refused, "an x off the curve (x = 1: 5 is no square) raises")
     k6_ms = time_ms(torch, lambda: F384.decompress_y(xm), reps=20)
-    # the bound's work: x^3 (a squaring, a multiply), the pow by the
-    # shortest window chain found, the check y^2 (a squaring); K6 itself
-    # runs the binary ladder, a squaring a bit and a multiply a set bit
+    # the bound's work, which K6 runs too (the header's chain is
+    # window_chain's, tests/test_torch_field384.py): x^3 (a squaring, a
+    # multiply), the pow by the shortest window chain found, the check y^2
+    # (a squaring)
     e = ctx.sqrt_exp
     chain_sq, chain_mul, window = window_chain(e)
     squarings, multiplies = 1 + chain_sq + 1, 1 + chain_mul
-    kernel_products = 2 + (e.bit_length() - 1) + (bin(e).count("1") - 1) + 1
+    kernel_products = squarings + multiplies
     n = len(keys)
     bm, by = bound_ms(n * (48 + 48 + 4),
                       n * (squarings * IMAD_PER_SQR384 + multiplies * IMAD_PER_MONT384))
-    log(f"K6: equal to its plain version and to the host on {n} keys (both signs, x = 0); "
-        f"an x off the curve raises; {k6_ms:.3f} ms (plain {plain_ms:.1f} ms, host loop "
-        f"{host_ms:.1f} ms; bound {bm:.4f} ms by {by}: {squarings} squarings and "
+    log(f"K6: equal to its plain version and to the host on {n} keys (both signs, x = 0), "
+        f"and at {len(more)} keys to itself and the integer square root; an x off the curve "
+        f"raises; {k6_ms:.3f} ms (plain {plain_ms:.1f} ms, "
+        f"host loop {host_ms:.1f} ms; bound {bm:.4f} ms by {by}: {squarings} squarings and "
         f"{multiplies} multiplies a key, the pow by a {window}-bit window chain of "
-        f"{chain_sq} + {chain_mul}; K6 runs {kernel_products} products a key)")
+        f"{chain_sq} + {chain_mul}; K6 runs these {kernel_products} products a key)")
     return dict(ms=k6_ms, plain_ms=plain_ms, bound_ms=bm, bound_by=by, max_abs_err=err,
                 host_ms=host_ms, shape=f"{n} keys", bound_squarings_a_key=squarings,
                 bound_multiplies_a_key=multiplies, chain=dict(
                     window=window, squarings=chain_sq, multiplies=chain_mul),
-                kernel_products_a_key=kernel_products,
                 library_note="no PyTorch call computes a square root mod p")
 
 

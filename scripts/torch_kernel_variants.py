@@ -20,11 +20,16 @@ rows of a normalised table, c = 13, 10 windows: the walk alone and the
 wrapper, checked after normalization), K4 at 2^23 (checked exactly) and
 [16, 2^21], K2 at 2^21 pairs, K2b on 24 windows of 1024 and on one window
 of 4096 projective bucket sums (checked after normalization: another
-geometry adds in another order) and K3 at 2^23. Prints the card's name and
-power limit, then one JSON line per variant with CUDA-event milliseconds,
-the SASS instruction count of the product's probe kernel and the registers
-and spill bytes a thread of K1c, K1c_fixed, K2 and K2b. Exits non-zero
-without CUDA.
+geometry adds in another order), K3 at 2^23 and K6 (its squaring form,
+shuffles and block size; probes that drop a part to show its cost give
+wrong results) on the committee's 512 keys, checked limb for limb against
+the plain version. A variant rebuilds only the libraries whose
+sources it edits, and its row times only their kernels (the BN254 ones
+also under a Python constant). Prints the card's name and power limit,
+then one JSON line per variant with CUDA-event milliseconds, the SASS
+instruction count of the product's probe kernel and of K6, and the
+registers and spill bytes a thread of K1c, K1c_fixed, K2, K2b and K6.
+Exits non-zero without CUDA.
 """
 
 from __future__ import annotations
@@ -424,6 +429,85 @@ SPT_HD Point madd(const Point& p, const Fe& x2, const Fe& y2) {
 
 '''
 
+# K6's round of the product (field384.cuh Group::mul), from the first
+# product of the round to the shift
+K6_ROUND = ("      U64 r[4], q[4], t;\n", "    }\n    return normalize(c);")
+# ... with the shift's shuffles issued before the quotient is broadcast:
+# the lane above's columns of a b_i, and its digit of p for m
+K6_ROUND_SHIFT_EARLY = """      U64 r[4], q[4], qn[4], t;
+      columns(a, W::shfl(b, i), r);
+      c[0] += r[0];
+      c[1] += r[1];
+      const U64 above0 = W::down(c[0]), above1 = W::down(c[1]);
+      resolve(c, t);
+      const U64 m = W::shfl(t * U64(kNp0), 0);
+      columns(m, pd, q);
+      columns(m, W::down(pd), qn);
+      c[0] += q[0];
+      c[1] += q[1];
+      const U64 out = resolve(c, t);
+      c[0] = above0 + qn[0] + r[2] + q[2] + W::sel(lane == U64(0), out, U64(0));
+      c[1] = above1 + qn[1] + r[3] + q[3];
+"""
+# A squaring that multiplies each cross product of digits once, doubled:
+# in round i, 0 at lanes j < i, a_i at lane i, 2 a_j at lanes j > i, the
+# operand chosen before the products (2 a_j is a_j << 1 and its top bit,
+# which adds a_i one digit up) ...
+K6_SQUARE_OPERAND = """      if (kSquare) {
+        const U64 bi = W::shfl(b, i);
+        const B above = U64(i) < lane, at = lane == U64(i);
+        columns(W::sel(above, a << 1, W::sel(at, a, U64(0))), bi, r);
+        const U64 top = W::sel(above, U64(0) - (a >> 63), U64(0));
+        r[2] += top & (bi & kLo32);
+        r[3] += top & (bi >> 32);
+      } else {
+        columns(a, W::shfl(b, i), r);
+      }
+"""
+# ... or the row's products kept, doubled or dropped after they are formed.
+K6_SQUARE_PRODUCTS = """      columns(a, W::shfl(b, i), r);
+      if (kSquare) {
+        const B above = U64(i) < lane, keep = above | (lane == U64(i));
+        const U64 sh = W::sel(above, U64(1), U64(0));
+#pragma unroll
+        for (int k = 0; k < 4; ++k) r[k] = W::sel(keep, r[k] << sh, U64(0));
+      }
+"""
+
+
+# The round's quotient m = t * -p^-1 mod 2^64 from the three 32-bit limb
+# products it needs, in place of one 64-bit multiply
+K6_QUOTIENT_LIMBS = [
+    ("field384.cuh", "  // Exact digits of t = sum over lanes",
+     """  static SPT384_FN U64 quotient(U64 t) {
+    const U64 s = W::wide(t, U64(kNp0));
+    U64 c[2] = {s & kLo32, (s >> 32) + (W::wide(t, U64(kNp0 >> 32)) & kLo32) +
+                               (W::wide(t >> 32, U64(kNp0)) & kLo32)};
+    U64 m;
+    resolve(c, m);
+    return m;
+  }
+
+  // Exact digits of t = sum over lanes"""),
+    ("field384.cuh", "W::shfl(t * U64(kNp0), 0)", "W::shfl(quotient(t), 0)")]
+# p and 4 R mod p read as kGroup words (the lanes above the value read the
+# arrays' zeros) in place of a select
+K6_CONSTANTS_PADDED = [
+    ("field384.cuh", "uint64_t kP[kLanes] = {", "uint64_t kP[kGroup] = {"),
+    ("field384.cuh", "uint64_t kFour[kLanes] = {", "uint64_t kFour[kGroup] = {"),
+    ("field384.cuh", "    return lane() < kLanes ? digits[lane()] : 0;", "    return digits[lane()];")]
+
+
+def _k6_square(body: str) -> list:
+    """The edits of field384.cuh for a dedicated squaring with `body` as
+    its round's first product."""
+    return [("field384.cuh", "  SPT384_FN U64 mul(U64 a, U64 b) const {",
+             "  template <bool kSquare = false>\n  SPT384_FN U64 mul(U64 a, U64 b) const {"),
+            ("field384.cuh", "      columns(a, W::shfl(b, i), r);\n", body),
+            ("field384.cuh", "SPT384_FN U64 sqr(U64 a) const { return mul(a, a); }",
+             "SPT384_FN U64 sqr(U64 a) const { return mul<true>(a, a); }")]
+
+
 # (name, [(file, old text, new text) | (file, (first, last), new text)],
 #  {python constant: value}); a (first, last) pair replaces the text from
 # `first` up to, not including, `last`.
@@ -528,6 +612,24 @@ VARIANTS = [
     ("K4 plan tmax 12, tiles 2^12", [], {"TMAX": 12, "TILE_LOG": 12}),
     ("K4 512 threads", [("field_kernels.cu", "constexpr int kThreads = 256;",
                          "constexpr int kThreads = 512;")], {}),
+    ("K6 shift shuffles before the quotient's broadcast", [
+        ("field384.cuh", K6_ROUND, K6_ROUND_SHIFT_EARLY)], {}),
+    ("K6 dedicated squaring, operand chosen", _k6_square(K6_SQUARE_OPERAND), {}),
+    ("K6 dedicated squaring, products chosen", _k6_square(K6_SQUARE_PRODUCTS), {}),
+    ("K6 quotient by limb products", K6_QUOTIENT_LIMBS, {}),
+    ("K6 constants padded to the group", K6_CONSTANTS_PADDED, {}),
+    ("K6 quotient by limb products, constants padded to the group",
+     K6_QUOTIENT_LIMBS + K6_CONSTANTS_PADDED, {}),
+    ("K6 blocks of 64 threads", [
+        ("field384_kernels.cu", "constexpr int kThreads = 32;", "constexpr int kThreads = 64;")],
+     {}),
+    ("K6 probe: no shift shuffle (timing only: wrong results)", [
+        ("field384.cuh", "c[0] = W::down(c[0])", "c[0] = c[0]"),
+        ("field384.cuh", "c[1] = W::down(c[1])", "c[1] = c[1]")], {}),
+    ("K6 probe: no quotient broadcast (timing only: wrong results)", [
+        ("field384.cuh", "W::shfl(t * U64(kNp0), 0)", "t * U64(kNp0)")], {}),
+    ("K6 probe: no carry look-ahead (timing only: wrong results)", [
+        ("field384.cuh", "    return (p + (g << 1)) ^ p;", "    return g << 1;")], {}),
 ]
 
 
@@ -544,8 +646,27 @@ def _edit(text: str, old, new: str, where: str) -> str:
     return text.replace(old, new)
 
 
-def _build(KL, root: str, chosen) -> None:
-    procs = []
+def _touched(KL, d: str, files) -> list:
+    """The libraries whose .cu file, or a header it includes (directly or
+    through another header), is among `files`."""
+    out = []
+    for lib, (src, _) in KL.LIBRARIES.items():
+        seen, todo = set(), [src]
+        while todo:
+            f = todo.pop()
+            if f not in seen:
+                seen.add(f)
+                with open(os.path.join(d, f)) as fh:
+                    todo += re.findall(r'#include "(\w+\.cuh)"', fh.read())
+        if seen & set(files):
+            out.append(lib)
+    return out
+
+
+def _build(KL, root: str, chosen) -> dict:
+    """Builds each chosen variant's copy of the sources (the sources' own,
+    variant 0, every library); returns {variant: the libraries built}."""
+    procs, built = [], {}
     for i in chosen:
         _, edits, _ = VARIANTS[i]
         d = os.path.join(root, str(i))
@@ -556,7 +677,8 @@ def _build(KL, root: str, chosen) -> None:
             text = _edit(open(path).read(), old, new, f"variant {i}, {f}")
             with open(path, "w") as fh:
                 fh.write(text)
-        for lib in KL.LIBRARIES:
+        built[i] = list(KL.LIBRARIES) if i == 0 else _touched(KL, d, {f for f, _, _ in edits})
+        for lib in built[i]:
             cmd = [KL._nvcc(), *KL.NVCC_FLAGS, "-I", d, "-o",
                    os.path.join(d, f"{lib}.so"), os.path.join(d, f"{lib}.cu")]
             log = open(os.path.join(d, f"{lib}.log"), "w")
@@ -568,11 +690,18 @@ def _build(KL, root: str, chosen) -> None:
             with open(log.name) as fh:
                 tail = fh.read()[-3000:]
             raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{tail}")
+    return built
 
 
-def _use(KL, d: str) -> None:
+def _dirs(KL, root: str, i: int, built: dict) -> dict:
+    """{library: the directory of the build variant i runs}: its own for the
+    libraries it rebuilt, the sources' for the others."""
+    return {lib: os.path.join(root, str(i if lib in built[i] else 0)) for lib in KL.LIBRARIES}
+
+
+def _use(KL, dirs: dict) -> None:
     for lib, (_, fns) in KL.LIBRARIES.items():
-        h = ctypes.CDLL(os.path.join(d, f"{lib}.so"))
+        h = ctypes.CDLL(os.path.join(dirs[lib], f"{lib}.so"))
         for fn, argtypes in fns.items():
             getattr(h, fn).argtypes = argtypes
             getattr(h, fn).restype = ctypes.c_int
@@ -593,12 +722,12 @@ def _spills(log_path: str) -> dict:
     return out
 
 
-def _static(KL, d: str) -> dict:
+def _static(KL, dirs: dict) -> dict:
     """The probe kernel's SASS instruction count and the registers (and
     spill stores) of the K1c, K1c_fixed, K2 and K2b kernels of one build."""
-    sass = KL.sass_opcodes(os.path.join(d, "field_kernels.so"))
+    sass = KL.sass_opcodes(os.path.join(dirs["field_kernels"], "field_kernels.so"))
     probe = next(v for k, v in sass.items() if "mont_mul_probe_kernel" in k)
-    log = os.path.join(d, "msm_kernels.log")
+    log = os.path.join(dirs["msm_kernels"], "msm_kernels.log")
     regs, spills = KL.ptxas_registers(log), _spills(log)
     out = {"product SASS": sum(probe.values())}
     for rec, sym in (("K1c", "k1_walk_kernel"), ("K1c_fixed", "k1_fixed_walk_kernel"),
@@ -609,6 +738,38 @@ def _static(KL, d: str) -> dict:
     return out
 
 
+def _static_k6(KL, dirs: dict) -> dict:
+    """K6's SASS instruction count, registers, stack frame and spill stores
+    a thread."""
+    d = dirs["field384_kernels"]
+    sass = KL.sass_opcodes(os.path.join(d, "field384_kernels.so"))
+    log = os.path.join(d, "field384_kernels.log")
+    regs, spills = KL.ptxas_registers(log), _spills(log)
+    with open(log) as fh:
+        stack = re.search(r"(\d+) bytes stack frame", fh.read())
+    name = next(k for k in regs if "g1_sqrt_kernel" in k)
+    return {"K6 SASS": sum(next(v for k, v in sass.items() if "g1_sqrt_kernel" in k).values()),
+            "K6 registers": regs[name], "K6 stack bytes": int(stack.group(1)) if stack else None,
+            "K6 spill bytes": spills.get(name, 0)}
+
+
+def _k6_input(F384, dev):
+    """The committee's 512 keys' x: seeded points and their negations."""
+    import random
+
+    from chip_smoke import COMMITTEE_KEYS
+    from spectre_tpu_torch.fields import bls12_381 as bls
+
+    g1 = bls.g1_curve
+    q = g1.mul(bls.G1_GEN, random.Random(1).randrange(1, bls.R))
+    keys, pt = [], q
+    while len(keys) < COMMITTEE_KEYS:
+        keys += [bls.g1_compress(pt), bls.g1_compress(g1.neg(pt))]
+        pt = g1.add(pt, q)
+    return F384.bls_fq_ctx().to_tensor(
+        [int.from_bytes(bytes([k[0] & 0x1F]) + k[1:], "big") for k in keys], dev)
+
+
 def main(argv=None) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -616,8 +777,8 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, REPO)
     from spectre_tpu_torch.fields import bn254
-    from spectre_tpu_torch.ops import (ec, field_ops as F, kernel_lib as KL, msm as M,
-                                       msm_kernels as MK, ntt as N)
+    from spectre_tpu_torch.ops import (ec, field384 as F384, field_ops as F, kernel_lib as KL,
+                                       msm as M, msm_kernels as MK, ntt as N)
     from spectre_tpu_torch.plonk.srs import g1_powers_device
 
     want = sys.argv[1:] if argv is None else argv
@@ -627,7 +788,7 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     print(f"gpu: {smi}", flush=True)
     root = os.path.join(os.path.dirname(KL.BUILD_DIR), "kernel_variants")
-    _build(KL, root, chosen)
+    built = _build(KL, root, chosen)
     dev = torch.device("cuda")
     fr = F.fr_ctx()
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -662,7 +823,9 @@ def main(argv=None) -> int:
     xb = F.to_mont(fr, rnd(16 << 21)).reshape(16, 1 << 21, 4)
     twb = tables.twiddles(bn254.fr_root_of_unity(21), 1 << 21)
     a2, b2 = pts, torch.roll(pts, 1, 0)
-    _use(KL, os.path.join(root, "0"))
+    xk6 = _k6_input(F384, dev)
+    ref_k6 = F384.decompress_y_plain(xk6)
+    _use(KL, _dirs(KL, root, 0, built))
     ref_k1 = {k: ec.normalize_std(MK.bucket_sums_aos32(pts, d, negs, c)) for k, d in digits.items()}
     ref_k4 = N.ntt_passes(x23, tw23)
     sums = MK.padd_aos32(pts[:nwin * nb], pts[nwin * nb:2 * nwin * nb])
@@ -685,35 +848,46 @@ def main(argv=None) -> int:
               "K2B_FILL": MK}
     for i in chosen:
         name, _, pyconst = VARIANTS[i]
-        _use(KL, os.path.join(root, str(i)))
+        dirs = _dirs(KL, root, i, built)
+        _use(KL, dirs)
+        bn254_kernels = i == 0 or bool(pyconst) or any(
+            lib != "field384_kernels" for lib in built[i])
+        k6 = i == 0 or "field384_kernels" in built[i]
         saved = {k: getattr(consts[k], k) for k in pyconst}
         for k, v in pyconst.items():
             setattr(consts[k], k, v)
         plan = N.ntt_plan
         N.ntt_plan = lambda logn, f=plan: f(logn, N.TMAX, N.TILE_LOG)
         try:
-            row = {"variant": name, **_static(KL, os.path.join(root, str(i)))}
-            for k, d in digits.items():
-                same = torch.equal(ec.normalize_std(MK.bucket_sums_aos32(pts, d, negs, c)), ref_k1[k])
-                row[f"K1 {k} ms"] = ms(lambda: MK.bucket_sums_aos32(pts, d, negs, c), 3)
-                row[f"K1 {k} equal"] = bool(same)
-            row["K4 2^23 equal"] = bool(torch.equal(N.ntt_passes(x23, tw23), ref_k4))
-            row["K4 2^23 ms"] = ms(lambda: N.ntt_passes(x23, tw23), 5)
-            row["K4 16x2^21 ms"] = ms(lambda: N.ntt_passes(xb, twb), 3)
-            row["K4 passes 2^23"] = N.ntt_plan(23)
-            row["K2 2^21 ms"] = ms(lambda: MK.padd_aos32(a2, b2), 5)
-            row["K2b equal"] = bool(torch.equal(
-                ec.normalize_std(MK.aggregate_buckets_aos32(sums, nwin, nb)), ref_k2b))
-            row["K2b 24x1024 ms"] = ms(lambda: MK.aggregate_buckets_aos32(sums, nwin, nb), 10)
-            row["K2b 1x4096 equal"] = bool(torch.equal(
-                ec.normalize_std(MK.aggregate_buckets_aos32(sums1, 1, 4096)), ref_k2b1))
-            row["K2b 1x4096 ms"] = ms(lambda: MK.aggregate_buckets_aos32(sums1, 1, 4096), 10)
-            row["K1c_fixed equal"] = bool(torch.equal(
-                ec.normalize_std(MK.bucket_walk_fixed(rows, fentries, fbstart)), ref_fixed))
-            row["K1c_fixed walk ms"] = ms(lambda: MK.bucket_walk_fixed(rows, fentries, fbstart), 3)
-            row["K1-fixed wrapper ms"] = ms(
-                lambda: MK.bucket_sums_fixed_aos32(table, fdig, fnegs, cf), 3)
-            row["K3 2^23 ms"] = ms(lambda: F.mont_mul(fr, x23.reshape(-1, 4), ref_k4.reshape(-1, 4)), 10)
+            row = {"variant": name}
+            if k6:
+                row.update(_static_k6(KL, dirs))
+                y, ok = F384.decompress_y(xk6)
+                row["K6 equal"] = bool(torch.equal(y, ref_k6[0]) and torch.equal(ok, ref_k6[1]))
+                row["K6 512 keys ms"] = ms(lambda: F384.decompress_y(xk6), 50)
+            if bn254_kernels:
+                row.update(_static(KL, dirs))
+                for k, d in digits.items():
+                    same = torch.equal(ec.normalize_std(MK.bucket_sums_aos32(pts, d, negs, c)), ref_k1[k])
+                    row[f"K1 {k} ms"] = ms(lambda: MK.bucket_sums_aos32(pts, d, negs, c), 3)
+                    row[f"K1 {k} equal"] = bool(same)
+                row["K4 2^23 equal"] = bool(torch.equal(N.ntt_passes(x23, tw23), ref_k4))
+                row["K4 2^23 ms"] = ms(lambda: N.ntt_passes(x23, tw23), 5)
+                row["K4 16x2^21 ms"] = ms(lambda: N.ntt_passes(xb, twb), 3)
+                row["K4 passes 2^23"] = N.ntt_plan(23)
+                row["K2 2^21 ms"] = ms(lambda: MK.padd_aos32(a2, b2), 5)
+                row["K2b equal"] = bool(torch.equal(
+                    ec.normalize_std(MK.aggregate_buckets_aos32(sums, nwin, nb)), ref_k2b))
+                row["K2b 24x1024 ms"] = ms(lambda: MK.aggregate_buckets_aos32(sums, nwin, nb), 10)
+                row["K2b 1x4096 equal"] = bool(torch.equal(
+                    ec.normalize_std(MK.aggregate_buckets_aos32(sums1, 1, 4096)), ref_k2b1))
+                row["K2b 1x4096 ms"] = ms(lambda: MK.aggregate_buckets_aos32(sums1, 1, 4096), 10)
+                row["K1c_fixed equal"] = bool(torch.equal(
+                    ec.normalize_std(MK.bucket_walk_fixed(rows, fentries, fbstart)), ref_fixed))
+                row["K1c_fixed walk ms"] = ms(lambda: MK.bucket_walk_fixed(rows, fentries, fbstart), 3)
+                row["K1-fixed wrapper ms"] = ms(
+                    lambda: MK.bucket_sums_fixed_aos32(table, fdig, fnegs, cf), 3)
+                row["K3 2^23 ms"] = ms(lambda: F.mont_mul(fr, x23.reshape(-1, 4), ref_k4.reshape(-1, 4)), 10)
         finally:
             N.ntt_plan = plan
             for k, v in saved.items():

@@ -1,5 +1,6 @@
 // K6: batched BLS12-381 G1 decompression's square root, y = sqrt(x^3 + 4)
-// in Fq with a flag for whether the root exists, one CUDA thread per key.
+// in Fq with a flag for whether the root exists, a group of 8 lanes of a
+// warp per key.
 //
 // It replaces no Pallas kernel: the JAX package runs it as XLA code
 // (spectre_tpu/ops/field384.py:152 `_decompress_fn`, through `:105 mont_mul`
@@ -8,14 +9,18 @@
 // The port had only the host's one-key-at-a-time decompression; in torch ops
 // the pow would take ~10^5 launches, so the device form is this kernel.
 //
-// Design: a thread takes one key's x (Montgomery, 12 x 32-bit limbs), forms
-// x^3 + 4, raises it to (p + 1) / 4 (609 Montgomery products, one dependent
-// chain) and checks y^2 against it (csrc/field384.cuh). Bound: 512 keys hold
-// 512 threads on a card of 132 SMs, so the run is the latency of that chain,
-// far above both the bytes (100 a key) and the multiply-adds of a short
-// addition chain for the pow (counted in chip_smoke.py) over the card's peak
-// rates. Blocks of 64 threads spread the keys over 8
-// SMs for 512 keys.
+// Bound: each key is one dependent chain of 460 Montgomery products (x^3,
+// the table of odd powers, the 5-bit window chain for (p + 1) / 4, the
+// check), so 512 keys take the latency of one chain, far above both the
+// bytes (100 a key) and the multiply-adds of the chain over the card's peak
+// rates (counted in chip_smoke.py). Design (csrc/field384.cuh): a key's six
+// 64-bit digits lie in six lanes of a group of 8, so a product is 6 rounds
+// in which each lane does its own 8 limb products and keeps its columns'
+// carries lazily, and lanes exchange only the broadcast digit, the
+// broadcast quotient and the shift (shuffles); carries are resolved once a
+// product by a ballot. The window chain is baked in as constants, the same
+// for every key. Blocks of one warp (4 keys) spread 512 keys over 128 SMs.
+// Groups past n run on x = 0 with the rest of their warp and store nothing.
 //
 // Plain C interface, loaded with ctypes by spectre_tpu_torch/ops/kernel_lib.py;
 // the wrapper and the plain PyTorch version are in ops/field384.py. The
@@ -26,21 +31,30 @@
 
 namespace {
 
-constexpr int kThreads = 64;
+constexpr int kThreads = 32;
 
 __global__ void __launch_bounds__(kThreads)
-    g1_sqrt_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
+    g1_sqrt_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y,
                    int32_t* __restrict__ ok, long n) {
-  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) ok[i] = spt384::decompress_one(i, x, y);
+  using namespace spt384;
+  using G = Group<WarpLanes>;
+  const G g;
+  const long key = ((long)blockIdx.x * kThreads + threadIdx.x) / kGroup;
+  const bool live = key < n;  // the same for the whole group
+  const bool mine = live && g.lane < kLanes;
+  const long at = 6 * key + (long)g.lane;
+  uint64_t yd;
+  const int on = g.decompress(mine ? x[at] : 0, yd);
+  if (mine) y[at] = yd;
+  if (live && g.lane == 0) ok[key] = on;
 }
 
 }  // namespace
 
 extern "C" int spt_g1_sqrt(const void* x, void* y, void* ok, long n, void* stream) {
   if (n > 0)
-    g1_sqrt_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0,
-                     (cudaStream_t)stream>>>((const uint32_t*)x, (uint32_t*)y,
+    g1_sqrt_kernel<<<(unsigned)((n * spt384::kGroup + kThreads - 1) / kThreads), kThreads, 0,
+                     (cudaStream_t)stream>>>((const uint64_t*)x, (uint64_t*)y,
                                              (int32_t*)ok, n);
   return (int)cudaGetLastError();
 }

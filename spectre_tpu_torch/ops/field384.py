@@ -7,8 +7,9 @@ the JAX package's 24 x 16-bit limbs, and the bit layout of the 12 x 32-bit
 limbs that the kernel reads.
 
     decompress_y        K6 (csrc/field384_kernels.cu): y = sqrt(x^3 + 4) and
-                        whether it exists, one CUDA thread per key, for a
-                        CUDA tensor; the plain version for a CPU tensor
+                        whether it exists, a group of 8 lanes of a warp per
+                        key, for a CUDA tensor; the plain version for a CPU
+                        tensor
     decompress_y_plain  the plain PyTorch version: mont_mul and mont_pow in
                         torch integer ops, vectorised over the keys
     g1_decompress_batch the committee's compressed pubkeys -> affine points:

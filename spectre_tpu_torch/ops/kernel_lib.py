@@ -3,7 +3,7 @@
 The sources live in `spectre_tpu_torch/csrc/`: `bn254.cuh` (the shared
 field and curve arithmetic), `bucket.cuh`, `aggregate.cuh` and `ntt.cuh`
 (the per-block bodies of K1, K2b and K4), `field384.cuh` (BLS12-381 Fq and
-K6's per-key body) and one `.cu` file per library with a plain C
+K6's lane-group body) and one `.cu` file per library with a plain C
 interface. At first use each library is compiled by `nvcc` for `sm_90a` into
 `build/torch_kernels/` at the repository root (a directory git ignores),
 every source in its own `nvcc` process, all started together, and loaded

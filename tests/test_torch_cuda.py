@@ -352,18 +352,24 @@ def test_step_shaped_outer_prove_verifies(dev):
                               transcript_cls=KeccakTranscript)
 
 
-def test_k6_g1_decompress(dev):
-    """K6 on 64 keys (both sign bits, x = 0) equals its plain version limb
-    for limb and the host's per-key decompression; an x off the curve is
-    flagged and raises; one launch a batch."""
+@pytest.mark.parametrize("n", [1, 63, 512, 513])
+def test_k6_g1_decompress(dev, n):
+    """K6 on n x: n - 1 keys (x = 0 with either sign, seeded points and
+    their negations) and x = 1, off the curve, last, so that 1, 63 and 513
+    fill a lane group's warp in part. y and the flag equal the plain
+    version limb for limb, the keys the host's per-key decompression; an x
+    off the curve is flagged and raises; one launch a batch."""
     from spectre_tpu_torch.fields import bls12_381 as bls
     from spectre_tpu_torch.ops import field384 as F384
 
-    r = random.Random(6)
-    pts = [bls.g1_curve.mul(bls.G1_GEN, r.randrange(1, 1 << 64)) for _ in range(31)]
-    keys = [bls.g1_compress(p) for p in pts] + [bls.g1_compress(bls.g1_curve.neg(p))
-                                                for p in pts]
-    keys += [bytes([0x80]) + bytes(47), bytes([0xA0]) + bytes(47)]
+    g1 = bls.g1_curve
+    q = g1.mul(bls.G1_GEN, random.Random(6).randrange(1, 1 << 64))
+    keys = [bytes([0x80]) + bytes(47), bytes([0xA0]) + bytes(47)]
+    pt = q
+    while len(keys) < n - 1:
+        keys += [bls.g1_compress(pt), bls.g1_compress(g1.neg(pt))]
+        pt = g1.add(pt, q)
+    keys = keys[:n - 1]
     ctx = F384.bls_fq_ctx()
     xs = [int.from_bytes(bytes([k[0] & 0x1F]) + k[1:], "big") for k in keys] + [1]
     xm = ctx.to_tensor(xs, dev)

@@ -4,9 +4,10 @@ K6 in `csrc/field384_kernels.cu`) on the CPU, against the JAX package's
 
 The two packages lay the same Montgomery values out in different limbs (the
 reference 24 x 16 bits, the port 6 x 64), so the plain versions are compared
-value for value, exactly. K6's per-key body (`csrc/field384.cuh`) is built
-for the host with g++ and must equal the plain version limb for limb; the
-launch itself runs only on the card (tests/test_torch_cuda.py, chip_smoke.py).
+value for value, exactly. K6's body (`csrc/field384.cuh`: a key spread over
+a group of 8 lanes) is built for the host with g++, its lanes looped over,
+and must equal the plain version limb for limb; the launch itself runs only
+on the card (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
 import ctypes
@@ -169,16 +170,50 @@ def test_decompress_y_takes_the_plain_version_on_the_cpu():
 HARNESS = r"""
 #include "field384.cuh"
 using namespace spt384;
+using G = Group<HostLanes>;
+static const G g;
+// one value: its six digits over lanes 0 .. kLanes - 1 of a group, the
+// lanes above zero
+static G::U64 load(const uint64_t* w) {
+  G::U64 r;
+  for (int j = 0; j < kLanes; ++j) r[j] = w[j];
+  return r;
+}
+// stores lanes 0 .. kLanes - 1; returns how many lanes above are not zero
+static int store(uint64_t* w, const G::U64& v) {
+  int dirty = 0;
+  for (int j = 0; j < kLanes; ++j) w[j] = v[j];
+  for (int j = kLanes; j < kGroup; ++j) dirty += v[j] != 0;
+  return dirty;
+}
 extern "C" {
-void h_mont_mul(const uint32_t* a, const uint32_t* b, uint32_t* out, long n) {
-  for (long i = 0; i < n; ++i) store(out + L * i, mont_mul(load(a + L * i), load(b + L * i)));
+int h_mont_mul(const uint64_t* a, const uint64_t* b, uint64_t* out, long n) {
+  int dirty = 0;
+  for (long i = 0; i < n; ++i)
+    dirty += store(out + 6 * i, g.canonical(g.mul(load(a + 6 * i), load(b + 6 * i))));
+  return dirty;
 }
-void h_add(const uint32_t* a, const uint32_t* b, uint32_t* out, long n) {
-  for (long i = 0; i < n; ++i) store(out + L * i, add(load(a + L * i), load(b + L * i)));
+int h_mont_sqr(const uint64_t* a, const uint64_t* b, uint64_t* out, long n) {
+  int dirty = 0;
+  for (long i = 0; i < n; ++i)
+    dirty += store(out + 6 * i, g.canonical(g.sqr(load(a + 6 * i))));
+  return dirty;
 }
-// K6's threads one after another
-void h_decompress(const uint32_t* x, uint32_t* y, int32_t* ok, long n) {
-  for (long i = 0; i < n; ++i) ok[i] = decompress_one(i, x, y);
+int h_add(const uint64_t* a, const uint64_t* b, uint64_t* out, long n) {
+  int dirty = 0;
+  for (long i = 0; i < n; ++i)
+    dirty += store(out + 6 * i, g.add(load(a + 6 * i), load(b + 6 * i)));
+  return dirty;
+}
+// K6's lane groups one after another
+int h_decompress(const uint64_t* x, uint64_t* y, int32_t* ok, long n) {
+  int dirty = 0;
+  for (long i = 0; i < n; ++i) {
+    G::U64 yd;
+    ok[i] = g.decompress(load(x + 6 * i), yd);
+    dirty += store(y + 6 * i, yd);
+  }
+  return dirty;
 }
 }
 """
@@ -197,48 +232,120 @@ def lib(tmp_path_factory):
                     "-o", str(so), str(src)], check=True, timeout=300)
     h = ctypes.CDLL(str(so))
     vp, lg = ctypes.c_void_p, ctypes.c_long
-    h.h_mont_mul.argtypes = h.h_add.argtypes = [vp, vp, vp, lg]
-    h.h_decompress.argtypes = [vp, vp, vp, lg]
+    for fn in (h.h_mont_mul, h.h_mont_sqr, h.h_add, h.h_decompress):
+        fn.argtypes = [vp, vp, vp, lg]
+        fn.restype = ctypes.c_int
     return h
 
 
+HEADER = f"{KL.CSRC}/field384.cuh"
+
+
+def _header_chain() -> tuple[int, int, list[tuple[int, int]]]:
+    """(window table size, first power, [(squarings, digit)]) of the
+    square-root chain baked into the header."""
+    text = open(HEADER).read()
+    table = int(re.search(r"kTable = (\d+);", text).group(1))
+    first = int(re.search(r"kSqrtFirst = (\d+);", text).group(1))
+    body = text[text.index("kSqrtChain[kSqrtSteps] = {"):]
+    body = body[:body.index("}};") + 2]
+    steps = [(int(a), int(b)) for a, b in re.findall(r"\{(\d+), (\d+)\}", body)]
+    assert int(re.search(r"kSqrtSteps = (\d+);", text).group(1)) == len(steps)
+    return table, first, steps
+
+
 def test_header_constants_are_derived():
-    text = open(f"{KL.CSRC}/field384.cuh").read()
+    text = open(HEADER).read()
 
-    def array(anchor):      # the first list of hex words after the anchor
-        body = text[text.index(anchor):]
-        body = body[body.index("{0x") + 1:]
-        return [int(x, 16) for x in re.findall(r"(0x[0-9a-f]+)u", body[:body.index("}")])]
+    def words(name):      # the hex words of the array `name`
+        body = text[text.index(f"{name}[kLanes] = {{"):]
+        return [int(x, 16) for x in re.findall(r"(0x[0-9a-f]+)ull", body[:body.index("}")])]
 
-    arrays = {name: array(anchor) for name, anchor in (
-        ("p", "uint32_t p(int i)"), ("four", "uint32_t four(int i)"),
-        ("SQRT_EXP", "#define SPT384_SQRT_EXP"))}
-    value = lambda ws: sum(w << (32 * i) for i, w in enumerate(ws))  # noqa: E731
-    assert value(arrays["p"]) == P
-    assert value(arrays["four"]) == 4 * R % P
-    assert value(arrays["SQRT_EXP"]) == CTX.sqrt_exp
-    assert int(re.search(r"kSqrtExpBits = (\d+);", text).group(1)) == CTX.sqrt_exp.bit_length()
-    assert int(re.search(r"kN0 = (0x[0-9a-f]+)u", text).group(1), 16) == (-pow(P, -1, 1 << 32)) % (1 << 32)
+    value = lambda ws: sum(w << (64 * i) for i, w in enumerate(ws))  # noqa: E731
+    assert value(words("kP")) == P
+    assert value(words("kFour")) == 4 * R % P
+    np0 = int(re.search(r"kNp0 = (0x[0-9a-f]+)ull", text).group(1), 16)
+    assert np0 == (-pow(P, -1, 1 << 64)) % (1 << 64)
+
+
+def test_header_window_chain_computes_the_square_root_exponent():
+    """The chain baked into the header raises x to (p + 1) / 4 mod p, with
+    the squarings and multiplies that chip_smoke.window_chain counts for
+    K6's bound: the table of odd powers (one squaring, a multiply an
+    entry), then each step's squarings and multiply."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    table, first, steps = _header_chain()
+    x = 0x1234567 * 0xFEDCBA98765 % P
+    x2 = x * x % P
+    powers = [x]
+    for _ in range(table - 1):
+        powers.append(powers[-1] * x2 % P)
+    sq, mul = 1, table - 1
+    acc = powers[first >> 1]
+    for squarings, digit in steps:
+        for _ in range(squarings):
+            acc, sq = acc * acc % P, sq + 1
+        if digit:
+            assert digit & 1 and digit < 2 * table
+            acc, mul = acc * powers[digit >> 1] % P, mul + 1
+    assert acc == pow(x, CTX.sqrt_exp, P)
+    squarings, multiplies, window = chip_smoke.window_chain(CTX.sqrt_exp)
+    assert (sq, mul) == (squarings, multiplies) == (376, 81)
+    assert 2 * table == 1 << window
+    assert first & 1 and max(d for _, d in steps) < 2 * table
 
 
 def test_header_product_and_add_equal_the_plain_version(lib):
+    """The lane group's product, squaring and sum (lanes looped over on
+    the host) equal the plain version limb for limb; lanes 6 and 7 stay 0."""
     va, vb = _values(4, 95), list(reversed(_values(5, 95)))
     a, b = _port(va), _port(vb)
-    for fn, plain in ((lib.h_mont_mul, F.mont_mul), (lib.h_add, F.add)):
+    for fn, plain in ((lib.h_mont_mul, F.mont_mul), (lib.h_add, F.add),
+                      (lib.h_mont_sqr, lambda ctx, a, b: F.mont_mul(ctx, a, a))):
         out = torch.empty_like(a)
-        fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0])
+        assert fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0]) == 0
         assert torch.equal(out, plain(CTX, a, b))
 
 
+def test_header_carries_run_through_digits_of_ones(lib):
+    """The one-bit carries that chain() resolves across lanes: a product
+    by the Montgomery one whose result has zero digits above a small one
+    (a lane's lazy carry makes the digit below overflow and the zero digit
+    pass it on as all ones), and sums that carry through all-ones digits."""
+    r = np.random.default_rng(9)
+    vals = []
+    for zeros in ((1, 2), (1, 2, 3, 4), (2, 3), (1,)):
+        for _ in range(8):
+            w = [int(x) for x in r.integers(0, 1 << 63, size=6)]
+            for z in zeros:
+                w[z] = 0
+            vals.append(sum(x << (64 * i) for i, x in enumerate(w)) % P)
+    a = _port(vals)
+    one = _port([CTX.r_mod_p] * len(vals))
+    out = torch.empty_like(a)
+    assert lib.h_mont_mul(a.data_ptr(), one.data_ptr(), out.data_ptr(), len(vals)) == 0
+    assert _port_ints(out) == vals
+    assert torch.equal(out, F.mont_mul(CTX, a, one))
+    ones = [(1 << 128) - 1, (1 << 320) - 1, P - 1, (1 << 64) - 1]
+    a, b = _port(ones), _port([1, 1, 1, (1 << 64) + 1])
+    assert lib.h_add(a.data_ptr(), b.data_ptr(), out.data_ptr(), len(ones)) == 0
+    assert _port_ints(out[:len(ones)]) == [1 << 128, 1 << 320, 0, 1 << 65]
+
+
 def test_header_decompression_equals_the_plain_version(lib):
-    """K6's per-key body on the eight keys' x, two x off the curve and
-    seeded random x: y and the flag limb for limb as the plain version."""
+    """K6's lane-group body on the eight keys' x (seeded points of both
+    signs, x = 0 of both), two x off the curve (1 and p - 1) and seeded
+    random x: y and the flag limb for limb as the plain version."""
     xs = [int.from_bytes(bytes([k[0] & 0x1F]) + k[1:], "big") for k in _keys()]
     xs += [1, P - 1] + _values(6, 14)[5:]
     xm = CTX.to_tensor(xs, "cpu")
     y = torch.empty_like(xm)
     ok = torch.empty(len(xs), dtype=torch.int32)
-    lib.h_decompress(xm.data_ptr(), y.data_ptr(), ok.data_ptr(), len(xs))
+    assert lib.h_decompress(xm.data_ptr(), y.data_ptr(), ok.data_ptr(), len(xs)) == 0
     y_plain, ok_plain = F.decompress_y_plain(xm)
     assert torch.equal(y, y_plain) and torch.equal(ok, ok_plain)
     assert ok[:8].tolist() == [1] * 8 and ok[8] == 0
@@ -248,7 +355,7 @@ def test_header_decompression_equals_the_plain_version(lib):
 def test_k6_bound_chain_counts_a_chain_that_computes_the_power(e):
     """chip_smoke's K6 bound counts the squarings and multiplies of a
     sliding-window chain for x^e: running that chain gives x^e mod p with
-    exactly those counts, and for (p + 1) / 4 it is shorter than K6's
+    exactly those counts, and for (p + 1) / 4 it is shorter than the
     binary ladder (378 squarings, 228 multiplies)."""
     import os
     import sys

@@ -53,6 +53,14 @@ def _no_fault_plan():
     faults.clear()
 
 
+@pytest.fixture(autouse=True)
+def _self_verify_always(monkeypatch):
+    """Pin the self-verify policy these tests assert on: another test in the
+    same process (the reference's bench) may leave SPECTRE_SELF_VERIFY=off
+    in os.environ, and selfverify.policy() reads it at every call."""
+    monkeypatch.setenv("SPECTRE_SELF_VERIFY", "always")
+
+
 def _stub(name):
     """A circuit class that records where it was asked to prove, proves
     nothing, and verifies as told."""
