@@ -20,10 +20,12 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
            and at the advice commitments' batch, [16, 2^21]
   K1       bucket sums at n = 2^21, c from default_window_pallas, for
            random, all-equal and all-zero scalars: equal after affine
-           normalization; the plan kernels K1a and K1b equal to their plain
-           versions; the wrapper timed, and each of its four kernels under
-           torch.profiler (the whole plain K1's time stands as K1c's plain
-           time)
+           normalization on the 2^18 prefix, the committee's MSM size (the
+           whole sums are held by the msm phase's host sum); the plan
+           kernels K1a and K1b equal to their plain versions on the same
+           inputs; the wrapper timed at 2^21, and each of its four kernels
+           under torch.profiler (the whole plain K1's time on the prefix
+           stands as K1c's plain time)
   K2b      the weighted bucket aggregation at c from default_window_pallas
            (24 windows of 1024 buckets at n = 2^21, 8 blocks a window), on
            random projective bucket sums and on K1's own output: equal limb
@@ -106,21 +108,45 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
            K2 launched in the fixed prove (the fixed walk once a fixed-form
            MSM, K1c never), no fixed-base degrade
   service  rpc.serve over the boot's state (journal in the temporary
-           directory), driven through the port's ProverClient with requests
-           made from the acquire phase's Beacon-API JSON: /healthz 503 until
-           a fresh self-check passes on the card, then 200; the blocking
-           genEvmProof_SyncStepCompressed, then
-           submitProof_CommitteeUpdateCompressed polled by getProofStatus and
-           getProofResult; each answer's instances equal get_instances of the
-           acquired args, its proof verifies under the state's vk (a flipped
-           instance does not), its calldata decodes back, the committee's
-           Poseidon is the committee phase's; resubmits are dedup hits (K1
-           not launched); a wrong signature answers -32000; each manifest
-           shows its phases and 0 kernel builds; /metrics counts two proofs
-           and exports the launch counters; one `service` line: boot seconds,
-           each request's queue wait, preprocess, witness, layout, prove and
-           verify seconds, peak device memory, launches of K1a-K1d, K2, K2b,
-           K3, K4, K6; the state and its keys are dropped after it
+           directory; replica id "card", announcing itself to the farm's
+           head), driven through the port's ProverClient with a request made
+           from the acquire phase's Beacon-API JSON: /healthz 503 until a
+           fresh self-check passes on the card, then 200; the blocking
+           genEvmProof_SyncStepCompressed; the answer's instances equal
+           get_instances of the acquired args, its proof verifies under the
+           state's vk (a flipped instance does not), its calldata decodes
+           back; a resubmit is a dedup hit (K1 not launched); a wrong
+           signature answers -32000; the manifest shows its phases and 0
+           kernel builds; /metrics counts the proof and exports the launch
+           counters; one `service` line: boot seconds, the request's queue
+           wait, preprocess, witness, layout, prove and verify seconds, peak
+           device memory, launches of K1a-K1d, K2, K2b, K3, K4, K6. The
+           server stays up for the farm
+  farm     the proof farm, the follower, the gateway and loadgen over the
+           service's server: a head server (rpc.serve with a Dispatcher, a
+           Follower and the gateway, replica id "head") whose dispatcher
+           fronts the service's server by two HttpReplicas, cross-verifies
+           on the boot's state and holds a lease shorter than the committee
+           prove; the service's server joins it by announce (the member
+           journal's join). Under SPECTRE_FAULT_PLAN=replica.dispatch:crash:1
+           the follower's first poll of the beacon JSON yields the
+           committee update of its (finalized) period, proved on the card
+           through the farm after exactly one lease takeover, and the step,
+           a dedup hit on the service's server; both cross-verified at the
+           head and stored. The stored committee update: instances equal
+           get_instances of the acquired rotation args, it verifies under
+           the state's vk (a flipped instance does not), its calldata decodes
+           back, its Poseidon is the committee phase's, verify_chain() holds;
+           GET /v1/update/<p> on the head: ETag the store's digest, body the
+           canonical body, 304 on If-None-Match; a loadgen HttpTarget drill
+           of 3,000 requests: 0 errors, no kernel launched; /metrics on the
+           head has the dispatcher, replica, follower and gateway families;
+           K1c launched as one committee prove. One `farm` line: the
+           follower's poll, the committee job end to end at the head, the
+           cross-verify and the drill's seconds, the takeovers, the longest
+           gap between two lease renewals and between two of the prove's own
+           heartbeats, the drill's p50/p99 and requests/s, the launches;
+           the state and its keys are dropped after it
   step-aggregation
            stage 2 of the step (COMPRESSED["step"]): the step's Poseidon
            proof aggregated by AggregationCircuit.variant("sync_step"), whose
@@ -137,10 +163,12 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
            stage 2 of the committee (COMPRESSED["committee"]), the same
            checks at build/aggregation_committee_update_testnet_22.pinning
            .json (k=22, 16 advice, 2 lookup, lookup_bits 14; Pinning.check),
-           with the k=22 SRS of the same tau
+           with the k=22 SRS of the same tau; its outer context built in the
+           worker process
   aggregation-kernels
            K1, K2b and K4 at the committee's outer prove's geometry: K1 and
-           K2b at n = 2^22 (c from default_window_pallas), K4 at [2, 2^22]
+           K2b at n = 2^22 (c from default_window_pallas; K1 held to its
+           plain version on the 2^18 prefix, timed whole), K4 at [2, 2^22]
            and as the 2^22 -> 2^24 coset LDE (its own pass plan and twiddle
            table)
   evm      the EVM tail on each card's outer proof, the step's and the
@@ -168,8 +196,10 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
 
 Host jobs that need no card run in one worker process (spawned, no CUDA)
 beside the card's phases: the devices phase's CPU proofs, the beacon data's
-fixture, the committee's and the step's default args (the boot's key args)
-and the EVM checks.
+fixture, the committee's and the step's default args (the boot's key args),
+the committee's outer build (the aggregation circuit's witness over the
+committee's proof, started after the step phase and collected by the
+aggregation phase) and the EVM checks.
 Each phase's start is logged as "[elapsed s] phase", on the standard error
 too; a crash prints the Python stacks there (faulthandler). It prints one
 JSON line of kernel records, then the device line {"ok": true, "device":
@@ -193,6 +223,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PINNING = os.path.join(REPO, "build", "sync_step_testnet_21.pinning.json")
@@ -500,62 +531,83 @@ def geometry_kernels(torch, dev, gen, seed: int, logn: int, batch: int) -> dict:
     """K1, K2b and K4 against their plain versions at one prove's geometry:
     K1 on n = 2^logn random scalars at the window that prove picks
     (default_window_pallas), its plan kernels K1a and K1b against theirs,
-    each of its four kernels timed under torch.profiler; K2b on K1's
-    buckets; K4 on a [batch, 2^logn] batch and as the 2^logn -> 2^(logn+2)
-    coset LDE (K3 twists, K4 transforms). Returns {kernel: record}."""
+    on the first 2^COMMITTEE_K points and digits (the whole input at the
+    committee's geometry; the plain K1 takes ~3 s at 2^18 and ~30 s at
+    2^22), and its whole sums, reduced by K2b and combined over the
+    windows, held to the host's tau-sum; each of its four kernels timed
+    under torch.profiler at 2^logn; K2b on K1's buckets; K4 on a
+    [batch, 2^logn] batch and as the 2^logn -> 2^(logn+2) coset LDE (K3
+    twists, K4 transforms). Returns {kernel: record}."""
     from spectre_tpu_torch.fields import bn254
-    from spectre_tpu_torch.ops import (ec, field_ops as F, kernel_lib as KL, msm as M,
-                                       msm_kernels as MK, ntt as N)
+    from spectre_tpu_torch.ops import (ec, field_ops as F, kernel_lib as KL, limbs as L,
+                                       msm as M, msm_kernels as MK, ntt as N)
     from spectre_tpu_torch.plonk.domain import COSET_GEN
     from spectre_tpu_torch.plonk.srs import g1_powers_device
 
     fr = F.fr_ctx()
     n = 1 << logn
     out = {}
-    pts = g1_powers_device(random.Random(seed + logn).randrange(1, bn254.R), n, dev)
+    tau = random.Random(seed + logn).randrange(1, bn254.R)
+    pts = g1_powers_device(tau, n, dev)
     c = M.default_window_pallas(n)
     nwin, nb = M.num_windows(c), 1 << (c - 1)
     nblk = MK.plan_blocks(n)[1]
-    digits = M.signed_digit_stream(random_fr(torch, n, gen, dev), c, nwin)
+    scalars = random_fr(torch, n, gen, dev)
+    digits = M.signed_digit_stream(scalars, c, nwin)
     negs = torch.zeros((1, n), dtype=torch.int32, device=dev)
-    soa = ec.aos32_to_soa16(pts)
-    got = MK.bucket_sums(soa, digits, negs, c)
+    m = min(n, 1 << COMMITTEE_K)
+    compared = "whole" if m == n else f"n=2^{COMMITTEE_K} prefix"
+    d_cmp, n_cmp = digits[:, :m].contiguous(), negs[:, :m].contiguous()
+    soa = ec.aos32_to_soa16(pts[:m].contiguous())
+    got = MK.bucket_sums(soa, d_cmp, n_cmp, c)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    want = MK.bucket_sums_plain(soa, digits, negs, c)
+    want = MK.bucket_sums_plain(soa, d_cmp, n_cmp, c)
     torch.cuda.synchronize()
     k1_plain = (time.perf_counter() - t0) * 1e3
     err = limb_err(F, normalized_buckets(ec, got), normalized_buckets(ec, want))
-    require(err == 0, f"K1 equals its plain version at n = 2^{logn}")
+    require(err == 0, f"K1 equals its plain version ({compared} of n = 2^{logn}, c={c})")
+    k1_prefix_ms = time_ms(torch, lambda: MK.bucket_sums(soa, d_cmp, n_cmp, c), reps=3)
     del got, want, soa
-    counts, bstart, entries_plain = MK.bucket_plan_plain(digits, negs, c)
-    got_counts, _, entries = MK.bucket_plan(digits, negs, c)
-    require(torch.equal(got_counts, counts), f"K1a equals its plain counts at n = 2^{logn}")
-    e_err = bucket_multiset_err(torch, entries, entries_plain, bstart)
-    require(e_err == 0, f"K1b places each bucket's entries as the plain sort at n = 2^{logn}")
-    del counts, got_counts, entries, entries_plain
+    counts, bstart_cmp, entries_plain = MK.bucket_plan_plain(d_cmp, n_cmp, c)
+    got_counts, _, entries = MK.bucket_plan(d_cmp, n_cmp, c)
+    require(torch.equal(got_counts, counts), f"K1a equals its plain counts ({compared})")
+    e_err = bucket_multiset_err(torch, entries, entries_plain, bstart_cmp)
+    require(e_err == 0, f"K1b places each bucket's entries as the plain sort ({compared})")
+    del counts, got_counts, entries, entries_plain, d_cmp, n_cmp, bstart_cmp
+    # the bound counts the whole input's buckets
+    _, bstart = MK.bucket_offsets(MK.bucket_counts_plain(digits, nb, MK.plan_blocks(n)[0]),
+                                  nwin * nb, nblk)
     bounds = k1_bounds(torch, MK, digits, bstart, n, nwin * nb, nblk)
     k1_bound = bound_ms(sum(b[2] for b in bounds.values()), sum(b[3] for b in bounds.values()))
     k1_ms = time_ms(torch, lambda: MK.bucket_sums_aos32(pts, digits, negs, c), reps=5)
     sub_ms = profile_kernels(torch, lambda: MK.bucket_sums_aos32(pts, digits, negs, c),
                              {k: KL.KERNELS[k].symbol for k in SHARED_K1}, reps=2)
-    out["K1"] = dict(ms=k1_ms, plain_ms=k1_plain, bound_ms=k1_bound[0], bound_by=k1_bound[1],
+    # a plain time stands beside the kernel's at the same n
+    plain = dict(plain_ms=k1_plain) if m == n else dict(prefix_ms=k1_prefix_ms,
+                                                        prefix_plain_ms=k1_plain)
+    out["K1"] = dict(ms=k1_ms, bound_ms=k1_bound[0], bound_by=k1_bound[1], **plain,
                      max_abs_err=max(err, e_err), entries=int(bstart[-1]),
                      shape=f"n=2^{logn} c={c} nwin={nwin}, random scalars",
+                     compared=f"{compared}; the whole sum with the host's tau-sum",
                      kernels={k: dict(ms=sub_ms[k], bound_ms=bounds[k][0],
                                       bound_by=bounds[k][1]) for k in SHARED_K1})
 
     sums = MK.bucket_sums_aos32(pts, digits, negs, c)
     want, k2b_plain = timed_once(torch, lambda: MK.aggregate_buckets_plain(sums, nwin, nb))
-    err = limb_err(F, MK.aggregate_buckets_aos32(sums, nwin, nb), want)
+    windows = MK.aggregate_buckets_aos32(sums, nwin, nb)
+    err = limb_err(F, windows, want)
     require(err == 0, f"K2b equals its plain version at n = 2^{logn}")
+    require(MK.combine_windows(windows, c)
+            == tau_msm(L.limbs_to_ints(F.tensor_to_u64(scalars)), tau),
+            f"K1's whole sums at n = 2^{logn}, weighted by K2b, equal the host's tau-sum")
     need = nwin * 2 * (nb - 1)
     bm, by = bound_ms(nwin * nb * 96 + nwin * 96, need * IMAD_PER_PADD)
     out["K2b"] = dict(
         ms=time_ms(torch, lambda: MK.aggregate_buckets_aos32(sums, nwin, nb), reps=10),
         plain_ms=k2b_plain, bound_ms=bm, bound_by=by, max_abs_err=err,
         shape=f"nwin={nwin} nb={nb} (c={c})")
-    del sums, pts, digits, negs, bstart
+    del sums, windows, want, pts, scalars, digits, negs, bstart
     torch.cuda.empty_cache()
 
     tables = N.Twiddles(dev)
@@ -914,7 +966,9 @@ def beacon_routes(test_dir: str, spec) -> tuple[int, dict]:
     branch at the top level, the bits in hex) and the committee update of
     the attested period (its finalized header is the step's attested
     header, its branch the chain's container-depth one), with that
-    period."""
+    period. The same committee update also answers the period of the
+    finalized header where that differs: the follower's tracker asks for
+    the committee update of the finalized period."""
     from spectre_tpu_torch.preprocessor import spec_tests as ST, ssz
 
     boot = ST.load_snappy_ssz(os.path.join(test_dir, "bootstrap.ssz_snappy"),
@@ -934,7 +988,8 @@ def beacon_routes(test_dir: str, spec) -> tuple[int, dict]:
 
     agg = update.sync_aggregate
     period = spec.sync_period(update.attested_header.beacon.slot)
-    return period, {
+    fin_period = spec.sync_period(update.finalized_header.beacon.slot)
+    routes = {
         "/eth/v1/beacon/blocks/head/root": {"data": {"root": root}},
         f"/eth/v1/beacon/light_client/bootstrap/{root}": {"data": {
             "header": {"beacon": header(boot.header.beacon)},
@@ -956,6 +1011,9 @@ def beacon_routes(test_dir: str, spec) -> tuple[int, dict]:
             "next_sync_committee": committee(update.next_sync_committee),
             "next_sync_committee_branch": [hx(b) for b in update.next_sync_committee_branch]}}],
     }
+    routes.setdefault(f"/eth/v1/beacon/light_client/updates?start_period={fin_period}&count=1",
+                      routes[f"/eth/v1/beacon/light_client/updates?start_period={period}&count=1"])
+    return period, routes
 
 
 @contextlib.contextmanager
@@ -1319,28 +1377,28 @@ SERVICE_KERNELS = (*SHARED_K1, "K2_padd", "K2b_bucket_aggregate", "K3_mont_mul",
                    "K6_g1_decompress")
 
 
-def service_path(torch, dev, boot: dict, acquired: dict, committee: dict,
-                 journal_dir: str) -> dict:
+def service_path(torch, dev, boot: dict, acquired: dict, journal_dir: str,
+                 announce: str) -> dict:
     """The prover service on the card: rpc.serve over the boot's state (its
-    journal in journal_dir), requests made from the Beacon-API JSON the
-    acquire phase served, sent through the port's ProverClient: the
-    blocking genEvmProof_SyncStepCompressed (the finality update, the
-    bootstrap's compressed pubkeys, the domain), then
-    submitProof_CommitteeUpdateCompressed (the committee update) polled
-    with getProofStatus and getProofResult. /healthz answers 503 until a
-    fresh self-check has passed on the card, then 200; each answer's
-    instances equal get_instances of the acquired args, its proof verifies
-    under the state's vk and a flipped instance does not, its calldata
-    decodes back; the committee's Poseidon is the committee phase's (the
-    next committee: not the bootstrap's); a resubmit is a dedup hit (the
+    journal in journal_dir, replica id "card", announcing itself every
+    second to the farm head at `announce`, which comes up in the farm
+    phase: the announces before it are refused and counted), a request made
+    from the Beacon-API JSON the acquire phase served, sent through the
+    port's ProverClient: the blocking genEvmProof_SyncStepCompressed (the
+    finality update, the bootstrap's compressed pubkeys, the domain).
+    /healthz answers 503 until a fresh self-check has passed on the card,
+    then 200; the answer's instances equal get_instances of the acquired
+    args, its proof verifies under the state's vk and a flipped instance
+    does not, its calldata decodes back; a resubmit is a dedup hit (the
     same job id, K1 not launched); a step request with a wrong signature
-    answers -32000; each job's manifest shows its phases and 0 kernel
-    builds; /metrics exports the prove-latency histogram with count 2 and
+    answers -32000; the job's manifest shows its phases and 0 kernel
+    builds; /metrics exports the prove-latency histogram with count 1 and
     the kernels' launch counters. The launch counts are set to 0 before the
-    requests and read after."""
+    request and read after. The server stays up (returned as "server") for
+    the farm phase, which submits the committee update."""
     from spectre_tpu_torch import spec as SPEC
     from spectre_tpu_torch.fields import bls12_381 as bls
-    from spectre_tpu_torch.models import CommitteeUpdateCircuit, StepCircuit
+    from spectre_tpu_torch.models import StepCircuit
     from spectre_tpu_torch.ops import kernel_lib as KL
     from spectre_tpu_torch.prover_service import calldata, rpc, selfverify
     from spectre_tpu_torch.prover_service.rpc_client import ProverClient, RpcError
@@ -1348,18 +1406,17 @@ def service_path(torch, dev, boot: dict, acquired: dict, committee: dict,
     spec, state, routes = SPEC.TESTNET, boot["state"], acquired["routes"]
     finality = routes["/eth/v1/beacon/light_client/finality_update"]["data"]
     bootstrap = routes[f"/eth/v1/beacon/light_client/bootstrap/{acquired['root']}"]["data"]
-    update = routes[f"/eth/v1/beacon/light_client/updates?start_period={acquired['period']}"
-                    f"&count=1"][0]["data"]
     pubkeys = bootstrap["current_sync_committee"]["pubkeys"]
     domain = "0x" + acquired["domain"].hex()
-    want = {"step": StepCircuit.get_instances(acquired["step_args"], spec),
-            "committee": CommitteeUpdateCircuit.get_instances(acquired["rotation_args"], spec)}
+    want = StepCircuit.get_instances(acquired["step_args"], spec)
 
     server = rpc.serve(state, port=0, background=True, journal_dir=journal_dir,
-                       scrub_interval=0)
-    out = {}
+                       scrub_interval=0, replica_id="card", announce=announce,
+                       announce_interval=1.0)
+    out = {"server": server}
     try:
         client = ProverClient(f"http://127.0.0.1:{server.server_address[1]}/rpc", timeout=900)
+        out["client"] = client
         state.self_check = selfverify.SelfCheck(device=dev)
         status_before, _ = client.healthz()
         t0 = time.perf_counter()
@@ -1376,32 +1433,22 @@ def service_path(torch, dev, boot: dict, acquired: dict, committee: dict,
         t0 = time.perf_counter()
         step_res = client.gen_evm_proof_sync_step_compressed(finality, pubkeys, domain)
         out["step_request_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        jid = client.submit_committee_update(update)
-        committee_res = client.wait_for_proof(jid, poll=0.5, timeout=900)
-        out["committee_request_s"] = time.perf_counter() - t0
         torch.cuda.synchronize()
         launches = KL.launch_counts()
         out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
 
-        jobs = {}
-        for kind, res in (("step", step_res), ("committee", committee_res)):
-            proof, inst = selfverify.decode_result(res)
-            require(inst == want[kind], f"the {kind} answer's instances equal get_instances of "
-                                        f"the acquired args")
-            require(state.verify_proof(kind, proof, inst), f"the {kind} proof verifies under "
-                                                           f"the state's vk")
-            flipped = list(inst)
-            flipped[0] ^= 1
-            require(not state.verify_proof(kind, proof, flipped),
-                    f"the {kind} proof with a flipped instance is rejected")
-            require(calldata.decode_calldata(bytes.fromhex(res["calldata"][2:]), len(inst))
-                    == (inst, proof), f"the {kind} calldata decodes to the instances and proof")
-            jobs[kind] = dict(proof_bytes=len(proof), instances=len(inst))
-        require(int(committee_res["committee_poseidon"], 16) == committee["instances"][0]
-                != acquired["genesis"][1],
-                "committee_poseidon is the committee phase's (the next committee's, not the "
-                "bootstrap's)")
+        proof, inst = selfverify.decode_result(step_res)
+        require(inst == want, "the step answer's instances equal get_instances of the "
+                              "acquired args")
+        require(state.verify_proof("step", proof, inst), "the step proof verifies under the "
+                                                         "state's vk")
+        flipped = list(inst)
+        flipped[0] ^= 1
+        require(not state.verify_proof("step", proof, flipped),
+                "the step proof with a flipped instance is rejected")
+        require(calldata.decode_calldata(bytes.fromhex(step_res["calldata"][2:]), len(inst))
+                == (inst, proof), "the step calldata decodes to the instances and proof")
+        job = dict(proof_bytes=len(proof), instances=len(inst))
 
         # a resubmit of the same params: the same job, nothing proved again
         k1 = KL.launch_counts()["K1c_bucket_walk"]
@@ -1410,8 +1457,6 @@ def service_path(torch, dev, boot: dict, acquired: dict, committee: dict,
         require(status["status"] == "done" and client.proof_result(step_jid) == step_res
                 and KL.launch_counts()["K1c_bucket_walk"] == k1,
                 "a resubmit of the step's params is a dedup hit (its job, K1 not launched)")
-        require(client.submit_committee_update(update) == jid,
-                "a resubmit of the committee's params is a dedup hit")
 
         bad_sig = "0x" + bls.g2_compress(bls.g2_curve.mul(bls.G2_GEN, 123)).hex()
         bad = dict(finality, sync_aggregate=dict(finality["sync_aggregate"],
@@ -1420,41 +1465,334 @@ def service_path(torch, dev, boot: dict, acquired: dict, committee: dict,
             client.gen_evm_proof_sync_step_compressed(bad, pubkeys, domain)
             rejected = None
         except RpcError as e:
-            rejected = (e.code, e.message)
+            rejected = (e.code, e.message, e.replica_id)
         require(rejected == (rpc.WITNESS_REJECTED,
-                             "witness rejected: aggregate signature does not verify"),
-                f"a wrong signature answers -32000 witness rejected ({rejected})")
+                             "witness rejected: aggregate signature does not verify", "card"),
+                f"a wrong signature answers -32000 witness rejected, from replica card "
+                f"({rejected})")
         launches_all = KL.launch_counts()
 
-        for kind, job_id in (("step", step_jid), ("committee", jid)):
-            man = client.get_manifest(job_id)
-            ph = man["phase_seconds"]
-            require({"job/preprocess", "prove/witness", "prove/layout", "prove/snark",
-                     "prove/self_verify"} <= set(ph) and man["kernels"]["builds"] == 0,
-                    f"the {kind} job's manifest shows its phases and 0 kernel builds")
-            jobs[kind].update(queue_wait_s=man["queue_wait_s"], prove_s=man["prove_s"],
-                              preprocess_s=ph["job/preprocess"], witness_s=ph["prove/witness"],
-                              layout_s=ph["prove/layout"], snark_s=ph["prove/snark"],
-                              verify_s=ph["prove/self_verify"],
-                              snark_phases={k[len("snark/"):]: v for k, v in ph.items()
-                                            if k.startswith("snark/")},
-                              launches=man["kernels"]["launches"])
+        man = client.get_manifest(step_jid)
+        ph = man["phase_seconds"]
+        require({"job/preprocess", "prove/witness", "prove/layout", "prove/snark",
+                 "prove/self_verify"} <= set(ph) and man["kernels"]["builds"] == 0,
+                "the step job's manifest shows its phases and 0 kernel builds")
+        job.update(queue_wait_s=man["queue_wait_s"], prove_s=man["prove_s"],
+                   preprocess_s=ph["job/preprocess"], witness_s=ph["prove/witness"],
+                   layout_s=ph["prove/layout"], snark_s=ph["prove/snark"],
+                   verify_s=ph["prove/self_verify"],
+                   snark_phases={k[len("snark/"):]: v for k, v in ph.items()
+                                 if k.startswith("snark/")},
+                   launches=man["kernels"]["launches"])
         text = client.metrics_text()
-        require("spectre_prove_latency_seconds_count 2" in text,
-                "/metrics: the prove-latency histogram counts the two proofs")
+        require("spectre_prove_latency_seconds_count 1" in text,
+                "/metrics: the prove-latency histogram counts the proof")
         for name in SERVICE_KERNELS:
             require(f'spectre_kernel_launches_total{{kernel="{name}"}} {launches_all[name]}'
                     in text, f"/metrics exports {name}'s launch counter")
         for name in (*PROVE_KERNELS, "K6_g1_decompress"):
-            require(launches[name] > 0, f"{name} launched by the service's requests")
-        out.update(jobs=jobs, launches=launches)
-    finally:
-        server.shutdown()
-        server.server_close()
-        state.jobs.stop()
-    line = {"boot_s": boot["seconds"], "boot": boot["state"].boot_seconds, **out,
+            require(launches[name] > 0, f"{name} launched by the service's request")
+        out.update(jobs={"step": job}, launches=launches, step_result=step_res,
+                   step_params={"light_client_finality_update": finality,
+                                "pubkeys": pubkeys, "domain": domain})
+    except BaseException:
+        stop_server(server, state)
+        raise
+    line = {"boot_s": boot["seconds"], "boot": boot["state"].boot_seconds,
+            **{k: v for k, v in out.items()
+               if k not in ("server", "client", "step_params", "step_result")},
             "launches": {k: out["launches"][k] for k in SERVICE_KERNELS}}
     log("service: " + json.dumps(line))
+    return out
+
+
+def stop_server(server, state) -> None:
+    """Shut a background rpc.serve server down: its announce loop, its HTTP
+    thread and its queue's workers."""
+    stop = getattr(server, "_announce_stop", None)
+    if stop is not None:
+        stop.set()
+    server.shutdown()
+    server.server_close()
+    if getattr(state, "jobs", None) is not None:
+        state.jobs.stop()
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+FARM_LEASE_S = 15.0
+FARM_DRILL_REQUESTS = 3000
+
+
+def farm_path(torch, dev, boot: dict, acquired: dict, committee: dict, service: dict,
+              farm_dir: str, head_port: int, seed: int) -> dict:
+    """The proof farm, the follower, the gateway and loadgen on the card,
+    over the service phase's server (replica "card"): a head server
+    (rpc.serve(head_state, dispatcher=d, follower=f, gateway=True,
+    replica_id="head") on head_port) whose Dispatcher fronts the service's
+    server by two HttpReplicas ("card-a", "card-b"), cross-verifies on the
+    boot's state and holds a lease of FARM_LEASE_S, shorter than the
+    committee prove and longer than any gap between two renewals. The
+    service's server joins by announce (a join in the member journal).
+    Under SPECTRE_FAULT_PLAN=replica.dispatch:crash:1 the Follower polls the
+    beacon JSON (BeaconClient on beacon_server(routes), the bootstrap's
+    pubkeys and the acquired domain): its first poll yields the committee
+    update of its period and the step of the finalized slot; the committee
+    proves on the card after exactly one lease takeover, the step is a
+    dedup hit on the service's server (its params are the service phase's),
+    and the head cross-verifies both before the follower stores them. The
+    stored committee update is held as the service held its answers; the
+    gateway serves it over HTTP (ETag the store's digest, body the
+    canonical body, 304 on revalidation); a loadgen HttpTarget drill reads
+    it with 0 errors and launches no kernel; /metrics on the head exports
+    the dispatcher, replica, follower and gateway families. The launch
+    counts are set to 0 before the follower's first poll and read when the
+    chain is stored."""
+    from spectre_tpu_torch import spec as SPEC
+    from spectre_tpu_torch.follower import Follower
+    from spectre_tpu_torch.gateway import canonical_update_body
+    from spectre_tpu_torch.loadgen import HttpTarget, run_drill
+    from spectre_tpu_torch.models import CommitteeUpdateCircuit
+    from spectre_tpu_torch.ops import kernel_lib as KL
+    from spectre_tpu_torch.preprocessor import BeaconClient
+    from spectre_tpu_torch.prover_service import calldata, rpc, selfverify
+    from spectre_tpu_torch.prover_service.dispatcher import Dispatcher, HttpReplica
+    from spectre_tpu_torch.prover_service.jobs import ensure_jobs, witness_digest
+    from spectre_tpu_torch.prover_service.rpc_client import ProverClient
+    from spectre_tpu_torch.utils import faults
+    from spectre_tpu_torch.utils.health import HEALTH
+
+    spec, state, routes = SPEC.TESTNET, boot["state"], acquired["routes"]
+    service_url = f"http://127.0.0.1:{service['server'].server_address[1]}"
+    head_url = f"http://127.0.0.1:{head_port}"
+    want = CommitteeUpdateCircuit.get_instances(acquired["rotation_args"], spec)
+    secs, out = {}, {}
+
+    class TimedReplica(HttpReplica):
+        """An HttpReplica that records when its lease is renewed (each
+        answered status poll renews it)."""
+        renewals: list = []
+
+        def prove(self, method, params, heartbeat=None):
+            stamps = [time.perf_counter()]
+            TimedReplica.renewals.append(stamps)
+
+            def renew():
+                stamps.append(time.perf_counter())
+                if heartbeat is not None:
+                    heartbeat()
+            result = super().prove(method, params, heartbeat=renew)
+            stamps.append(time.perf_counter())
+            return result
+
+    # the prove's own heartbeats (the state's phase boundaries), as a
+    # LocalReplica's lease would see them
+    phase_stamps: list = []
+    orig_prove_committee = state.prove_committee
+
+    def prove_committee(args, heartbeat=None):
+        phase_stamps.append(time.perf_counter())
+
+        def stamp():
+            phase_stamps.append(time.perf_counter())
+            if heartbeat is not None:
+                heartbeat()
+        try:
+            return orig_prove_committee(args, heartbeat=stamp)
+        finally:
+            phase_stamps.append(time.perf_counter())
+
+    state.prove_committee = prove_committee
+    # the head's state is the boot state's attributes (its keys, device,
+    # self-check) over a queue of its own: it proves nothing, its queue's
+    # runner is the dispatcher, which cross-verifies on the boot's state
+    head_state = types.SimpleNamespace(**{**vars(state), "jobs": None, "params_dir": farm_dir})
+    d = Dispatcher([TimedReplica(rid, ProverClient(service_url + "/rpc", timeout=60),
+                                 poll_s=0.5) for rid in ("card-a", "card-b")],
+                   journal_dir=farm_dir, lease_s=FARM_LEASE_S, verify_state=state, poll_s=0.05)
+    jobs = ensure_jobs(head_state, journal_dir=farm_dir, runner=d, scrub_interval=0)
+    counters0 = dict(HEALTH.snapshot()["counters"])
+    with beacon_server(routes) as beacon_url:
+        fol = Follower(spec, BeaconClient(beacon_url, timeout=30.0), jobs, directory=farm_dir,
+                       pubkeys=service["step_params"]["pubkeys"], domain=acquired["domain"])
+        head = rpc.serve(head_state, port=head_port, background=True, follower=fol,
+                         dispatcher=d, gateway=True, replica_id="head")
+        try:
+            hc = ProverClient(head_url + "/rpc", timeout=60)
+            t0 = time.perf_counter()
+            while d.snapshot()["members"] < 3:
+                require(time.perf_counter() - t0 < 30, "the service's server joins the head by "
+                                                       "announce within 30 s")
+                time.sleep(0.1)
+            secs["join_wait"] = time.perf_counter() - t0
+            joined = {r["replica_id"]: r for r in d.snapshot()["replicas"]}["card"]
+            require(joined["dynamic"] and joined["capabilities"]["device"] == "cuda"
+                    and joined["capabilities"]["max_k"] == STEP_K,
+                    f"the announced replica's capability record names cuda and max_k "
+                    f"{STEP_K} ({joined['capabilities']})")
+
+            os.environ[faults.ENV_VAR] = "replica.dispatch:crash:1"
+            torch.cuda.synchronize()
+            KL.reset_launch_counts()
+            t_path = time.perf_counter()
+            t0 = time.perf_counter()
+            fol.run_once()
+            secs["poll"] = time.perf_counter() - t0
+            fin_slot = fol.tracker.last_finalized_slot
+            period = spec.sync_period(fin_slot)
+            items = {k: v["item"] for k, v in fol.scheduler._pending.items()}
+            require(sorted(items) == [("committee", period), ("step", fin_slot)],
+                    f"the first poll yields the committee update of period {period} and the "
+                    f"step of slot {fin_slot} ({sorted(items)})")
+            step_item = items[("step", fin_slot)]
+            require(witness_digest(step_item.method, step_item.params)
+                    == witness_digest(rpc.RPC_METHOD_STEP, service["step_params"]),
+                    "the follower's step params are the service phase's (a dedup hit)")
+            while not (fol.store.has_committee(period) and fol.store.has_step(fin_slot)):
+                require(time.perf_counter() - t_path < 600, "the farm stores the committee "
+                                                            "update and the step within 600 s")
+                time.sleep(0.25)
+                fol.run_once()
+            torch.cuda.synchronize()
+            secs["path"] = time.perf_counter() - t_path
+            launches = KL.launch_counts()
+            del os.environ[faults.ENV_VAR]
+            fired = faults.fired_count("replica.dispatch")
+            faults.clear()
+            delta = {k: v - counters0.get(k, 0) for k, v in HEALTH.snapshot()["counters"].items()
+                     if v != counters0.get(k, 0)}
+            require(fired == 1 and delta.get("dispatcher_lease_takeovers") == 1,
+                    f"one injected crash, exactly one lease takeover ({fired}, "
+                    f"{delta.get('dispatcher_lease_takeovers')})")
+            require(delta.get("proofs_cross_verified") == 2
+                    and not delta.get("proofs_cross_verify_failed"),
+                    "the head cross-verified the committee update and the step")
+            require(not delta.get("dispatcher_lease_expired"), "no lease expired")
+            require(launches["K1c_bucket_walk"] == committee["prove_launches"]["K1c_bucket_walk"],
+                    f"K1c launched as one committee prove ({launches['K1c_bucket_walk']}, the "
+                    f"committee phase's {committee['prove_launches']['K1c_bucket_walk']}): the "
+                    f"replica proved once, the step was a dedup hit")
+            for name in PROVE_KERNELS:
+                require(launches[name] > 0, f"{name} launched by the farm's committee prove")
+
+            # the stored committee update, held as the service held its answers
+            rec = fol.store.get_committee(period)
+            res = rec["result"]
+            proof, inst = selfverify.decode_result(res)
+            require(inst == want, "the stored committee update's instances equal "
+                                  "get_instances of the acquired rotation args")
+            require(state.verify_proof("committee", proof, inst),
+                    "the stored committee proof verifies under the state's vk")
+            flipped = list(inst)
+            flipped[0] ^= 1
+            require(not state.verify_proof("committee", proof, flipped),
+                    "the stored committee proof with a flipped instance is rejected")
+            require(calldata.decode_calldata(bytes.fromhex(res["calldata"][2:]), len(inst))
+                    == (inst, proof), "the stored calldata decodes to the instances and proof")
+            require(int(res["committee_poseidon"], 16) == committee["instances"][0]
+                    != acquired["genesis"][1],
+                    "committee_poseidon is the committee phase's (the next committee's)")
+            require(fol.store.verify_chain(), "verify_chain() holds")
+            require(fol.store.get_step(fin_slot)["result"] == service["step_result"],
+                    "the stored step is the service phase's answer")
+            update = routes[f"/eth/v1/beacon/light_client/updates?start_period={period}"
+                            f"&count=1"][0]["data"]
+            cjid = service["client"].submit_committee_update(update)
+            man = service["client"].get_manifest(cjid)
+            require({"job/preprocess", "prove/witness", "prove/layout", "prove/snark",
+                     "prove/self_verify"} <= set(man["phase_seconds"])
+                    and man["kernels"]["builds"] == 0,
+                    "the replica's committee job (a dedup hit on resubmit) shows its phases "
+                    "and 0 kernel builds")
+            require("spectre_prove_latency_seconds_count 4"
+                    in service["client"].metrics_text(),
+                    "/metrics: the process-wide prove-latency histogram counts the service's "
+                    "two proofs and the head's two jobs")
+            head_job = jobs.result(rec["job_id"])
+            secs["committee_job"] = head_job.finished_at - head_job.submitted_at
+            hman = hc.get_manifest(rec["job_id"])
+            secs["cross_verify"] = hman["phase_seconds"].get("prove/cross_verify")
+            secs["replica_prove"] = man["prove_s"]
+            require(secs["cross_verify"] is not None, "the head's manifest times the "
+                                                      "cross-verify")
+
+            # the journals: a crashed grant, the takeover, the member's join
+            leases = [json.loads(x) for x in open(os.path.join(
+                farm_dir, "dispatcher.leases.jsonl")).read().splitlines()]
+            require([(r["event"], r.get("outcome"), r.get("takeover")) for r in leases[:4]]
+                    == [("lease", None, False), ("release", "crashed", None),
+                        ("lease", None, True), ("release", "done", None)],
+                    "the lease journal: a grant, its crash, the takeover, done")
+            members = [json.loads(x) for x in open(os.path.join(
+                farm_dir, "dispatcher.members.jsonl")).read().splitlines()]
+            require([(m["event"], m["replica"]) for m in members] == [("join", "card")],
+                    "the member journal records the service's join")
+            renewal_gaps = [b - a for st in TimedReplica.renewals for a, b in zip(st, st[1:])]
+            phase_gaps = [b - a for a, b in zip(phase_stamps, phase_stamps[1:])]
+            out.update(max_lease_gap_s=max(renewal_gaps), max_phase_gap_s=max(phase_gaps),
+                       phase_gaps_s=phase_gaps)
+            require(out["max_lease_gap_s"] < FARM_LEASE_S < secs["committee_job"],
+                    f"the lease ({FARM_LEASE_S} s) is longer than any gap between two "
+                    f"renewals ({out['max_lease_gap_s']:.2f} s) and shorter than the "
+                    f"committee job ({secs['committee_job']:.1f} s)")
+
+            # the gateway over HTTP
+            import urllib.error
+            import urllib.request
+            with urllib.request.urlopen(f"{head_url}/v1/update/{period}", timeout=30) as r:
+                etag, body = r.headers["ETag"], r.read()
+            require(etag == '"' + fol.store.committee_digest(period) + '"',
+                    "GET /v1/update/<p>: the ETag is the store's digest")
+            require(body == canonical_update_body(fol.store.get_committee(period)),
+                    "GET /v1/update/<p>: the body is the canonical body of the stored update")
+            req = urllib.request.Request(f"{head_url}/v1/update/{period}",
+                                         headers={"If-None-Match": etag})
+            try:
+                urllib.request.urlopen(req, timeout=30)
+                revalidated = None
+            except urllib.error.HTTPError as e:
+                revalidated = (e.code, e.read())
+            require(revalidated == (304, b""), f"If-None-Match gives 304 with an empty body "
+                                               f"({revalidated})")
+
+            # the drill: the read plane never touches the card
+            before = KL.launch_counts()
+            t0 = time.perf_counter()
+            drill = run_drill(HttpTarget(head_url), periods=[period], tip=period,
+                              clients=1000, requests=FARM_DRILL_REQUESTS, seed=seed, threads=2,
+                              health=HEALTH)
+            secs["drill"] = time.perf_counter() - t0
+            moved = {k: KL.launch_counts()[k] - before[k] for k in PROVE_KERNELS}
+            bad = {k: v for k, v in drill["statuses"].items() if k not in ("200", "304")}
+            require(drill["requests"] == FARM_DRILL_REQUESTS and not bad,
+                    f"the drill's {FARM_DRILL_REQUESTS} requests give 0 errors ({bad})")
+            require(not any(moved.values()), f"no kernel launched during the drill ({moved})")
+
+            text = hc.metrics_text()
+            for family in ("spectre_dispatcher_members", "spectre_replica_",
+                           "spectre_follower_", "spectre_gateway_"):
+                require(family in text, f"/metrics on the head exports {family}*")
+            out.update(launches=launches, drill=dict(
+                p50_ms=drill["latency_ms"]["p50"], p99_ms=drill["latency_ms"]["p99"],
+                rps=drill["rps"], statuses=drill["statuses"], ratio_304=drill["ratio_304"]),
+                takeovers=delta.get("dispatcher_lease_takeovers"), period=period,
+                slot=fin_slot, members=d.snapshot()["members"])
+        finally:
+            os.environ.pop(faults.ENV_VAR, None)
+            faults.clear()
+            state.prove_committee = orig_prove_committee
+            stop_server(head, head_state)
+    secs["phase"] = sum(v for k, v in secs.items() if k in ("join_wait", "path")) \
+        + secs["drill"]
+    out["seconds"] = secs
+    line = {**{k: v for k, v in out.items() if k != "launches"}, "lease_s": FARM_LEASE_S,
+            "launches": {k: out["launches"][k] for k in SERVICE_KERNELS}}
+    log("farm: " + json.dumps(line))
     return out
 
 
@@ -1560,12 +1898,37 @@ def tracked_proofs(inner: dict, name: str, circuit, vk, srs) -> dict:
                                                transcript_cls=KeccakTranscript)}
 
 
-def aggregation_path(torch, dev, seed: int, inner: dict, name: str) -> dict:
+def outer_build(name: str, vk, vk_digest: bytes, instances: list, proof: bytes):
+    """COMPRESSED[name]'s outer build, the aggregation circuit's witness
+    over the inner proof: host code on one Python thread for minutes, so a
+    job of the worker process, started as soon as the inner proof exists
+    and run beside the card's next phases. The in-circuit verifier reads
+    the inner vk (app_circuit.vk_to_ints's form, held to its digest),
+    instances and proof, not the SRS's points. Returns (ctx, its
+    seconds)."""
+    from spectre_tpu_torch import spec as SPEC
+    from spectre_tpu_torch.models.aggregation import AggregationArgs, AggregationCircuit
+    from spectre_tpu_torch.models.app_circuit import vk_from_ints
+
+    t0 = time.perf_counter()
+    inner_vk = vk_from_ints(vk)
+    require(inner_vk.digest() == vk_digest, "the verifying key crosses to the worker whole")
+    circuit = AggregationCircuit.variant(COMPRESSED[name]["inner"])
+    args = AggregationArgs(inner_vk=inner_vk, srs=None, inner_instances=[instances],
+                           proof=proof)
+    ctx = circuit.build_context(args, SPEC.TESTNET, device="cpu")
+    return ctx, time.perf_counter() - t0
+
+
+def aggregation_path(torch, dev, seed: int, inner: dict, name: str, prebuilt=None) -> dict:
     """Stage 2 of an inner circuit's Poseidon proof (COMPRESSED[name]): the
     outer circuit at its tracked pinning, or where none is tracked at the
     k outer_k gives, proved under Keccak and checked by
     AggregationCircuit.verify (the deferred pairing included); its vk and
-    verifiers held to the reference's tracked fixtures."""
+    verifiers held to the reference's tracked fixtures. `prebuilt`, a
+    future of outer_build in the worker process, gives the outer context in
+    place of building it here; the phase "build" then holds the worker's
+    seconds and "build_wait" the wait for it (its transfer included)."""
     from spectre_tpu_torch import spec as SPEC
     from spectre_tpu_torch.fields import bn254
     from spectre_tpu_torch.models.aggregation import (MAX_OUTER_ADVICE, NUM_ACC_LIMBS,
@@ -1588,8 +1951,13 @@ def aggregation_path(torch, dev, seed: int, inner: dict, name: str) -> dict:
         f"{phases['args']['peak_gib']:.1f} GiB, launches " + json.dumps(phases["args"]["launches"]))
     args = AggregationArgs(inner_vk=inner["vk"], srs=inner["srs"],
                            inner_instances=[inner["instances"]], proof=inner["proof"])
-    ctx = measured(torch, phases, "build",
-                   lambda: circuit.build_context(args, spec, device=dev))
+    if prebuilt is None:
+        ctx = measured(torch, phases, "build",
+                       lambda: circuit.build_context(args, spec, device=dev))
+    else:
+        ctx, build_s = measured(torch, phases, "build_wait", prebuilt.result)
+        phases["build"] = dict(s=build_s, where="the worker process, beside the card's phases")
+        log(f"  build: {build_s:.3f} s in the worker process")
     stats = ctx.stats()
     require((stats["advice_cells"], sum(stats["lookup_cells"].values())) == entry["cells"],
             f"the outer context's advice and lookup cells {entry['cells']}")
@@ -2062,7 +2430,8 @@ def run(args, t_start: float, pool, fixture_dir: str, service_dir: str) -> int:
 
     from spectre_tpu_torch import spec as SPEC
     from spectre_tpu_torch.fields import bn254
-    from spectre_tpu_torch.ops import (ec, field_ops as F, kernel_lib as KL,
+    from spectre_tpu_torch.models.app_circuit import vk_to_ints
+    from spectre_tpu_torch.ops import (ec, field_ops as F, kernel_lib as KL, limbs as L,
                                        msm as M, msm_kernels as MK, ntt as N)
     from spectre_tpu_torch.plonk.backend import TorchBackend
     from spectre_tpu_torch.plonk.keygen import keygen
@@ -2221,7 +2590,6 @@ def run(args, t_start: float, pool, fixture_dir: str, service_dir: str) -> int:
     nwin, nb = M.num_windows(c), 1 << (c - 1)
     nkeys = nwin * nb
     P, nblk = MK.plan_blocks(n_pts)
-    soa = ec.aos32_to_soa16(pts)
     negs = torch.zeros((1, n_pts), dtype=torch.int32, device=dev)
     one_scalar = random_fr(torch, 1, gen, dev)
     cases = {
@@ -2231,22 +2599,51 @@ def run(args, t_start: float, pool, fixture_dir: str, service_dir: str) -> int:
     }
     k1 = {}
     k1_errs = {name: 0 for name in k1_kernels}
+    # the random case is held to the plain K1 on the whole input (its time
+    # is K1c's plain_ms); the all-equal and all-zero cases on the 2^18
+    # prefix, the committee's MSM size (a plain K1 is ~15 s a 2^21 case),
+    # and their whole sums, weighted by K2b and combined over the windows,
+    # to the host's: s (sum_i tau^i) G, a geometric series, and the point
+    # at infinity (the random case's whole sum is held to the host's
+    # tau-sum in the msm phase); the kernels are timed whole
+    prefix = 1 << COMMITTEE_K
+    geometric = (pow(tau_pts, n_pts, bn254.R) - 1) * pow(tau_pts - 1, -1, bn254.R) % bn254.R
+    s_one = L.limbs_to_ints(F.tensor_to_u64(one_scalar))[0]
+    host_sum = {"all-equal": bn254.g1_curve.mul(bn254.G1_GEN, s_one * geometric % bn254.R),
+                "all-zero": None}
     for name, sc in cases.items():
         digits = M.signed_digit_stream(sc, c, nwin)
-        got = MK.bucket_sums(soa, digits, negs, c)
+        m = n_pts if name == "random" else prefix
+        compared = "whole" if m == n_pts else f"n=2^{COMMITTEE_K} prefix"
+        soa_cmp = ec.aos32_to_soa16(pts[:m].contiguous())
+        d_cmp, negs_cmp = digits[:, :m].contiguous(), negs[:, :m].contiguous()
+        got = MK.bucket_sums(soa_cmp, d_cmp, negs_cmp, c)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        want = MK.bucket_sums_plain(soa, digits, negs, c)
+        want = MK.bucket_sums_plain(soa_cmp, d_cmp, negs_cmp, c)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         err = limb_err(F, normalized_buckets(ec, got), normalized_buckets(ec, want))
-        require(err == 0, f"K1 ({name}) equals its plain version after normalization")
+        require(err == 0, f"K1 ({name}, {compared}) equals its plain version after "
+                          f"normalization")
+        prefix_ms = (None if m == n_pts else
+                     time_ms(torch, lambda: MK.bucket_sums(soa_cmp, d_cmp, negs_cmp, c), reps=3))
         # the plan kernels against their plain versions
-        counts, bstart, entries_plain = MK.bucket_plan_plain(digits, negs, c)
-        got_counts, _, entries = MK.bucket_plan(digits, negs, c)
-        e_err = bucket_multiset_err(torch, entries, entries_plain, bstart)
-        require(torch.equal(got_counts, counts), f"K1a ({name}) equals its plain counts")
-        require(e_err == 0, f"K1b ({name}) places each bucket's entries as the plain sort")
+        counts, bstart_cmp, entries_plain = MK.bucket_plan_plain(d_cmp, negs_cmp, c)
+        got_counts, _, entries = MK.bucket_plan(d_cmp, negs_cmp, c)
+        e_err = bucket_multiset_err(torch, entries, entries_plain, bstart_cmp)
+        require(torch.equal(got_counts, counts), f"K1a ({name}, {compared}) equals its plain "
+                                                 f"counts")
+        require(e_err == 0, f"K1b ({name}, {compared}) places each bucket's entries as the "
+                            f"plain sort")
+        del got, want, entries, entries_plain, counts, got_counts, bstart_cmp, soa_cmp
+        if name in host_sum:
+            whole = MK.combine_windows(MK.aggregate_buckets_aos32(
+                MK.bucket_sums_aos32(pts, digits, negs, c), nwin, nb), c)
+            require(whole == host_sum[name], f"K1 ({name}) at n = 2^21, weighted by K2b, "
+                                             f"equals the host's sum")
+        # the bound and the adds count the whole input's buckets
+        _, bstart = MK.bucket_offsets(MK.bucket_counts_plain(digits, nb, P), nkeys, nblk)
         k1_errs["K1c_bucket_walk"] = k1_errs["K1d_bucket_pieces"] = max(
             k1_errs["K1c_bucket_walk"], err)
         k1_errs["K1b_bucket_scatter"] = max(k1_errs["K1b_bucket_scatter"], e_err)
@@ -2254,13 +2651,17 @@ def run(args, t_start: float, pool, fixture_dir: str, service_dir: str) -> int:
         sub_ms = profile_kernels(torch, lambda: MK.bucket_sums_aos32(pts, digits, negs, c),
                                  k1_kernels, reps=2)
         # the plain walk sums each bucket whole: it covers K1c and K1d
-        # together; the whole plain K1 (its plan included), timed above,
-        # stands under K1c alone
+        # together; the whole plain K1 (its plan included) stands under K1c
+        # alone, where it ran on the whole input (a prefix's time stands
+        # beside the kernel's on that prefix); the plain plan kernels are
+        # timed whole
         plain_sub = {
             "K1a_bucket_count": time_ms(torch, lambda: MK.bucket_counts_plain(digits, nb, P), reps=1),
             "K1b_bucket_scatter": time_ms(torch, lambda: MK.bucket_scatter_plain(digits, negs, nb),
                                           reps=1),
-            "K1c_bucket_walk": plain_ms, "K1d_bucket_pieces": None}
+            "K1c_bucket_walk": plain_ms if m == n_pts else None, "K1d_bucket_pieces": None}
+        plain = dict(plain_ms=plain_ms) if m == n_pts else dict(prefix_ms=prefix_ms,
+                                                                prefix_plain_ms=plain_ms)
         bounds = k1_bounds(torch, MK, digits, bstart, n_pts, nkeys, nblk)
         total = bound_ms(sum(b[2] for b in bounds.values()), sum(b[3] for b in bounds.values()))
         if name == "random":
@@ -2276,15 +2677,19 @@ def run(args, t_start: float, pool, fixture_dir: str, service_dir: str) -> int:
                 "K1b_bucket_scatter": time_ms(
                     torch, lambda: torch.argsort(keys, stable=True), reps=3)}
             del w_idx, p_idx, keys, bins
-        k1[name] = dict(ms=wrapper_ms, plain_ms=plain_ms, bound_ms=total[0], bound_by=total[1],
+        k1[name] = dict(ms=wrapper_ms, **plain, bound_ms=total[0], bound_by=total[1],
                         adds=int(bstart[-1]) - int((bstart[1:] > bstart[:-1]).sum()),
-                        max_abs_err=err, kernels={
+                        max_abs_err=err, compared=compared, kernels={
                             k: dict(ms=sub_ms[k], plain_ms=plain_sub[k], bound_ms=bounds[k][0],
                                     bound_by=bounds[k][1]) for k in k1_kernels})
-        log(f"K1 {name}: equal after normalization; wrapper {wrapper_ms:.3f} ms (plain "
-            f"{plain_ms:.0f} ms, bound {total[0]:.3f} ms by {total[1]}), c={c} nwin={nwin}; "
+        log(f"K1 {name}: equal after normalization ({compared})"
+            + ("" if m == n_pts else "; its whole sum equals the host's")
+            + f"; wrapper {wrapper_ms:.3f} ms (bound {total[0]:.3f} ms by {total[1]}; plain "
+            + (f"{plain_ms:.0f} ms" if m == n_pts else
+               f"{plain_ms:.0f} ms against the kernel's {prefix_ms:.3f} ms on the prefix")
+            + f"), c={c} nwin={nwin}; "
             + ", ".join(f"{k} {sub_ms[k]:.3f} ms (bound {bounds[k][0]:.3f})" for k in k1_kernels))
-        del got, want, entries, entries_plain
+        del d_cmp, negs_cmp
     for k in k1_kernels:
         rnd = k1["random"]["kernels"][k]
         records[k] = dict(ms=rnd["ms"], plain_ms=rnd["plain_ms"], bound_ms=rnd["bound_ms"],
@@ -2299,7 +2704,8 @@ def run(args, t_start: float, pool, fixture_dir: str, service_dir: str) -> int:
         "the plain walk covers K1c and K1d together: K1c's plain_ms is the whole plain K1's "
         "time, its plan included")
     records["K1c_bucket_walk"]["wrapper_cases"] = {
-        name: {key: v[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "adds")}
+        name: {key: v[key] for key in ("ms", "plain_ms", "prefix_ms", "prefix_plain_ms",
+                                       "bound_ms", "bound_by", "adds", "compared") if key in v}
         for name, v in k1.items()}
     del cases
 
@@ -2351,7 +2757,7 @@ def run(args, t_start: float, pool, fixture_dir: str, service_dir: str) -> int:
     require(g1.add(M.msm_base(pts, pre), M.msm_base(pts, rest)) == full, "MSM is linear")
     log(f"msm: n=2^21 {msm_s * 1e3:.1f} ms; equal to the host sum, on a 2^10 prefix and "
         f"whole; linear")
-    del soa, sc, pre, rest
+    del sc, pre, rest
     torch.cuda.empty_cache()
 
     # --- K1-fixed --------------------------------------------------------------
@@ -2441,11 +2847,28 @@ def run(args, t_start: float, pool, fixture_dir: str, service_dir: str) -> int:
     mark("step")
     step = step_path(torch, dev, args.seed, boot["step"], acquired)
     torch.cuda.empty_cache()
+    # the committee's outer build (minutes of one Python thread) runs in the
+    # worker process beside the service, farm and step-aggregation phases.
+    # Started here, not after the committee phase: its result (gigabytes,
+    # unpickled in this process under the GIL) then lands in the
+    # step-aggregation's build, not in the farm's measured drill
+    committee_build = pool.submit(outer_build, "committee", vk_to_ints(committee["vk"]),
+                                  committee["vk"].digest(), committee["instances"],
+                                  committee["proof"])
     # --- service: the state's keys serve requests over HTTP ------------------
     log("resident before the service: " + resident(torch))
     mark("service")
-    service = service_path(torch, dev, boot, acquired, committee,
-                           os.path.join(service_dir, "journal"))
+    head_port = free_port()
+    service = service_path(torch, dev, boot, acquired, os.path.join(service_dir, "journal"),
+                           announce=f"http://127.0.0.1:{head_port}")
+    # --- farm: the proof farm, the follower, the gateway over the service ----
+    try:
+        log("resident before the farm: " + resident(torch))
+        mark("farm")
+        farm = farm_path(torch, dev, boot, acquired, committee, service,
+                         os.path.join(service_dir, "farm"), head_port, args.seed)
+    finally:
+        stop_server(service["server"], boot["state"])
     # the keys leave the card with the state
     boot["state"].step_pk = boot["state"].committee_pk = None
     del boot
@@ -2463,7 +2886,8 @@ def run(args, t_start: float, pool, fixture_dir: str, service_dir: str) -> int:
     # --- aggregation, aggregation-kernels ----------------------------------------
     log("resident before the aggregation: " + resident(torch))
     mark("aggregation")
-    agg = aggregation_path(torch, dev, args.seed, committee, "committee")
+    agg = aggregation_path(torch, dev, args.seed, committee, "committee",
+                           prebuilt=committee_build)
     committee_sol, committee_gen_s = generated_verifier(agg, "committee")
     committee_evm = pool.submit(evm_checks_apart, committee_sol, agg["instances"], agg["proof"],
                                 "committee", committee["args"], acquired["genesis"])
@@ -2501,6 +2925,7 @@ def run(args, t_start: float, pool, fixture_dir: str, service_dir: str) -> int:
             "step_launches": step["prove_launches"][name],
             "step_keygen_launches": step["keygen_launches"][name],
             "service_launches": service["launches"][name],
+            "farm_launches": farm["launches"][name],
             "step_aggregation_launches": step_agg["phases"]["prove"]["launches"].get(name, 0),
             "step_aggregation_keygen_launches":
                 step_agg["phases"]["keygen"]["launches"].get(name, 0),

@@ -53,6 +53,16 @@ def _as_fq(p):
     return None if p is None else (bn254.Fq(p[0]), bn254.Fq(p[1]))
 
 
+def vk_to_ints(vk):
+    """vk with its commitments as int pairs: picklable (a key file, another
+    process); vk_from_ints rebuilds it."""
+    return _vk_points(vk, _as_ints)
+
+
+def vk_from_ints(vk):
+    return _vk_points(vk, _as_fq)
+
+
 class AppCircuit:
     """Subclasses define name, default_lookup_bits, build(ctx, args, spec)
     -> the instance cells (already exposed), and get_instances(args, spec)
@@ -126,7 +136,7 @@ class AppCircuit:
             saved = torch.load(path, map_location=resolve(device), weights_only=False)
             if saved["srs"] == srs.digest():
                 pk = saved["pk"]
-                return dataclasses.replace(pk, vk=_vk_points(pk.vk, _as_fq))
+                return dataclasses.replace(pk, vk=vk_from_ints(pk.vk))
         if ctx is None:
             ctx = cls.build_context(dummy_args() if callable(dummy_args) else dummy_args,
                                     spec, device)
@@ -138,7 +148,7 @@ class AppCircuit:
             os.makedirs(os.path.dirname(path), exist_ok=True)
             tmp = f"{path}.{os.getpid()}.tmp"
             torch.save({"srs": srs.digest(),
-                        "pk": dataclasses.replace(pk, vk=_vk_points(pk.vk, _as_ints))}, tmp)
+                        "pk": dataclasses.replace(pk, vk=vk_to_ints(pk.vk))}, tmp)
             os.replace(tmp, path)
             artifacts._fsync_dir(os.path.dirname(path))
         return pk

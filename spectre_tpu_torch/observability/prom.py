@@ -15,6 +15,10 @@ it:
   `spectre_msm_<name>_total`, and every kernel's launch counter
   (`ops/kernel_lib`) becomes `spectre_kernel_launches_total{kernel=}` —
   all read via `sys.modules`, so a scrape never imports the ops modules;
+* the proof farm's replicas (`spectre_replica_*`,
+  `spectre_dispatcher_members`), the followers' lag gauges
+  (`spectre_follower_*`) and the gateways' pack and cache gauges
+  (`spectre_gateway_*`), pulled from their weak registries;
 * registered metrics (prove latency, queue wait, per-phase and
   kernel-build histograms in observability/metrics.py) render as native
   histogram families.
@@ -157,6 +161,101 @@ def render(health=None, jobs=None, registry=None) -> str:
         for b in breakers:
             _sample(out, "spectre_beacon_breaker_consecutive_failures",
                     {"base_url": b["base_url"]}, b["consecutive_failures"])
+
+    try:
+        from ..prover_service.dispatcher import dispatcher_snapshot
+        replicas = dispatcher_snapshot()
+    except Exception:
+        replicas = []
+    if replicas:
+        for key, kind, help_ in (
+                ("breaker_state", "gauge",
+                 "Replica circuit-breaker state "
+                 "(0=closed 1=half-open 2=open)"),
+                ("consecutive_failures", "gauge",
+                 "Consecutive failures per prover replica"),
+                ("active_leases", "gauge",
+                 "Jobs currently leased to the replica"),
+                ("healthy", "gauge",
+                 "Last health-probe result (1=healthy 0=unhealthy; "
+                 "absent until first probe)")):
+            mn = f"spectre_replica_{key}"
+            _family(out, mn, kind, help_)
+            for r in replicas:
+                if key == "breaker_state":
+                    v = r["breaker"]["state_code"]
+                elif key == "consecutive_failures":
+                    v = r["breaker"]["consecutive_failures"]
+                elif key == "healthy":
+                    if r["healthy"] is None:
+                        continue
+                    v = int(r["healthy"])
+                else:
+                    v = r[key]
+                _sample(out, mn, {"replica": r["replica_id"]}, v)
+        _family(out, "spectre_replica_heartbeat_age_s", "gauge",
+                "Seconds since the replica's last announce heartbeat "
+                "(dynamic members only; past the TTL the member is "
+                "demoted and deregistered)")
+        for r in replicas:
+            age = r.get("last_heartbeat_age_s")
+            if age is not None:
+                _sample(out, "spectre_replica_heartbeat_age_s",
+                        {"replica": r["replica_id"]}, age)
+        _family(out, "spectre_dispatcher_members", "gauge",
+                "Proof-farm membership size by kind (total vs "
+                "announce-registered dynamic members)")
+        _sample(out, "spectre_dispatcher_members", {"kind": "total"},
+                len(replicas))
+        _sample(out, "spectre_dispatcher_members", {"kind": "dynamic"},
+                sum(1 for r in replicas if r.get("dynamic")))
+
+    try:
+        from ..follower.daemon import follower_snapshot
+        followers = follower_snapshot()
+    except Exception:
+        followers = []
+    if followers:
+        for key, help_ in (
+                ("head_lag_slots",
+                 "Slots between newest finalized header and newest "
+                 "stored step proof"),
+                ("periods_behind",
+                 "Sync-committee periods between current period and the "
+                 "verified update chain tip"),
+                ("scheduler_backlog",
+                 "Follower work items pending submit/collect")):
+            mn = f"spectre_follower_{key}"
+            _family(out, mn, "gauge", help_)
+            for f in followers:
+                _sample(out, mn, {"store": f.get("store", "")},
+                        f.get(key, 0))
+
+    try:
+        from ..gateway.serving import gateway_snapshot
+        gateways = gateway_snapshot()
+    except Exception:
+        gateways = []
+    if gateways:
+        for key, help_ in (
+                ("packs", "Sealed update-range packs currently indexed"),
+                ("pack_periods", "Periods per full pack "
+                                 "(SPECTRE_PACK_PERIODS)"),
+                ("cache_bytes", "Gateway hot-cache occupancy (bytes)"),
+                ("cache_budget_bytes", "Gateway hot-cache byte budget "
+                                       "(SPECTRE_GATEWAY_CACHE_MB)"),
+                ("cache_entries", "Gateway hot-cache entry count"),
+                ("cache_hits", "Gateway hot-cache lookup hits"),
+                ("cache_misses", "Gateway hot-cache lookup misses")):
+            mn = f"spectre_gateway_{key}"
+            _family(out, mn, "gauge", help_)
+            for g in gateways:
+                cache = g.get("cache") or {}
+                if key.startswith("cache_"):
+                    v = cache.get(key[len("cache_"):], 0)
+                else:
+                    v = g.get(key) or 0
+                _sample(out, mn, {"store": g.get("store", "")}, v)
 
     lru = _lru_stats()
     if lru:

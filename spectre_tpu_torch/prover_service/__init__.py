@@ -8,8 +8,8 @@ Reference parity (SURVEY.md L5): `prover/src/` — the clap CLI (`args.rs`,
 `utils committee-poseidon` (`utils.rs`). Beside them: the async job queue
 with its crash-safe journal (`jobs.py`), verify-before-serve
 (`selfverify.py`), the artifact scrubber (`scrubber.py`) and EVM calldata
-(`calldata.py`). The proof farm (the reference's `dispatcher.py`) is not
-ported yet.
+(`calldata.py`), and the proof farm (`dispatcher.py`: replicas, leases,
+membership, cross-verification).
 """
 
 from .calldata import decode_calldata, encode_calldata  # noqa: F401

@@ -5,13 +5,14 @@ Reference parity: `prover/src/args.rs:32-170` + `cli.rs:35-242`:
   circuit {sync-step,committee-update}[-compressed]
           {setup,prove,verify,gen-verifier}  -- keys, proofs, the verifier
   rpc                                        -- serve the JSON-RPC API
+                                                (a farm head or replica)
+  follow                                     -- the light-client follower
   utils committee-poseidon                   -- deployment bootstrap values
 plus `faults` (the fault-site registry) and `scrub` (one offline artifact
 scrubber pass). `--device {cuda,cpu}` (default cuda) takes the place of the
 reference's `--backend {cpu,tpu}`; `--spec {tiny,minimal,testnet,mainnet}`
 selects the network (`main.rs:27-57`). Both may come before or after the
-subcommand. The proof farm's flags and the `follow` subcommand are not
-ported yet.
+subcommand.
 """
 
 from __future__ import annotations
@@ -96,6 +97,83 @@ def _parser() -> argparse.ArgumentParser:
                    "trace-event JSON (<job_id>.trace.json) under this "
                    "directory (default: $SPECTRE_TRACE_DIR; unset disables "
                    "the file sink — getTrace still serves the in-memory ring)")
+    r.add_argument("--replicas", default=None,
+                   help="comma-separated prover replica URLs (default "
+                   "$SPECTRE_REPLICAS): serve as a proof-farm dispatcher over "
+                   "them; the local state only cross-verifies their proofs")
+    r.add_argument("--replica-id", default=None,
+                   help="this server's replica id within a farm (default "
+                   "$SPECTRE_REPLICA_ID); stamped into RPC errors")
+    r.add_argument("--lease-s", type=float, default=None,
+                   help="dispatcher lease in seconds (default "
+                   "$SPECTRE_REPLICA_LEASE_S or 120): a replica owns a job "
+                   "only while its heartbeat renews within this window")
+    r.add_argument("--announce-to", default=None,
+                   help="dispatcher head URL to announce this replica to "
+                   "(default $SPECTRE_ANNOUNCE_URL): joins the farm through "
+                   "registerReplica with a capability record + heartbeat")
+    r.add_argument("--announce-interval", type=float, default=None,
+                   help="seconds between announce heartbeats (default "
+                   "$SPECTRE_ANNOUNCE_INTERVAL_S or 15)")
+    r.add_argument("--advertise-url", default=None,
+                   help="URL the dispatcher dials back (default "
+                   "http://<host>:<port> of this server; set behind a proxy)")
+    r.add_argument("--ttl-s", type=float, default=None,
+                   help="dispatcher-side heartbeat TTL of announced members "
+                   "(default $SPECTRE_REPLICA_TTL_S or 60): a silent replica "
+                   "is demoted through its breaker and deregistered")
+
+    f = sub.add_parser("follow", parents=[common], help="run the light-client "
+                       "follower: track the beacon head, prove steps and "
+                       "committee updates, serve verified updates over the "
+                       "RPC API")
+    f.add_argument("--beacon-api", required=True,
+                   help="Beacon REST base URL; a comma-separated list polls a "
+                   "quorum (2-of-N agreement on the finalized head)")
+    f.add_argument("--beacon-quorum", type=int, default=None,
+                   help="matching finalized heads required (default "
+                   "$SPECTRE_BEACON_QUORUM or 2, clamped to the pool size)")
+    f.add_argument("--params-dir", required=True,
+                   help="SRS and key dir; hosts the job journal and the "
+                   "follower's verified update store (follower.updates.jsonl "
+                   "+ results/)")
+    f.add_argument("--host", default="127.0.0.1")
+    f.add_argument("--port", type=int, default=3000)
+    f.add_argument("--poll-s", type=float, default=None,
+                   help="beacon poll cadence (default $SPECTRE_FOLLOW_POLL_S or 12)")
+    f.add_argument("--backfill", type=int, default=None,
+                   help="max committee-update periods queued per poll "
+                   "(default $SPECTRE_FOLLOW_BACKFILL or 8)")
+    f.add_argument("--domain", default=None,
+                   help="sync-committee signing domain (hex); step proofs are "
+                   "disabled without it")
+    f.add_argument("--pubkeys-file", default=None,
+                   help="JSON list of compressed pubkey hex strings of the "
+                   "current committee; step proofs are disabled without it")
+    f.add_argument("--k-step", type=int, default=17)
+    f.add_argument("--k-committee", type=int, default=17)
+    f.add_argument("--k-agg", type=int, default=17)
+    f.add_argument("--concurrency", type=int, default=1)
+    f.add_argument("--compress", action="store_true",
+                   help="prove two-stage (aggregated) EVM proofs")
+    f.add_argument("--pk-cache", action="store_true",
+                   help="load the keys from --params-dir when they are there")
+    f.add_argument("--job-timeout", type=float, default=None)
+    f.add_argument("--queue-depth", type=int, default=None)
+    f.add_argument("--gateway", action="store_true",
+                   help="mount the cacheable GET /v1/* read plane: "
+                   "content-addressed ETags, 304s, immutable cache headers "
+                   "on sealed periods, update-range packs")
+    f.add_argument("--pack-periods", type=int, default=None,
+                   help="periods per sealed update pack (default "
+                   "$SPECTRE_PACK_PERIODS or 8)")
+    f.add_argument("--agg-cadence", type=int, default=None,
+                   help="publish an EVM-verifiable aggregation proof every N "
+                   "sealed committee periods (default "
+                   "$SPECTRE_AGG_CADENCE_PERIODS or 0 = off)")
+    f.add_argument("--gateway-cache-mb", type=float, default=None,
+                   help="gateway hot-cache byte budget in MB (default "
+                   "$SPECTRE_GATEWAY_CACHE_MB or 64)")
 
     u = sub.add_parser("utils", parents=[common], help="deployment utilities")
     u.add_argument("util", choices=["committee-poseidon"])
@@ -126,6 +204,8 @@ def main(argv=None):
         _circuit_cmd(args, spec)
     elif args.cmd == "rpc":
         _rpc_cmd(args, spec)
+    elif args.cmd == "follow":
+        _follow_cmd(args, spec)
     elif args.cmd == "utils":
         _utils_cmd(args, spec)
     elif args.cmd == "faults":
@@ -161,7 +241,96 @@ def _rpc_cmd(args, spec):
         queue_kw["mem_watermark_mb"] = args.mem_watermark_mb
     if args.worker_stall_s is not None:
         queue_kw["stall_timeout"] = args.worker_stall_s
-    serve(state, args.host, args.port, job_timeout=args.job_timeout, **queue_kw)
+    dispatcher = None
+    replicas_raw = args.replicas or os.environ.get("SPECTRE_REPLICAS")
+    if replicas_raw or args.ttl_s is not None:
+        # a proof-farm head: jobs route to the replicas (static ones from
+        # --replicas, announced ones through registerReplica); the local
+        # state only cross-verifies what they return
+        from .dispatcher import Dispatcher, HttpReplica
+        from .rpc_client import ProverClient
+        urls = [u.strip() for u in (replicas_raw or "").split(",") if u.strip()]
+        dispatcher = Dispatcher(
+            replicas=[HttpReplica(url, ProverClient(url)) for url in urls],
+            journal_dir=args.params_dir, lease_s=args.lease_s, ttl_s=args.ttl_s,
+            verify_state=state)
+        print(f"dispatching over {len(urls)} static replicas + announced ones "
+              f"(lease {dispatcher.lease_s:g}s, heartbeat TTL "
+              f"{dispatcher.ttl_s:g}s, cross-verify on)", flush=True)
+    serve(state, args.host, args.port, job_timeout=args.job_timeout,
+          dispatcher=dispatcher, replica_id=args.replica_id,
+          announce=args.announce_to, announce_interval=args.announce_interval,
+          advertise_url=args.advertise_url, **queue_kw)
+
+
+def _follow_cmd(args, spec):
+    """The follower: beacon head tracking and proof scheduling in the
+    foreground, the RPC serving API (getLightClientUpdate, and the gateway
+    with --gateway) in the background of the same process. Proves run on
+    --device (default cuda)."""
+    import threading
+
+    from ..follower import Follower
+    from ..observability import compilelog
+    from ..preprocessor.beacon import BeaconClient, BeaconQuorum
+    from .jobs import ensure_jobs
+    from .rpc import serve
+    from .state import ProverState
+
+    compilelog.install()
+    pubkeys = None
+    if args.pubkeys_file:
+        with open(args.pubkeys_file) as fh:
+            pubkeys = json.load(fh)
+    domain = args.domain
+    if not (pubkeys and domain):
+        print("step proofs disabled (need both --pubkeys-file and --domain); "
+              "following committee updates only", flush=True)
+    print(f"loading prover state (spec={spec.name}, device={args.device})...", flush=True)
+    state = ProverState(spec, args.k_step, args.k_committee, args.concurrency, args.device,
+                        params_dir=args.params_dir, compress=args.compress,
+                        k_agg=args.k_agg, pk_cache=args.pk_cache)
+    queue_kw = {}
+    if args.queue_depth is not None:
+        queue_kw["queue_depth"] = args.queue_depth
+    jobs = ensure_jobs(state, journal_dir=args.params_dir,
+                       default_timeout=args.job_timeout, **queue_kw)
+    beacon_urls = [u.strip() for u in args.beacon_api.split(",") if u.strip()]
+    if len(beacon_urls) > 1:
+        # the follower acts only on a finalized head a quorum of beacons
+        # agree on; a lone dissenting beacon is demoted behind its breaker
+        beacon = BeaconQuorum([BeaconClient(u) for u in beacon_urls],
+                              quorum=args.beacon_quorum)
+        print(f"beacon quorum: {beacon.quorum}-of-{len(beacon_urls)}", flush=True)
+    else:
+        beacon = BeaconClient(beacon_urls[0])
+    publisher = None
+    if args.agg_cadence:
+        # publish through the Spectre contract's model; an
+        # EvmProofVerifier-backed contract gates it on the generated verifier
+        from ..contracts.spectre import SpectreContract
+        from ..follower.scheduler import AggregationPublisher
+        publisher = AggregationPublisher(SpectreContract(spec, 0, 0))
+        print(f"aggregation cadence: every {args.agg_cadence} sealed periods", flush=True)
+    fol = Follower(spec, beacon, jobs, directory=args.params_dir, pubkeys=pubkeys,
+                   domain=domain, backfill=args.backfill,
+                   cadence_periods=args.agg_cadence, publisher=publisher)
+    gateway = None
+    if args.gateway:
+        from ..gateway import Gateway
+        gateway = Gateway(fol.store, pack_periods=args.pack_periods,
+                          cache_mb=args.gateway_cache_mb)
+        print(f"gateway mounted on /v1/* (pack_periods={gateway.packs.pack_periods}, "
+              f"cache {gateway.cache.budget >> 20} MB)", flush=True)
+    serve(state, args.host, args.port, background=True, journal_dir=args.params_dir,
+          job_timeout=args.job_timeout, follower=fol, gateway=gateway, **queue_kw)
+    print(f"following {args.beacon_api}; serving light-client updates on "
+          f"{args.host}:{args.port}", flush=True)
+    stop = threading.Event()
+    try:
+        fol.run(stop, poll_s=args.poll_s)
+    except KeyboardInterrupt:
+        stop.set()
 
 
 def _faults_cmd(args):
@@ -177,8 +346,10 @@ def _faults_cmd(args):
 
 
 def _scrub_cmd(args):
-    """One offline scrubber pass: replay the journal to learn which digests
-    are live, then re-hash/quarantine/expire the store."""
+    """One offline scrubber pass: replay the journals (the job journal, and
+    the follower's update store and the gateway's packs when the directory
+    holds them) to learn which digests are live, then
+    re-hash/quarantine/expire the store."""
     from ..observability.manifest import MANIFEST_SUFFIX
     from ..utils.artifacts import ArtifactStore
     from .jobs import JobJournal
@@ -191,6 +362,15 @@ def _scrub_cmd(args):
             live.add((job.result_digest, ".bin"))
         if job.manifest_digest is not None:
             live.add((job.manifest_digest, MANIFEST_SUFFIX))
+    # a follower's params dir keeps its verified updates (and the
+    # gateway's update-range packs) in the same artifact store: replay
+    # those journals too, or an offline pass expires the whole chain
+    from ..follower.updates import JOURNAL_NAME, UpdateStore
+    if os.path.exists(os.path.join(args.params_dir, JOURNAL_NAME)):
+        from ..gateway.packs import PackBuilder
+        ustore = UpdateStore(args.params_dir)
+        live |= ustore.live_artifacts()
+        live |= PackBuilder(ustore).live_artifacts()
     store = ArtifactStore(args.params_dir)
     summary = Scrubber(store, lambda: live, min_age_s=args.min_age_s).scrub()
     summary["live"] = len(live)

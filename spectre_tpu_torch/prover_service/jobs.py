@@ -334,7 +334,7 @@ class JobQueue:
                  stall_timeout: float | None = None,
                  clock=time.monotonic, sleep_interval: float | None = None,
                  latency_hist=None, scrub_interval: float | None = None,
-                 scrub_min_age: float | None = None):
+                 scrub_min_age: float | None = None, live_providers=()):
         """`queue_depth`/`mem_watermark_mb`/`stall_timeout` default to the
         SPECTRE_JOB_QUEUE_DEPTH / SPECTRE_MEM_WATERMARK_MB /
         SPECTRE_WORKER_STALL_S env knobs. `clock` and `sleep_interval` are
@@ -344,7 +344,9 @@ class JobQueue:
         latency histogram that prices `retry_after_s` at its p90.
         `scrub_interval`/`scrub_min_age` (SPECTRE_SCRUB_INTERVAL_S
         / SPECTRE_SCRUB_MIN_AGE_S) govern the artifact scrubber — interval
-        0 disables the periodic thread (scrubNow still works)."""
+        0 disables the periodic thread (scrubNow still works).
+        `live_providers`: zero-arg callables returning extra (digest,
+        suffix) pairs the scrubber must keep (see add_live_provider)."""
         self.runner = runner
         self.concurrency = max(1, int(concurrency))
         self.semaphore = semaphore
@@ -378,6 +380,13 @@ class JobQueue:
         # does the runner accept a heartbeat callback? (inspected once —
         # plain runner(method, params) callables keep working unchanged)
         self._runner_heartbeat = _accepts_heartbeat(runner)
+        # external keep-set providers: subsystems sharing the results/
+        # namespace (the follower's update store, the gateway's packs)
+        # contribute their own (digest, suffix) pairs so neither
+        # compaction-time nor periodic scrubs expire an artifact a chain
+        # record references. Registered before the scrubber/_recover so
+        # the post-compaction pass already sees them.
+        self._live_providers = list(live_providers)
         # artifact scrubber: built before _recover so the
         # post-compaction pass can expire freshly-orphaned artifacts
         self.scrubber = Scrubber(self.store, self._live_artifacts,
@@ -671,7 +680,18 @@ class JobQueue:
                 if job.manifest_digest is not None:
                     live.add((job.manifest_digest,
                               obs_manifest.MANIFEST_SUFFIX))
+        for provider in list(self._live_providers):
+            # a broken provider propagates: the scrub pass fails (counted
+            # by its caller) rather than running with a partial keep-set
+            # and expiring artifacts that are actually live
+            live |= set(provider())
         return live
+
+    def add_live_provider(self, provider):
+        """Register a zero-arg callable returning extra (digest, suffix)
+        pairs to protect from orphan expiry (idempotent)."""
+        if provider not in self._live_providers:
+            self._live_providers.append(provider)
 
     def scrub_now(self) -> dict:
         """One synchronous scrubber pass (the scrubNow RPC / CLI entry)."""
@@ -1028,4 +1048,8 @@ def ensure_jobs(state, journal_dir: str | None = None, runner=None,
         else getattr(state, "params_dir", None),
         default_timeout=default_timeout, **queue_kw)
     state.jobs = jobsq
+    # a Dispatcher runner gets the queue handed back so its SDC
+    # quarantine reaches the queue's artifact store
+    if hasattr(runner, "attach_queue"):
+        runner.attach_queue(jobsq)
     return jobsq

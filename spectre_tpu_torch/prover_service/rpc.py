@@ -32,14 +32,25 @@ methods `genEvmProof_SyncStepCompressed` and
   goes `done` (selfverify.verified_prove; twice-failed proofs surface as
   `-32005 proof failed self-verification`); `scrubNow` runs one
   artifact-scrubber pass.
-* The follower's methods (`getLightClientUpdate`, `getUpdateRange`,
-  `followerStatus`) answer `-32601`, as the reference's server does when
-  no follower is attached: the port has no follower yet.
+* **Follower serving** — `getLightClientUpdate` (by period or slot),
+  `getUpdateRange` and `followerStatus` serve pre-proved light-client
+  updates out of the follower's verified update store: a hit is one
+  content-verified artifact read, never a job, the prover semaphore or the
+  device. A missing or invalidated update answers `-32007 update
+  unavailable` while the follower (re-)proves it; without a follower the
+  three answer `-32601`. With a gateway, `GET /v1/*` serves the same store
+  as cacheable HTTP (gateway/serving.py).
+* **Proof farm** — with a `Dispatcher` (prover_service/dispatcher.py) the
+  queue's runner routes proves to replicas; `registerReplica` takes their
+  announces, `/healthz` and `health` gain a `dispatcher` section, and
+  every error names the serving `replica_id` in its `data`. A replica
+  server announces itself to a head (`announce=`).
 """
 
 from __future__ import annotations
 
 import json
+import os
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
@@ -188,20 +199,37 @@ def _job_error(job, id_):
     return _error(INTERNAL_ERROR, f"internal error ({kind})", id_)
 
 
-def _handler(state: ProverState, jobs):
-    """A request handler class bound to one state and its queue (each
-    serve() gets its own, so servers in one process stay apart)."""
-    return type("Handler", (_Handler,), {"state": state, "jobs": jobs})
+def _handler(state: ProverState, jobs, follower=None, dispatcher=None,
+             replica_id=None, gateway=None):
+    """A request handler class bound to one state, its queue and the farm,
+    follower and gateway it serves (each serve() gets its own, so servers
+    in one process stay apart)."""
+    return type("Handler", (_Handler,), {
+        "state": state, "jobs": jobs, "follower": follower,
+        "dispatcher": dispatcher, "replica_id": replica_id,
+        "gateway": gateway})
 
 
 class _Handler(BaseHTTPRequestHandler):
     state: ProverState = None  # bound by _handler()
     jobs = None
+    follower = None            # the light-client follower daemon, if any
+    dispatcher = None          # the proof-farm dispatcher, if any
+    replica_id = None          # this server's id within a farm
+    gateway = None             # the cacheable GET /v1/* read plane, if any
 
     def log_message(self, fmt, *args):  # quiet by default
         pass
 
     def _reply(self, resp: dict, status: int = 200, headers: dict = None):
+        # every RPC error names the serving replica, so a client retrying
+        # across endpoints can say which box failed (rpc_client surfaces
+        # it as RpcError.replica_id)
+        if self.replica_id is not None and isinstance(resp, dict) \
+                and isinstance(resp.get("error"), dict):
+            resp["error"].setdefault("data", {})
+            if isinstance(resp["error"]["data"], dict):
+                resp["error"]["data"].setdefault("replica_id", self.replica_id)
         body = json.dumps(resp).encode()
         self.send_response(status)
         self.send_header("Content-Type", "application/json")
@@ -212,6 +240,23 @@ class _Handler(BaseHTTPRequestHandler):
         self.wfile.write(body)
 
     def do_GET(self):
+        if self.path.startswith("/v1/"):
+            # the gateway's read plane: content-addressed ETags,
+            # If-None-Match -> 304, immutable cache headers on sealed
+            # periods, so a stock CDN in front absorbs the fan-out
+            if self.gateway is None:
+                self.send_error(404, "gateway not mounted (serve with "
+                                     "gateway=)")
+                return
+            status, headers, body = self.gateway.handle_http(self.path, self.headers)
+            self.send_response(status)
+            for k, v in headers.items():
+                self.send_header(k, v)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            if body:
+                self.wfile.write(body)
+            return
         if self.path == "/metrics":
             # Prometheus scrape: text exposition 0.0.4 with exact counter
             # parity against /healthz (both read the same HEALTH.snapshot())
@@ -240,6 +285,8 @@ class _Handler(BaseHTTPRequestHandler):
         sc = getattr(self.state, "self_check", None)
         if sc is not None:
             snap["self_check"] = sc.snapshot()
+        if self.dispatcher is not None:
+            snap["dispatcher"] = self.dispatcher.snapshot()
         if any(b["state"] == "open" for b in breakers) \
                 or (sc is not None and not snap["self_check"]["ok"]):
             snap["status"] = "degraded"
@@ -379,10 +426,37 @@ class _Handler(BaseHTTPRequestHandler):
             result = tracing.chrome_trace(tr)
         elif method in ("getLightClientUpdate", "getUpdateRange",
                         "followerStatus"):
-            # the follower's serving methods: the port has no follower yet
-            return _error(METHOD_NOT_FOUND,
-                          "follower not running (the port serves no "
-                          "follower yet)", id_)
+            # the follower's serving path: pre-proved updates out of the
+            # verified update store — one content-verified artifact read,
+            # never a prover-semaphore acquisition or a device touch
+            fol = self.follower
+            if fol is None:
+                return _error(METHOD_NOT_FOUND,
+                              "follower not running (start with "
+                              "`python -m spectre_tpu_torch.prover_service "
+                              "follow`)", id_)
+            if method == "followerStatus":
+                result = fol.snapshot()
+            elif method == "getUpdateRange":
+                count = min(int(params.get("count", 1)), 128)
+                updates, missing = fol.store.range_committee(
+                    int(params["start_period"]), count)
+                result = {"updates": updates, "missing": missing}
+            else:
+                if "period" in params:
+                    rec = fol.store.get_committee(int(params["period"]))
+                    what = f"period {params['period']}"
+                elif "slot" in params:
+                    rec = fol.store.get_step(int(params["slot"]))
+                    what = f"slot {params['slot']}"
+                else:
+                    raise KeyError("period")
+                if rec is None:
+                    return _error(UPDATE_UNAVAILABLE,
+                                  f"no verified update for {what} "
+                                  f"(not yet proved, or invalidated and "
+                                  f"re-proving)", id_)
+                result = rec
         elif method == "scrubNow":
             # one synchronous artifact-scrubber pass: re-hash every
             # results/ file, quarantine rot, expire orphans
@@ -395,6 +469,19 @@ class _Handler(BaseHTTPRequestHandler):
             sc = getattr(self.state, "self_check", None)
             if sc is not None:
                 result["self_check"] = sc.snapshot()
+            if self.dispatcher is not None:
+                result["dispatcher"] = self.dispatcher.snapshot()
+        elif method == "registerReplica":
+            # farm membership: replicas announce themselves (and
+            # heartbeat) here; the dispatcher journals joins and
+            # TTL-expires the silent
+            if self.dispatcher is None:
+                return _error(METHOD_NOT_FOUND,
+                              "not a dispatcher head (serve with a "
+                              "Dispatcher to accept replica announces)", id_)
+            result = self.dispatcher.register_remote(
+                params["replica_id"], url=params.get("url"),
+                capabilities=params.get("capabilities"))
         elif method == "ping":
             result = "pong"
         else:
@@ -402,19 +489,91 @@ class _Handler(BaseHTTPRequestHandler):
         return {"jsonrpc": "2.0", "result": result, "id": id_}
 
 
+def _announce_loop(stop: threading.Event, head_url: str, payload: dict,
+                   interval: float):
+    """Replica-side membership announce: POST ``registerReplica`` to the
+    dispatcher head — once immediately, then every `interval` seconds as the
+    liveness heartbeat. Failures are tolerated and counted
+    (``replica_announce_failures``); only a TTL of silence deregisters the
+    replica, and the next successful announce re-joins it."""
+    from ..utils import faults
+    from .rpc_client import ProverClient
+    client = ProverClient(head_url, timeout=10.0)
+    while True:
+        try:
+            faults.check("replica.announce")
+            client._call("registerReplica", payload, timeout=10.0)
+            HEALTH.incr("replica_announces")
+        except Exception:
+            HEALTH.incr("replica_announce_failures")
+        if stop.wait(interval):
+            return
+
+
 def serve(state: ProverState, host: str = "127.0.0.1", port: int = 3000,
           background: bool = False, journal_dir: str | None = None,
-          job_timeout: float | None = None, **queue_kw):
+          job_timeout: float | None = None, follower=None, dispatcher=None,
+          replica_id: str | None = None, gateway=None, announce=None,
+          announce_interval: float | None = None,
+          advertise_url: str | None = None, capabilities=None, **queue_kw):
     """`journal_dir` defaults to the state's params_dir (when set) — pass
     explicitly to place the crash-safe job journal elsewhere; `job_timeout`
-    is the default per-job deadline for async submissions. Extra
-    `queue_kw` (queue_depth, mem_watermark_mb, stall_timeout,
-    scrub_interval, ...) reach the JobQueue's admission/supervision layer.
-    With background=True the server runs in a daemon thread and is
-    returned (stop it with `.shutdown()` and `state.jobs.stop()`)."""
+    is the default per-job deadline for async submissions. `follower`
+    (optional) serves getLightClientUpdate / getUpdateRange /
+    followerStatus. `dispatcher` (optional) replaces the local-state queue
+    runner with a proof-farm Dispatcher: the queue, dedup and journal are
+    unchanged, only where proofs run moves. `replica_id` (default
+    $SPECTRE_REPLICA_ID) names this server in a farm and is stamped into
+    every RPC error's data. `gateway` mounts the cacheable GET /v1/* read
+    plane: a Gateway, or True to build one over `follower`'s store.
+    `announce` (default $SPECTRE_ANNOUNCE_URL) is a dispatcher head's URL
+    this server announces itself to every `announce_interval` seconds
+    ($SPECTRE_ANNOUNCE_INTERVAL_S), with its `capabilities` record
+    (default: dispatcher.capability_record of the state) and
+    `advertise_url` (default http://`host`:`port`, the bound port when
+    port=0). Extra `queue_kw` (queue_depth, mem_watermark_mb,
+    stall_timeout, scrub_interval, ...) reach the JobQueue's
+    admission/supervision layer. With background=True the server runs in
+    a daemon thread and is returned (stop it with `.shutdown()`,
+    `._announce_stop.set()` when it announces, and `state.jobs.stop()`)."""
     jobs = ensure_jobs(state, journal_dir=journal_dir, default_timeout=job_timeout,
-                       **queue_kw)
-    server = ThreadingHTTPServer((host, port), _handler(state, jobs))
+                       runner=dispatcher, **queue_kw)
+    if replica_id is None:
+        replica_id = os.environ.get("SPECTRE_REPLICA_ID") or None
+    if gateway is True:
+        if follower is None:
+            raise ValueError("gateway=True requires a follower (the "
+                             "gateway serves its update store)")
+        from ..gateway import Gateway
+        gateway = Gateway(follower.store)
+    if gateway is not None and jobs is not None:
+        # packs must survive the scrubber's orphan expiry as stored
+        # updates do
+        jobs.add_live_provider(gateway.live_artifacts)
+    server = ThreadingHTTPServer((host, port), _handler(
+        state, jobs, follower=follower, dispatcher=dispatcher,
+        replica_id=replica_id, gateway=gateway))
+    if announce is None:
+        announce = os.environ.get("SPECTRE_ANNOUNCE_URL") or None
+    if announce:
+        from .dispatcher import ANNOUNCE_DEFAULT_S, ANNOUNCE_ENV, capability_record
+        if announce_interval is None:
+            try:
+                announce_interval = float(os.environ.get(ANNOUNCE_ENV, ANNOUNCE_DEFAULT_S))
+            except ValueError:
+                announce_interval = ANNOUNCE_DEFAULT_S
+        bound_port = server.server_address[1]
+        own_url = advertise_url or f"http://{host}:{bound_port}"
+        rid = replica_id or f"replica-{host}:{bound_port}"
+        caps = capabilities if capabilities is not None \
+            else capability_record(state, url=own_url)
+        stop = threading.Event()
+        threading.Thread(
+            target=_announce_loop,
+            args=(stop, announce, {"replica_id": rid, "url": own_url,
+                                   "capabilities": caps}, announce_interval),
+            daemon=True, name="spectre-announce").start()
+        server._announce_stop = stop    # shutdown hook
     if background:
         t = threading.Thread(target=server.serve_forever, daemon=True)
         t.start()

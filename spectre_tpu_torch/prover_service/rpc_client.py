@@ -17,6 +17,15 @@ default 2); an exhausted loop surfaces the typed `RpcError` with
 (computed once from the injectable `clock`) through per-poll HTTP
 timeouts, overload backoffs and poll sleeps. `sleep`/`rng`/`clock` are
 injectable so the backoff paths test deterministically.
+
+A proof farm has many frontends: the client takes a list of endpoints, a
+connection-reset retry rotates to the next one, and once the rotation is
+spent it asks the endpoints' `health` for the dispatcher's membership and
+adopts replicas it does not know yet. The follower's stored updates are
+read with `get_light_client_update` / `get_update_range` /
+`follower_status`, and through the gateway's cacheable `GET /v1/*` routes
+with the ETag-revalidating `get_update_cached` /
+`get_update_range_cached` / `get_bootstrap_cached`.
 """
 
 from __future__ import annotations
@@ -27,19 +36,20 @@ import random
 import time
 import urllib.error
 import urllib.request
+from collections import OrderedDict
 from urllib.parse import urlsplit, urlunsplit
 
 from .rpc import (RPC_METHOD_COMMITTEE, RPC_METHOD_COMMITTEE_SUBMIT,
                   RPC_METHOD_STEP, RPC_METHOD_STEP_SUBMIT,
-                  SERVICE_OVERLOADED)
+                  SERVICE_OVERLOADED, UPDATE_UNAVAILABLE)
 
 
 class RpcError(RuntimeError):
     """A JSON-RPC error response (code + message, as sent by the server).
     `retry_after` carries the server's backoff hint (seconds) on a
     `-32001 service overloaded` shed, else None. `replica_id` names the
-    replica that served the error, when the server stamps one (the
-    reference's proof farm does; None otherwise)."""
+    replica that served the error, when the server stamps one (a farm's
+    servers do; None otherwise)."""
 
     def __init__(self, code: int, message: str,
                  retry_after: float | None = None,
@@ -65,8 +75,15 @@ class ProverClient:
                  conn_retries: int = 1, overload_retries: int = 2,
                  retry_after_cap: float = 30.0,
                  sleep=time.sleep, rng=random.random, clock=time.time):
-        """`url`: the server's JSON-RPC endpoint (http://host:port/rpc)."""
-        self.url = url
+        """`url`: the server's JSON-RPC endpoint (http://host:port/rpc), or
+        a list of them (a proof farm's frontends). Calls go to the current
+        endpoint; a connection-reset retry rotates to the next one first,
+        so the retry lands on a different replica instead of the one that
+        just dropped the connection."""
+        self.urls = [url] if isinstance(url, str) else list(url)
+        if not self.urls:
+            raise ValueError("ProverClient needs at least one URL")
+        self._url_index = 0
         self.timeout = timeout
         self.conn_retries = conn_retries
         self.overload_retries = overload_retries
@@ -75,6 +92,58 @@ class ProverClient:
         self._rng = rng
         self._clock = clock
         self._id = 0
+        # the gateway's conditional-request cache: path -> (etag, decoded
+        # body), a bounded LRU; a 304 re-serves the cached decode without
+        # downloading the proof bytes again
+        self._etag_cache: "OrderedDict[str, tuple]" = OrderedDict()
+        self.etag_cache_max = 256
+        self.cache_304s = 0          # revalidated-not-modified responses
+        self.endpoint_refreshes = 0  # membership-driven rotations grown
+
+    @property
+    def url(self) -> str:
+        """Current endpoint (rotates on connection-reset retries)."""
+        return self.urls[self._url_index % len(self.urls)]
+
+    @url.setter
+    def url(self, value: str):
+        self.urls = [value]
+        self._url_index = 0
+
+    def _rotate_url(self):
+        if len(self.urls) > 1:
+            self._url_index = (self._url_index + 1) % len(self.urls)
+
+    def _refresh_endpoints(self) -> bool:
+        """Membership-driven endpoint discovery: when the conn-reset
+        rotation has exhausted every configured URL, ask each endpoint's
+        `health` RPC for the dispatcher membership and adopt replica URLs
+        this client does not know yet. One-shot direct POSTs (no retry
+        recursion). Returns True when the rotation grew, with the current
+        endpoint pointed at the first new URL."""
+        for base in list(self.urls):
+            self._id += 1
+            body = json.dumps({"jsonrpc": "2.0", "method": "health",
+                               "params": {}, "id": self._id}).encode()
+            req = urllib.request.Request(
+                base, data=body, headers={"Content-Type": "application/json"})
+            try:
+                with urllib.request.urlopen(req, timeout=min(self.timeout, 10.0)) as resp:
+                    data = json.load(resp)
+            except Exception:
+                continue
+            replicas = ((data.get("result") or {}).get("dispatcher")
+                        or {}).get("replicas") or []
+            fresh = [r.get("url") for r in replicas
+                     if isinstance(r, dict) and r.get("url")
+                     and r["url"] not in self.urls]
+            if fresh:
+                first = len(self.urls)
+                self.urls.extend(dict.fromkeys(fresh))
+                self._url_index = first
+                self.endpoint_refreshes += 1
+                return True
+        return False
 
     def _raise_rpc_error(self, data: dict, headers=None):
         err = (data or {}).get("error") or {}
@@ -98,6 +167,7 @@ class ProverClient:
         body = json.dumps({"jsonrpc": "2.0", "method": method,
                            "params": params, "id": self._id}).encode()
         attempt = 0
+        refreshed = False
         while True:
             req = urllib.request.Request(
                 self.url, data=body,
@@ -118,9 +188,20 @@ class ProverClient:
                     self._raise_rpc_error(data, headers=exc.headers)
                 raise
             except Exception as exc:
-                if _is_conn_reset(exc) and attempt < self.conn_retries:
-                    attempt += 1        # a restarting server: once more
-                    continue
+                if _is_conn_reset(exc):
+                    if attempt < self.conn_retries:
+                        # prefer a different replica: the endpoint that
+                        # reset us is the one most likely mid-restart
+                        self._rotate_url()
+                        attempt += 1
+                        continue
+                    if not refreshed and self._refresh_endpoints():
+                        # rotation exhausted: refresh the endpoint list
+                        # from the dispatcher's membership once before
+                        # failing; the adopted URLs get their own budget
+                        refreshed = True
+                        attempt = 0
+                        continue
                 raise
         if "error" in data:
             self._raise_rpc_error(data)
@@ -267,6 +348,93 @@ class ProverClient:
         manifest degraded to absent (the result itself is unaffected)."""
         return self._call("getProofManifest", {"job_id": job_id},
                           timeout=min(self.timeout, 30.0))
+
+    # -- follower / light-client updates -----------------------------------
+
+    def get_light_client_update(self, period: int | None = None,
+                                slot: int | None = None) -> dict:
+        """Stored verified update: a committee update by `period` or a
+        step proof by `slot`, served from the follower's update store (a
+        hit never touches the prover). Raises RpcError -32007 when the
+        update is not (yet) proved."""
+        params: dict = {}
+        if period is not None:
+            params["period"] = period
+        if slot is not None:
+            params["slot"] = slot
+        return self._call("getLightClientUpdate", params,
+                          timeout=min(self.timeout, 30.0))
+
+    def get_update_range(self, start_period: int, count: int = 1) -> dict:
+        """Contiguous committee updates starting at `start_period`:
+        {"updates": [...], "missing": [periods]} (count capped at 128)."""
+        return self._call("getUpdateRange",
+                          {"start_period": start_period, "count": count},
+                          timeout=min(self.timeout, 30.0))
+
+    def follower_status(self) -> dict:
+        """Follower snapshot: head lag, periods behind, scheduler backlog,
+        chain health (`chain_ok`), stored counts."""
+        return self._call("followerStatus", {}, timeout=min(self.timeout, 30.0))
+
+    # -- the gateway's read plane ------------------------------------------
+
+    def _gateway_url(self, path: str, query: str = "") -> str:
+        parts = urlsplit(self.url)
+        return urlunsplit((parts.scheme, parts.netloc, path, query, ""))
+
+    def _cached_get(self, path: str, query: str = "") -> dict:
+        """Conditional GET against the gateway's /v1/* routes: sends
+        If-None-Match from the client-side digest cache, honors 304 by
+        re-serving the cached decode. A 404 surfaces as the same typed
+        -32007 `update unavailable` the RPC method raises."""
+        key = path + ("?" + query if query else "")
+        cached = self._etag_cache.get(key)
+        req = urllib.request.Request(self._gateway_url(path, query))
+        if cached is not None:
+            req.add_header("If-None-Match", cached[0])
+        try:
+            with urllib.request.urlopen(req, timeout=min(self.timeout, 30.0)) as resp:
+                body = json.load(resp)
+                etag = resp.headers.get("ETag")
+        except urllib.error.HTTPError as exc:
+            if exc.code == 304 and cached is not None:
+                exc.read()
+                self.cache_304s += 1
+                self._etag_cache.move_to_end(key)
+                return cached[1]
+            if exc.code == 404:
+                try:
+                    message = json.load(exc).get("error", "not found")
+                except ValueError:
+                    message = "not found"
+                raise RpcError(UPDATE_UNAVAILABLE, message)
+            raise
+        if etag:
+            self._etag_cache[key] = (etag, body)
+            self._etag_cache.move_to_end(key)
+            while len(self._etag_cache) > self.etag_cache_max:
+                self._etag_cache.popitem(last=False)
+        return body
+
+    def get_update_cached(self, period: int) -> dict:
+        """One committee update via the cacheable gateway route
+        (GET /v1/update/<period>): ETag-revalidated from the client-side
+        digest cache, so a sealed update is downloaded at most once per
+        client. Needs a server with a gateway; raises RpcError -32007 when
+        the update is not (yet) proved."""
+        return self._cached_get(f"/v1/update/{int(period)}")
+
+    def get_update_range_cached(self, start_period: int, count: int = 1) -> dict:
+        """Range variant of :meth:`get_update_cached`
+        (GET /v1/updates?start=..&count=..): {"updates": [...],
+        "missing": [...]} like get_update_range."""
+        return self._cached_get("/v1/updates", f"start={int(start_period)}&count={int(count)}")
+
+    def get_bootstrap_cached(self) -> dict:
+        """Cold-start document (GET /v1/bootstrap): trust anchor update +
+        tip period, short-TTL cached."""
+        return self._cached_get("/v1/bootstrap")
 
     def metrics_text(self) -> str:
         """Raw GET /metrics body (Prometheus text exposition 0.0.4) from

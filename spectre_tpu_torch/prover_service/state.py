@@ -180,14 +180,22 @@ class ProverState:
 
     # -- proving ---------------------------------------------------------------
 
-    def _snark(self, circuit, pk, k: int, args, transcript=None) -> bytes:
+    def _snark(self, circuit, pk, k: int, args, transcript=None, heartbeat=None) -> bytes:
         """One proof of `circuit` on the device: the witness, its layout at
         the key's shape, the prove, each its own span (the prover's phases
-        as `snark/<phase>` children of `prove/snark`)."""
+        as `snark/<phase>` children of `prove/snark`). `heartbeat` is
+        stamped after the witness and after the layout: with the stamps at
+        a prove's start and end, no gap spans more than one phase, so a
+        dispatcher lease longer than the longest phase holds across a
+        prove that takes minutes on the card (the reference stamps only at
+        the start and end)."""
+        hb = heartbeat or (lambda: None)
         with phase("prove/witness"):
             ctx = circuit.build_context(args, self.spec, self.device)
+        hb()
         with phase("prove/layout"):
             ctx.layout(pk.vk.config)
+        hb()
         timer = PhaseTimer(self.device)
         with phase("prove/snark"):
             proof = circuit.prove(pk, self.srs[k], args, self.spec, device=self.device,
@@ -203,13 +211,15 @@ class ProverState:
         statement: 12 accumulator limbs, then the app instances)."""
         hb = heartbeat or (lambda: None)
         with phase("prove/app_snark"):
-            app_proof = self._snark(circuit, pk, k, args, PoseidonTranscript())
+            app_proof = self._snark(circuit, pk, k, args, PoseidonTranscript(), hb)
         hb()              # phase boundary: app snark done, aggregation next
         inst = circuit.get_instances(args, self.spec)
         agg_args = AggregationArgs(inner_vk=pk.vk, srs=self.srs[k], inner_instances=[inst],
                                    proof=app_proof)
         with phase("prove/aggregation"):
-            outer = self._snark(agg_cls, agg_pk, k_agg, agg_args, KeccakTranscript())
+            # the aggregation's build (its witness) and layout are
+            # stamped inside: the build alone is minutes at the testnet k
+            outer = self._snark(agg_cls, agg_pk, k_agg, agg_args, KeccakTranscript(), hb)
         hb()
         return outer, agg_cls.get_instances(agg_args, self.spec)
 
@@ -241,7 +251,7 @@ class ProverState:
                 if self.compress:
                     return self._compressed(circuit, pk, k, agg_cls, agg_pk, k_agg, args,
                                             heartbeat=hb)
-                proof = self._snark(circuit, pk, k, args)
+                proof = self._snark(circuit, pk, k, args, heartbeat=hb)
             except Exception as exc:
                 failure = device_failure(exc)
                 if failure is None:
