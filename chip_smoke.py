@@ -18,6 +18,16 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
   K4       the whole NTT (one launch per pass) at 2^23, at a [4, 2^21]
            batch and at 2^6: equal to the plain stage loop; timed at 2^23
            and at the advice commitments' batch, [16, 2^21]
+  K7       the 8-bit-limb Montgomery product (its two constant-operand
+           products on the tensor cores) at 2^23, 2^16 + 1 and 1 elements,
+           Fr and Fq: equal to K3 and to its plain version (Fq's 2^23 on its
+           2^18 prefix); timed at 2^23 beside K3
+  K8       the DFT-matrix short transform on [4096, 2^6], [1024, 2^10] and
+           [1024, 2^12] rows: equal to its plain version and to K4 on the
+           same rows; the four-step NTT with K4's stages at 2^20 and 2^24 and
+           with K8 at 2^20 and [16, 2^18], each equal to K4's radix-2
+           transform; all timed, and torch._int_mm on an int8 stand-in of
+           the 2^20 leg's GEMM shape
   K1       bucket sums at n = 2^21, c from default_window_pallas, for
            random, all-equal and all-zero scalars: equal after affine
            normalization on the 2^18 prefix, the committee's MSM size (the
@@ -93,7 +103,12 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
            under the Poseidon transcript (the proof stage 2 takes) and
            verified under that key; the instances equal get_instances and
            differ from the default args', a flipped instance fails; the
-           prove's launch count of every kernel on its path must be > 0
+           prove's launch count of every kernel on its path must be > 0;
+           then the same witness, key and blinding seed proved under
+           SPECTRE_NTT_MODE=fourstep, SPECTRE_NTT_KERNEL=matmul and
+           SPECTRE_FIELD_IMPL=mxu (every transform's legs K8, every product
+           K7): the proof equal to the first byte for byte and verified, K7
+           and K8 launched, K3 and K4 not
   step     the StepCircuit at build/sync_step_testnet_21.pinning.json (512
            pubkeys, k=21, 16 advice, 3 lookup columns, lookup_bits 18) under
            the boot's key: the acquired step args' witness (Pinning.check),
@@ -244,16 +259,34 @@ FIXED_ONLY = ("K1_fixed", "K1c_fixed_walk")
 # glv+signed do not launch K2 (the slice runs it only to make the SRS), the
 # fixed mode launches it for its window table and cross-window fold
 PROVE_KERNELS = (*SHARED_K1, "K2b_bucket_aggregate", "K3_mont_mul", "K4_ntt")
-MODE_KERNELS = {"vanilla": PROVE_KERNELS, "glv+signed": PROVE_KERNELS,
-                "fixed": (*FIXED_K1, "K2_padd", "K2b_bucket_aggregate", "K3_mont_mul",
-                          "K4_ntt")}
+# the knob sets a circuit's proof is repeated under (the same witness, key
+# and blinding seed: equal bytes), by name: the environment each sets, the
+# kernels its prove must launch and those it must not
+MXU = "fourstep+matmul+mxu"
+MODES = {
+    "glv+signed": dict(env={"SPECTRE_MSM_MODE": "glv+signed"}, launched=PROVE_KERNELS,
+                       absent=()),
+    "fixed": dict(env={"SPECTRE_MSM_MODE": "fixed"},
+                  launched=(*FIXED_K1, "K2_padd", "K2b_bucket_aggregate", "K3_mont_mul",
+                            "K4_ntt"), absent=("K1b_bucket_scatter", "K1c_bucket_walk")),
+    MXU: dict(env={"SPECTRE_NTT_MODE": "fourstep", "SPECTRE_NTT_KERNEL": "matmul",
+                   "SPECTRE_FIELD_IMPL": "mxu"},
+              launched=(*SHARED_K1, "K2b_bucket_aggregate", "K7_mont_mul_mxu",
+                        "K8_ntt_dft_matmul"), absent=("K3_mont_mul", "K4_ntt")),
+}
 STEP_MODES = ("glv+signed", "fixed")
+COMMITTEE_MODES = (MXU,)
+# kernels whose path is the committee prove under the MXU knobs
+MXU_ONLY = ("K7_mont_mul_mxu", "K8_ntt_dft_matmul")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 at
 # 3.35 TB/s; 67 TFLOP/s of float32 FMA outside the tensor cores, i.e. 33.5 T
 # FMA/s, of which the integer pipe issues 32-bit multiply-adds at half rate.
 HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_S = 16.75e12
+# the tensor cores' dense int8 rate, 1,979 T operations/s, a multiply-add
+# counted as two
+TC_U8_MAC_PER_S = 1979e12 / 2
 # 32-bit multiply-adds per 256-bit Montgomery product: 64 limb products of
 # a*b and 64 of m*p, each a low and a high half, plus m itself
 IMAD_PER_MONT = 257
@@ -274,9 +307,12 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def bound_ms(nbytes: float, imads: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, imads: float, tc_macs: float = 0) -> tuple[float, str]:
+    """The least time for the work: bytes at the memory rate, or the 32-bit
+    multiply-adds at the integer rate, or the u8 multiply-adds at the
+    tensor cores' rate, whichever is longest (the units run side by side)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = imads / IMAD_PER_S * 1e3
+    t_ops = max(imads / IMAD_PER_S, tc_macs / TC_U8_MAC_PER_S) * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -459,17 +495,27 @@ def device_profile(torch, fn, reps: int = 2) -> tuple[float, float]:
 
 
 @contextlib.contextmanager
-def msm_mode(mode: str):
-    """SPECTRE_MSM_MODE=mode for the block's duration."""
-    old = os.environ.get("SPECTRE_MSM_MODE")
-    os.environ["SPECTRE_MSM_MODE"] = mode
+def knobs(env: dict):
+    """The environment knobs env (SPECTRE_MSM_MODE, SPECTRE_NTT_MODE,
+    SPECTRE_NTT_KERNEL, SPECTRE_FIELD_IMPL) for the block's duration; the
+    field product, which field_ops reads from the environment at import,
+    follows SPECTRE_FIELD_IMPL through enable_mxu."""
+    from spectre_tpu_torch.ops import field_ops as F
+
+    old = {key: os.environ.get(key) for key in env}
+    mxu = F.mxu_enabled()
+    os.environ.update(env)
+    if "SPECTRE_FIELD_IMPL" in env:
+        F.enable_mxu(env["SPECTRE_FIELD_IMPL"] == "mxu")
     try:
         yield
     finally:
-        if old is None:
-            os.environ.pop("SPECTRE_MSM_MODE")
-        else:
-            os.environ["SPECTRE_MSM_MODE"] = old
+        for key, value in old.items():
+            if value is None:
+                os.environ.pop(key)
+            else:
+                os.environ[key] = value
+        F.enable_mxu(mxu)
 
 
 def resident(torch, top: int = 6) -> str:
@@ -646,6 +692,115 @@ def geometry_kernels(torch, dev, gen, seed: int, logn: int, batch: int) -> dict:
     del x, coeffs, tables, tw, tw_ext
     torch.cuda.empty_cache()
     return out
+
+
+def mxu_product_phase(torch, dev, gen, k3_ms: float) -> dict:
+    """K7, the 8-bit-limb Montgomery product, at 2^23, 2^16 + 1 and 1
+    elements over Fr and Fq: equal to K3 limb for limb, and to its plain
+    version (whole, but Fq's 2^23 on its 2^18 prefix), also with one b row;
+    timed at 2^23 beside K3. Returns K7's record."""
+    from spectre_tpu_torch.ops import field_mxu as MX, field_ops as F
+
+    n_big = 1 << 23
+    err, out = 0, {}
+    for ctx in (F.fr_ctx(), F.fq_ctx()):
+        for n in (n_big, (1 << 16) + 1, 1):
+            r2 = F.const_raw(ctx.r2, dev)
+            a = F.mont_mul_cios(ctx, random_fr(torch, n, gen, dev), r2)
+            b = F.mont_mul_cios(ctx, random_fr(torch, n, gen, dev), r2)
+            got = MX.mont_mul(ctx, a, b)
+            e = limb_err(F, got, F.mont_mul_cios(ctx, a, b))
+            m = n if n < n_big or ctx.field_id == F.FR_ID else 1 << 18
+            want, plain_ms = timed_once(torch, lambda: MX.mont_mul_mxu_plain(ctx, a[:m], b[:m]))
+            e = max(e, limb_err(F, got[:m], want))
+            if n == (1 << 16) + 1:
+                e = max(e, limb_err(F, MX.mont_mul(ctx, a, b[:1]),
+                                    MX.mont_mul_mxu_plain(ctx, a, b[:1])))
+            require(e == 0, f"K7 equals K3 and its plain version ({ctx.name}, {n} elements)")
+            err = max(err, e)
+            if n == n_big:
+                out[ctx.name] = dict(ms=time_ms(torch, lambda: MX.mont_mul(ctx, a, b), reps=10),
+                                     plain_ms=plain_ms, plain_elements=m)
+            del a, b, got, want
+    bm, by = bound_ms(n_big * 3 * 32, n_big * 128, n_big * 3 * 32 * 32)
+    fr = out["bn254_fr"]
+    log(f"K7: equal to K3 and to its plain version (Fr, Fq; 2^23, 2^16 + 1, 1); 2^23 Fr "
+        f"{fr['ms']:.3f} ms (K3 {k3_ms:.3f} ms; plain {fr['plain_ms']:.1f} ms; bound {bm:.3f} "
+        f"ms by {by}), Fq {out['bn254_fq']['ms']:.3f} ms")
+    return dict(ms=fr["ms"], plain_ms=fr["plain_ms"], bound_ms=bm, bound_by=by,
+                max_abs_err=err, shape=f"{n_big} elements (Fr)", k3_ms=k3_ms,
+                fq_ms=out["bn254_fq"]["ms"],
+                bound_note="bytes: two operands read and one written, 96 a product; "
+                           "operations: 128 32-bit multiply-adds (t = a b) and 3,072 u8 "
+                           "tensor-core multiply-adds (the two Toeplitz products) a product",
+                library_call="none: no torch op computes a Montgomery product mod p")
+
+
+def dft_phase(torch, dev, gen) -> dict:
+    """K8, the DFT-matrix short transform: over [4096, 2^6], [1024, 2^10]
+    (the committee's 2^20 four-step legs) and [1024, 2^12] rows, each equal
+    to its plain version (whole) and to K4 on the same rows, both timed;
+    the four-step transform (SPECTRE_NTT_MODE=fourstep) with K4's stages at
+    2^20 and 2^24 and with K8 at 2^20 and [16, 2^18], each equal to K4's
+    radix-2 transform, all timed; torch._int_mm on an int8 stand-in of the
+    committee leg's GEMM shape as the library yardstick. Returns K8's
+    record."""
+    from spectre_tpu_torch.fields import bn254
+    from spectre_tpu_torch.ops import field_ops as F, ntt as N
+
+    fr = F.fr_ctx()
+    tables = N.Twiddles(dev)
+    err, short = 0, {}
+    for logn, rows in ((6, 4096), (10, 1024), (12, 1024)):
+        n, w = 1 << logn, bn254.fr_root_of_unity(logn)
+        x = F.to_mont(fr, random_fr(torch, rows * n, gen, dev)).reshape(rows, n, 4)
+        w8 = tables.dft_matrix8(logn, w)
+        tw = tables.twiddles(w, n)
+        got = N.dft_matmul(x, w8)
+        want, plain_ms = timed_once(torch, lambda: N.dft_matmul_plain(x, w8))
+        e = max(limb_err(F, got, N.ntt_passes(x, tw)), limb_err(F, got, want))
+        require(e == 0, f"K8 equals its plain version and K4 on [{rows}, 2^{logn}]")
+        err = max(err, e)
+        bm, by = bound_ms(2 * rows * n * 32 + n * n * 32, 0, rows * 32 * 32 * n * n)
+        short[f"[{rows}, 2^{logn}]"] = dict(
+            ms=time_ms(torch, lambda: N.dft_matmul(x, w8), reps=3),
+            k4_ms=time_ms(torch, lambda: N.ntt_passes(x, tw), reps=3),
+            plain_ms=plain_ms, bound_ms=bm, bound_by=by)
+        del x, got, want
+    fourstep = {}
+    for logn, batch, kernel in ((20, 1, "stages"), (24, 1, "stages"), (20, 1, "matmul"),
+                                (18, 16, "matmul")):
+        w = bn254.fr_root_of_unity(logn)
+        x = F.to_mont(fr, random_fr(torch, batch << logn, gen, dev)).reshape(batch, 1 << logn, 4)
+        want = N.ntt(x, w, tables, mode="radix2")
+        e = limb_err(F, N.ntt(x, w, tables, mode="fourstep", kernel=kernel), want)
+        require(e == 0, f"the four-step NTT ({kernel}) equals K4's radix-2 at "
+                        f"[{batch}, 2^{logn}]")
+        err = max(err, e)
+        fourstep[f"{kernel} [{batch}, 2^{logn}]"] = dict(
+            ms=time_ms(torch, lambda: N.ntt(x, w, tables, mode="fourstep", kernel=kernel),
+                       reps=3),
+            radix2_ms=time_ms(torch, lambda: N.ntt(x, w, tables, mode="radix2"), reps=3))
+        del x, want
+    # one torch call of the committee leg's GEMM shape: [32 x 1024 rows,
+    # 1024 points] x [1024 points, 32 x 1024 (point, limb)] of int8
+    m_, k_ = 32 * 1024, 1024
+    a8 = torch.randint(-128, 128, (m_, k_), dtype=torch.int8, device=dev, generator=gen)
+    b8 = torch.randint(-128, 128, (m_, k_), dtype=torch.int8, device=dev, generator=gen)
+    library_ms = time_ms(torch, lambda: torch._int_mm(a8, b8.t()), reps=3)
+    del a8, b8
+    torch.cuda.empty_cache()
+    leg = short["[1024, 2^10]"]
+    log(f"K8: equal to its plain version and K4 on {list(short)}; the four-step NTT equal to "
+        f"radix-2 on {list(fourstep)}; " + json.dumps({**short, **fourstep})
+        + f"; torch._int_mm stand-in {library_ms:.3f} ms")
+    return dict(ms=leg["ms"], plain_ms=leg["plain_ms"], bound_ms=leg["bound_ms"],
+                bound_by=leg["bound_by"], max_abs_err=err, library_ms=library_ms,
+                library_call="torch._int_mm on an int8 stand-in of the GEMM shape "
+                             "[32768, 1024] x [1024, 32768] (no torch op computes the "
+                             "transform)",
+                shape="[1024, 2^10] (a 2^20 four-step leg)", k4_ms=leg["k4_ms"],
+                short=short, fourstep=fourstep)
 
 
 def k1_fixed_phase(torch, dev, gen, pts) -> dict:
@@ -865,7 +1020,7 @@ def k6_proofs(device: str, seed: int) -> dict:
     for mode in ("vanilla", "fixed"):
         r = random.Random(seed)
         KL.reset_launch_counts()
-        with msm_mode(mode):
+        with knobs({"SPECTRE_MSM_MODE": mode}):
             proofs[mode] = prove(pk6, s6, fc.assignment, device=device,
                                  blinding_rng=lambda: r.randrange(bn254.R))
     M.clear_tables()
@@ -1152,15 +1307,16 @@ def circuit_path(torch, dev, seed: int, circuit, k: int, keyed: dict, prove_args
     verify under that key. shape(cfg, args) is the tuple the pinned shape
     must give, with describe as its name; flip, the instance flipped for
     the negative verify; check_args(spec, args), an extra check of
-    prove_args; modes, the MSM modes whose proofs of the same witness, key
-    and blinding seed must equal the vanilla proof; transcript_cls, the
+    prove_args; modes, the names of the knob sets (MODES) whose proofs of
+    the same witness, key and blinding seed must equal the default one;
+    transcript_cls, the
     prove's and the verifier's transcript (default Blake2b). Returns the
     phase seconds, the prove's phases, peak memory and launch counts, per
     mode the same of its prove, and the proof with its vk, SRS, instances
     and args."""
     from spectre_tpu_torch import spec as SPEC
     from spectre_tpu_torch.fields import bn254
-    from spectre_tpu_torch.ops import kernel_lib as KL, msm as M
+    from spectre_tpu_torch.ops import kernel_lib as KL, msm as M, ntt as N
     from spectre_tpu_torch.plonk.prover import PhaseTimer
     from spectre_tpu_torch.plonk.transcript import Blake2bTranscript
 
@@ -1241,6 +1397,7 @@ def circuit_path(torch, dev, seed: int, circuit, k: int, keyed: dict, prove_args
     by_mode = {}
     for mode in modes:
         M.clear_tables()
+        N.clear_tables()
         torch.cuda.empty_cache()
         timer_m = PhaseTimer(torch.device(dev))
         r = random.Random(seed)
@@ -1249,34 +1406,37 @@ def circuit_path(torch, dev, seed: int, circuit, k: int, keyed: dict, prove_args
         KL.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        with msm_mode(mode):
+        with knobs(MODES[mode]["env"]):
             proof_m = circuit.prove(pk, srs, args, spec, device=dev, ctx=ctx,
                                     blinding_rng=lambda: r.randrange(bn254.R), timer=timer_m,
                                     transcript=transcript_cls())
-        torch.cuda.synchronize()
-        prove_s = time.perf_counter() - t0
-        counts_m = KL.launch_counts()
-        peak_m = torch.cuda.max_memory_allocated() / 2 ** 30
-        table_bytes = M.lru_stats()["bytes"]
-        require(proof_m == proof, f"the {mode} {name} proof equals the vanilla proof byte for byte")
-        require(circuit.verify(pk.vk, srs, instances, proof_m, device=dev,
-                               transcript_cls=transcript_cls),
-                f"the {mode} {name} proof verifies")
+            torch.cuda.synchronize()
+            prove_s = time.perf_counter() - t0
+            counts_m = KL.launch_counts()
+            peak_m = torch.cuda.max_memory_allocated() / 2 ** 30
+            table_bytes = {"msm": M.lru_stats()["bytes"], "ntt": N.lru_stats()["bytes"]}
+            require(proof_m == proof,
+                    f"the {mode} {name} proof equals the default proof byte for byte")
+            require(circuit.verify(pk.vk, srs, instances, proof_m, device=dev,
+                                   transcript_cls=transcript_cls),
+                    f"the {mode} {name} proof verifies")
         require(M.COUNTERS["msm_fixed_degraded"] == degraded,
                 f"no fixed-base degrade in the {mode} prove")
-        for kernel in MODE_KERNELS[mode]:
+        for kernel in MODES[mode]["launched"]:
             require(counts_m[kernel] > 0, f"{kernel} launched in the {mode} {name} prove")
+        for kernel in MODES[mode]["absent"]:
+            require(counts_m[kernel] == 0, f"{kernel} not launched in the {mode} {name} prove")
         if mode == "fixed":
-            require(counts_m["K1c_fixed_walk"] == counts_m["K1_fixed"]
-                    and counts_m["K1c_bucket_walk"] == 0,
+            require(counts_m["K1c_fixed_walk"] == counts_m["K1_fixed"],
                     f"the fixed walk launched once a fixed-form MSM in the {name} prove")
-        log(f"  {mode}: prove {prove_s:.3f} s, equal to the vanilla proof, verified; phases "
+        log(f"  {mode}: prove {prove_s:.3f} s, equal to the default proof, verified; phases "
             + json.dumps({key: round(v, 3) for key, v in timer_m.seconds.items()})
-            + f"; peak {peak_m:.1f} GiB, tables {table_bytes} bytes; launches "
+            + f"; peak {peak_m:.1f} GiB, tables {json.dumps(table_bytes)} bytes; launches "
             + json.dumps({key: v for key, v in counts_m.items() if v}))
         by_mode[mode] = dict(prove_s=prove_s, prove_phases=timer_m.seconds, peak_gib=peak_m,
                              table_bytes=table_bytes, launches=counts_m)
     M.clear_tables()
+    N.clear_tables()
     return dict(phases=phases, prove_phases=timer.seconds,
                 peak_gib=peak, keygen_launches=keygen_counts, prove_launches=prove_counts,
                 modes=by_mode, proof=proof, vk=pk.vk, srs=srs, instances=instances, args=args,
@@ -1296,7 +1456,7 @@ def committee_path(torch, dev, seed: int, keyed: dict, acquired) -> dict:
         acquired["rotation_args"],
         lambda cfg, a: (cfg.k, cfg.num_advice, cfg.num_sha_slots,
                         len(a.pubkeys_compressed)) == (COMMITTEE_K, 22, 2070, 512),
-        "512 pubkeys, k=18, 22 advice, 2070 SHA slots", flip=0,
+        "512 pubkeys, k=18, 22 advice, 2070 SHA slots", flip=0, modes=COMMITTEE_MODES,
         transcript_cls=PoseidonTranscript)
 
 
@@ -2488,10 +2648,12 @@ def run(args, t_start: float, pool, fixture_dir: str, service_dir: str) -> int:
     sass = KL.sass_opcodes(KL._target("field_kernels"))
     probe = next(v for k, v in sass.items() if "mont_mul_probe_kernel" in k)
     regs = KL.ptxas_registers(os.path.join(KL.BUILD_DIR, "msm_kernels.log"))
-    regs.update(KL.ptxas_registers(os.path.join(KL.BUILD_DIR, "field384_kernels.log")))
+    for lib in ("field384_kernels", "field_mxu_kernels", "ntt_matmul_kernels"):
+        regs.update(KL.ptxas_registers(os.path.join(KL.BUILD_DIR, f"{lib}.log")))
     reg_of = {rec: next(v for k, v in regs.items() if KL.KERNELS[rec].symbol in k)
               for rec in ("K1c_bucket_walk", "K1c_fixed_walk", "K2_padd",
-                          "K2b_bucket_aggregate", "K6_g1_decompress")}
+                          "K2b_bucket_aggregate", "K6_g1_decompress", "K7_mont_mul_mxu",
+                          "K8_ntt_dft_matmul")}
     top = sorted(probe.items(), key=lambda kv: -kv[1])[:8]
     log(f"sass: one Montgomery product (probe kernel, its 16 loads and 8 stores "
         f"included) {sum(probe.values())} instructions, {dict(top)}; registers a thread "
@@ -2583,6 +2745,15 @@ def run(args, t_start: float, pool, fixture_dir: str, service_dir: str) -> int:
         f"{k4_bound[1]}); [16, 2^21] {k4b_ms:.3f} ms (bound {k4b_bound[0]:.3f} ms by "
         f"{k4b_bound[1]})")
     del a3, b3, x4
+
+    # --- K7, K8 -------------------------------------------------------------
+    mark("K7")
+    records["K7_mont_mul_mxu"] = mxu_product_phase(torch, dev, gen, k3_ms)
+    torch.cuda.empty_cache()
+    mark("K8")
+    records["K8_ntt_dft_matmul"] = dft_phase(torch, dev, gen)
+    N.clear_tables()
+    torch.cuda.empty_cache()
 
     # --- K1 ------------------------------------------------------------------
     mark("K1")
@@ -2911,9 +3082,13 @@ def run(args, t_start: float, pool, fixture_dir: str, service_dir: str) -> int:
     for name, info in KL.KERNELS.items():
         rec = dict(records[name])
         by_mode = {mode: v["launches"][name] for mode, v in step["modes"].items()}
+        committee_by_mode = {mode: v["launches"][name]
+                             for mode, v in committee["modes"].items()}
         # the fixed form's path is the fixed-mode step prove, K6's the
-        # acquisition, every other kernel's the slice
+        # acquisition, K7's and K8's the committee prove under the MXU
+        # knobs, every other kernel's the slice
         launches = (by_mode["fixed"] if name in FIXED_ONLY else
+                    committee_by_mode[MXU] if name in MXU_ONLY else
                     acquired["launches"][name] if name == "K6_g1_decompress" else counts[name])
         kernels.append({
             "name": name, "route": "cuda", "source": info.source,
@@ -2921,6 +3096,7 @@ def run(args, t_start: float, pool, fixture_dir: str, service_dir: str) -> int:
             "acquire_launches": acquired["launches"][name],
             "step_launches_by_mode": by_mode,
             "committee_launches": committee["prove_launches"][name],
+            "committee_launches_by_mode": committee_by_mode,
             "committee_keygen_launches": committee["keygen_launches"][name],
             "step_launches": step["prove_launches"][name],
             "step_keygen_launches": step["keygen_launches"][name],

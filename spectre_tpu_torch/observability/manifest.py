@@ -43,12 +43,14 @@ MANIFEST_SUFFIX = ".manifest.json"
 # the env knobs that shape a prove; recorded even when unset (null) so
 # two manifests always diff key-for-key
 ENV_KNOBS = (
-    "SPECTRE_MSM_MODE", "SPECTRE_MSM_WINDOW", "SPECTRE_MSM_TABLE_MB",
-    "SPECTRE_JOB_QUEUE_DEPTH", "SPECTRE_MEM_WATERMARK_MB",
+    "SPECTRE_MSM_MODE", "SPECTRE_NTT_MODE", "SPECTRE_NTT_KERNEL",
+    "SPECTRE_MSM_WINDOW", "SPECTRE_MSM_TABLE_MB", "SPECTRE_NTT_TABLE_MB",
+    "SPECTRE_FIELD_IMPL", "SPECTRE_JOB_QUEUE_DEPTH", "SPECTRE_MEM_WATERMARK_MB",
     "SPECTRE_SELF_VERIFY", "SPECTRE_FAULT_PLAN", "CUDA_VISIBLE_DEVICES",
 )
 
 MSM = "spectre_tpu_torch.ops.msm"
+NTT = "spectre_tpu_torch.ops.ntt"
 
 
 # -- per-job event collector (thread-local, like the kernel capture) -------
@@ -102,10 +104,11 @@ def env_snapshot() -> dict:
 
 
 def resolved_modes() -> dict:
-    """The active MSM mode and the fixed-base degrade counter
-    (`ops.msm.COUNTERS`), read through sys.modules: an ops module that was
-    never loaded (a pure service-layer job) reads as None."""
-    out: dict = {"msm": None, "msm_fixed_degraded": None}
+    """The active MSM mode, the fixed-base degrade counter
+    (`ops.msm.COUNTERS`) and the active NTT mode (`ops.ntt.ntt_mode()`),
+    read through sys.modules: an ops module that was never loaded (a pure
+    service-layer job) reads as None."""
+    out: dict = {"msm": None, "msm_fixed_degraded": None, "ntt": None}
     msm = sys.modules.get(MSM)
     if msm is not None:
         try:
@@ -113,22 +116,31 @@ def resolved_modes() -> dict:
             out["msm_fixed_degraded"] = msm.COUNTERS["msm_fixed_degraded"]
         except Exception:
             pass
+    ntt = sys.modules.get(NTT)
+    if ntt is not None:
+        try:
+            out["ntt"] = ntt.ntt_mode()
+        except Exception:
+            pass
     return out
 
 
 def lru_snapshot() -> dict:
-    """Point-in-time stats of the MSM fixed-base table LRU
-    (`ops.msm.lru_stats()`; None when the module is not loaded);
-    `lru_delta` turns two of these into the per-job churn the manifest
-    stores."""
-    stats = None
-    mod = sys.modules.get(MSM)
-    if mod is not None:
-        try:
-            stats = mod.lru_stats()
-        except Exception:
-            pass
-    return {"msm": stats}
+    """Point-in-time stats of the MSM fixed-base table LRU and the NTT
+    table LRU (`lru_stats()` of ops.msm and ops.ntt; None when the module
+    is not loaded); `lru_delta` turns two of these into the per-job churn
+    the manifest stores."""
+    out: dict = {}
+    for name, modname in (("msm", MSM), ("ntt", NTT)):
+        stats = None
+        mod = sys.modules.get(modname)
+        if mod is not None:
+            try:
+                stats = mod.lru_stats()
+            except Exception:
+                pass
+        out[name] = stats
+    return out
 
 
 _LRU_COUNTERS = ("hits", "builds", "evictions", "recomputes")
@@ -138,7 +150,7 @@ def lru_delta(before: dict | None, after: dict | None) -> dict:
     """Per-cache counter deltas across a job, plus the cache's final
     occupancy. A cache absent at either end reads as None."""
     out: dict = {}
-    for name in ("msm",):
+    for name in ("msm", "ntt"):
         b = (before or {}).get(name)
         a = (after or {}).get(name)
         if a is None:
@@ -244,7 +256,8 @@ def render(man: dict) -> str:
             f"{k}={v}" for k, v in launches.items()))
     modes = man.get("modes") or {}
     lines.append(f"  modes         : msm={modes.get('msm') or '-'}"
-                 f"  fixed degrades={modes.get('msm_fixed_degraded')}")
+                 f"  fixed degrades={modes.get('msm_fixed_degraded')}"
+                 f"  ntt={modes.get('ntt') or '-'}")
     phases = man.get("phase_seconds") or {}
     if phases:
         lines.append("  phases:")
@@ -259,7 +272,7 @@ def render(man: dict) -> str:
             lines.append(f"      {ev.get('kind')}"
                          + (f" ({detail})" if detail else ""))
     lru = man.get("lru_delta") or {}
-    for name in ("msm",):
+    for name in ("msm", "ntt"):
         d = lru.get(name)
         if d:
             lines.append(

@@ -85,16 +85,20 @@ def _render_histogram(out: list, name: str, h) -> None:
 
 
 def _lru_stats() -> list[tuple[str, dict]]:
-    """(cache_label, stats) of the MSM fixed-base table LRU when ops.msm is
-    already imported (sys.modules only: a scrape of an idle service imports
-    nothing)."""
-    m = sys.modules.get("spectre_tpu_torch.ops.msm")
-    if m is None:
-        return []
-    try:
-        return [("msm", m.lru_stats())]
-    except Exception:
-        return []
+    """(cache_label, stats) of each derived-table LRU whose module is
+    already imported: the MSM's fixed-base tables, the NTT's twiddle,
+    coset and DFT tables (sys.modules only: a scrape of an idle service
+    imports nothing)."""
+    items = []
+    for cache in ("msm", "ntt"):
+        m = sys.modules.get(f"spectre_tpu_torch.ops.{cache}")
+        if m is None:
+            continue
+        try:
+            items.append((cache, m.lru_stats()))
+        except Exception:
+            pass
+    return items
 
 
 def render(health=None, jobs=None, registry=None) -> str:
@@ -263,7 +267,7 @@ def render(health=None, jobs=None, registry=None) -> str:
         for key in counter_keys:
             mn = f"spectre_table_lru_{key}_total"
             _family(out, mn, "counter",
-                    f"Derived-table LRU {key} (msm fixed-base tables)")
+                    f"Derived-table LRU {key} (msm fixed-base, ntt tables)")
             for cache, st in lru:
                 _sample(out, mn, {"cache": cache}, st.get(key, 0))
         for key, help_ in (("bytes", "Derived-table LRU occupancy (bytes)"),

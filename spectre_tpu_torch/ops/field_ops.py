@@ -21,11 +21,18 @@ is 257 32-bit multiply-adds against 96 bytes (two operands read, one
 written), 2.7 per byte, below the card's 5 per byte (16.75 T/s over
 3.35 TB/s); the design keeps every intermediate in registers so nothing but
 those 96 bytes crosses to memory.
+
+`mont_mul` dispatches, as the reference's does (`ops/field_ops.py:172`):
+K3 by default, the 8-bit-limb product of ops/field_mxu.py (K7, its
+constant-operand products on the tensor cores) when SPECTRE_FIELD_IMPL=mxu
+was set at import or `enable_mxu(True)` was called. Both fields go
+through it, and both products give the same canonical values.
 """
 
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 import torch
@@ -273,12 +280,42 @@ def mont_mul_plain(ctx: FieldCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Ten
     return out.reshape(a.shape)
 
 
+_USE_MXU = False
+
+
 def mont_mul(ctx: FieldCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Montgomery product a * b * R^-1 mod p, elementwise.
 
     a: [..., 4]; b: [m, 4] with m dividing a's element count, read at
     (flat index mod m) — m = 1 scales by one value, m = n multiplies every
-    [n, 4] slice of a batch by the same vector. K3 for a CUDA tensor, the
+    [n, 4] slice of a batch by the same vector. The CIOS product
+    (`mont_mul_cios`: K3, or its plain version for a CPU tensor) by
+    default; the 8-bit-limb product (`field_mxu.mont_mul`: K7, or its
+    plain version) after `enable_mxu(True)` or with SPECTRE_FIELD_IMPL=mxu
+    set at import (the reference's dispatch, `ops/field_ops.py:172`). The
+    flag is read per call. Both give the same canonical values."""
+    if _USE_MXU:
+        from . import field_mxu
+        return field_mxu.mont_mul(ctx, a, b)
+    return mont_mul_cios(ctx, a, b)
+
+
+def enable_mxu(on: bool = True) -> None:
+    """Route `mont_mul` through the 8-bit-limb product (see above)."""
+    global _USE_MXU
+    _USE_MXU = bool(on)
+
+
+def mxu_enabled() -> bool:
+    return _USE_MXU
+
+
+if os.environ.get("SPECTRE_FIELD_IMPL") == "mxu":
+    enable_mxu()
+
+
+def mont_mul_cios(ctx: FieldCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K3, the CIOS Montgomery product (arguments as `mont_mul`); the
     plain version for a CPU tensor."""
     b = b.reshape(-1, 4)
     n = a.numel() // 4

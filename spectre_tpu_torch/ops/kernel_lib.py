@@ -4,7 +4,8 @@ The sources live in `spectre_tpu_torch/csrc/`: `bn254.cuh` (the shared
 field and curve arithmetic), `bucket.cuh`, `aggregate.cuh` and `ntt.cuh`
 (the per-block bodies of K1, K2b and K4), `field384.cuh` (BLS12-381 Fq and
 K6's lane-group body) and one `.cu` file per library with a plain C
-interface. At first use each library is compiled by `nvcc` for `sm_90a` into
+interface (K7 and K8, the tensor-core product and DFT, each in its own).
+At first use each library is compiled by `nvcc` for `sm_90a` into
 `build/torch_kernels/` at the repository root (a directory git ignores),
 every source in its own `nvcc` process, all started together, and loaded
 with ctypes. The file name carries a hash of the sources, so an edited
@@ -62,6 +63,12 @@ LIBRARIES = {
     "field384_kernels": ("field384_kernels.cu", {
         "spt_g1_sqrt": [_VP, _VP, _VP, _LONG, _VP],
     }),
+    "field_mxu_kernels": ("field_mxu_kernels.cu", {
+        "spt_mont_mul_mxu": [_VP, _VP, _LONG, _VP, _LONG, _INT, _VP],
+    }),
+    "ntt_matmul_kernels": ("ntt_matmul_kernels.cu", {
+        "spt_ntt_dft_matmul": [_VP, _VP, _VP, _LONG, _INT, _VP],
+    }),
 }
 HEADERS = ("aggregate.cuh", "bn254.cuh", "bucket.cuh", "field384.cuh", "ntt.cuh")
 
@@ -114,6 +121,12 @@ KERNELS = {k.name: k for k in (
     KernelInfo("K6_g1_decompress", "spectre_tpu_torch/csrc/field384_kernels.cu",
                "spectre_tpu/ops/field384.py:152 _decompress_fn (XLA, no Pallas kernel)",
                "g1_sqrt_kernel"),
+    KernelInfo("K7_mont_mul_mxu", "spectre_tpu_torch/csrc/field_mxu_kernels.cu",
+               "spectre_tpu/ops/field_mxu.py:145 mont_mul (XLA, no Pallas kernel)",
+               "mont_mul_mxu_kernel"),
+    KernelInfo("K8_ntt_dft_matmul", "spectre_tpu_torch/csrc/ntt_matmul_kernels.cu",
+               "spectre_tpu/ops/ntt.py:366 _ntt_dft_matmul (XLA, no Pallas kernel)",
+               "dft_matmul_kernel"),
 )}
 
 

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from spectre_tpu_torch.fields import bn254
-from spectre_tpu_torch.ops import ec, field_ops as F, kernel_lib as KL
+from spectre_tpu_torch.ops import ec, field_mxu as MX, field_ops as F, kernel_lib as KL
 from spectre_tpu_torch.ops import msm as M, msm_kernels as MK, ntt as N
 
 pytestmark = pytest.mark.cuda
@@ -62,6 +62,74 @@ def test_k4_ntt(dev, logn, batch):
     assert KL.KERNELS["K4_ntt"].launches == before + len(N.ntt_plan(logn))
     assert torch.equal(got, N.ntt_stages_plain(x, tw, tables))
     assert torch.equal(got, N.ntt_passes_plain(x, tw))
+
+
+def test_k4_splits_a_batch_above_its_grid(dev):
+    """A batch of more than MAX_BATCH polynomials (the four-step's rows at
+    2^24 from 16 columns on) runs in launches of at most MAX_BATCH."""
+    logn, batch = 2, N.MAX_BATCH + 3
+    x = torch.randint(0, 1 << 62, (batch, 1 << logn, 4), dtype=torch.int64, device=dev)
+    x[..., 3] &= (1 << 61) - 1                                  # below 2^253 < r
+    tables = N.Twiddles(dev)
+    tw = tables.twiddles(bn254.fr_root_of_unity(logn), 1 << logn)
+    before = KL.KERNELS["K4_ntt"].launches
+    got = N.ntt_passes(x, tw)
+    assert KL.KERNELS["K4_ntt"].launches == before + 2 * len(N.ntt_plan(logn))
+    assert torch.equal(got, N.ntt_passes_plain(x, tw))
+
+
+@pytest.mark.parametrize("field", ["fr", "fq"])
+@pytest.mark.parametrize("n", [1, 63, 513])
+def test_k7_mont_mul_mxu(dev, field, n):
+    """The tensor-core product against its plain version and K3, at odd
+    element counts (part-filled warps and m-tiles), b whole and of one row."""
+    ctx = F.fr_ctx() if field == "fr" else F.fq_ctx()
+    a, b = _fe(ctx, n, dev, 11 + n), _fe(ctx, n, dev, 12 + n)
+    before = KL.KERNELS["K7_mont_mul_mxu"].launches
+    got = MX.mont_mul(ctx, a, b)
+    assert KL.KERNELS["K7_mont_mul_mxu"].launches == before + 1
+    assert torch.equal(got, MX.mont_mul_mxu_plain(ctx, a, b))
+    assert torch.equal(got, F.mont_mul_cios(ctx, a, b))
+    assert torch.equal(MX.mont_mul(ctx, a, b[:1]), MX.mont_mul_mxu_plain(ctx, a, b[:1]))
+
+
+@pytest.mark.parametrize("logn,rows", [(1, 63), (4, 513), (6, 63), (10, 3), (12, 2)])
+def test_k8_dft_matmul(dev, logn, rows):
+    """The tensor-core DFT against its plain version and K4 on the same
+    rows, one launch, at odd row counts (part-filled row tiles) and at
+    lengths below one point tile and one staged K chunk."""
+    n = 1 << logn
+    x = _fe(F.fr_ctx(), rows * n, dev, 13 + logn).reshape(rows, n, 4)
+    tables = N.Twiddles(dev)
+    w = bn254.fr_root_of_unity(logn)
+    before = KL.KERNELS["K8_ntt_dft_matmul"].launches
+    got = N.dft_matmul(x, tables.dft_matrix8(logn, w))
+    assert KL.KERNELS["K8_ntt_dft_matmul"].launches == before + 1
+    assert torch.equal(got, N.dft_matmul_plain(x, tables.dft_matrix8(logn, w)))
+    assert torch.equal(got, N.ntt_passes(x, tables.twiddles(w, n)))
+
+
+@pytest.mark.parametrize("mxu", [False, True])
+def test_fourstep_modes_equal_radix2(dev, mxu):
+    """The four-step transform, its twiddle product K3 or K7, under both
+    short-transform bodies, equals K4's radix-2 transform on a [3, 2^16]
+    batch, forward, inverse and as a coset LDE."""
+    logn = 16
+    x = _fe(F.fr_ctx(), 3 << logn, dev, 17).reshape(3, 1 << logn, 4)
+    w = bn254.fr_root_of_unity(logn)
+    want = [N.ntt(x, w, mode="radix2"), N.intt(x, w, mode="radix2"),
+            N.coset_lde(x[:, :1 << 14], w, 7, 1 << logn, mode="radix2")]
+    before = F.mxu_enabled()
+    try:
+        F.enable_mxu(mxu)
+        for kernel in N.NTT_KERNELS:
+            got = [N.ntt(x, w, mode="fourstep", kernel=kernel),
+                   N.intt(x, w, mode="fourstep", kernel=kernel),
+                   N.coset_lde(x[:, :1 << 14], w, 7, 1 << logn, mode="fourstep",
+                               kernel=kernel)]
+            assert all(torch.equal(g, v) for g, v in zip(got, want)), kernel
+    finally:
+        F.enable_mxu(before)
 
 
 def test_k2_padd_edge_cases(dev):

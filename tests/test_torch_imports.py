@@ -133,6 +133,35 @@ def test_acquisition_modules_import_nothing_of_jax_or_the_reference():
                          text=True, timeout=300, env=dict(os.environ, PYTHONPATH=REPO))
     assert out.returncode == 0, out.stderr
 
+NTT_MODES = ("spectre_tpu_torch.ops.field_mxu", "spectre_tpu_torch.ops.ntt",
+             "spectre_tpu_torch.ops.field_ops", "spectre_tpu_torch.observability.manifest",
+             "spectre_tpu_torch.observability.prom")
+
+
+def test_ntt_modes_modules_import_nothing_of_jax_or_the_reference():
+    """The NTT modes' and the 8-bit-limb product's modules, imported one
+    after another under the same refusal with SPECTRE_FIELD_IMPL=mxu set,
+    and the sources of their kernels (K7, K8) present."""
+    prelude = BLOCKED_IMPORTS.split("\nimport spectre_tpu_torch\n")[0]
+    script = prelude + textwrap.dedent(f"""
+        import importlib
+        for name in {NTT_MODES!r}:
+            importlib.import_module(name)
+            bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "spectre_tpu")]
+            assert not bad, (name, bad)
+        assert sys.modules["spectre_tpu_torch.ops.field_ops"].mxu_enabled()
+    """)
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True,
+                         text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=REPO, SPECTRE_FIELD_IMPL="mxu"))
+    assert out.returncode == 0, out.stderr
+    from spectre_tpu_torch.ops import kernel_lib as KL
+    for lib, kernel in (("field_mxu_kernels", "K7_mont_mul_mxu"),
+                        ("ntt_matmul_kernels", "K8_ntt_dft_matmul")):
+        assert os.path.exists(os.path.join(KL.CSRC, KL.LIBRARIES[lib][0]))
+        assert KL.KERNELS[kernel].source.endswith(KL.LIBRARIES[lib][0])
+
+
 def test_chip_smoke_refuses_without_a_gpu(tmp_path):
     """Alone in a directory, or on a machine without CUDA, the smoke exits
     non-zero and prints no result line."""
