@@ -22,12 +22,13 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
            products on the tensor cores) at 2^23, 2^16 + 1 and 1 elements,
            Fr and Fq: equal to K3 and to its plain version (Fq's 2^23 on its
            2^18 prefix); timed at 2^23 beside K3
-  K8       the DFT-matrix short transform on [4096, 2^6], [1024, 2^10] and
-           [1024, 2^12] rows: equal to its plain version and to K4 on the
-           same rows; the four-step NTT with K4's stages at 2^20 and 2^24 and
-           with K8 at 2^20 and [16, 2^18], each equal to K4's radix-2
-           transform; all timed, and torch._int_mm on an int8 stand-in of
-           the 2^20 leg's GEMM shape
+  K8       the factored DFT short transform on [4096, 2^6], [512, 2^9],
+           [1024, 2^10], [64, 2^11] and [1024, 2^12] rows: equal to its
+           plain version (the dense DFT matrix) and to K4 on the same rows;
+           the four-step NTT with K4's stages at 2^20 and 2^24 and with K8
+           at 2^20 and [16, 2^18], each equal to K4's radix-2 transform; all
+           timed, and torch._int_mm on int8 stand-ins of the 2^20 leg's two
+           passes, in both orientations
   K1       bucket sums at n = 2^21, c from default_window_pallas, for
            random, all-equal and all-zero scalars: equal after affine
            normalization on the 2^18 prefix, the committee's MSM size (the
@@ -301,6 +302,14 @@ IMAD_PER_MONT384 = 4 * 144 + 1
 IMAD_PER_SQR384 = 2 * 78 + 2 * 144 + 1
 # the committee's pubkeys: K6's batch on the main path
 COMMITTEE_KEYS = 512
+
+# the kernels' times before their redesign in this tree (one NVIDIA H100 80GB
+# HBM3 at 700 W, PERF.md's kernel table): K7 at 2^23 Fr, K8 on [1024, 2^10]
+K7_MS_BEFORE = 0.912
+K8_MS_BEFORE = 10.105
+# 32-bit multiply-adds of K8's one REDC at 2^272 (eight 32-bit steps of 9
+# and one of 16 bits): per output point and pass
+IMAD_PER_REDC272 = 8 * 9 + 9
 
 
 def log(msg: str) -> None:
@@ -726,9 +735,10 @@ def mxu_product_phase(torch, dev, gen, k3_ms: float) -> dict:
     fr = out["bn254_fr"]
     log(f"K7: equal to K3 and to its plain version (Fr, Fq; 2^23, 2^16 + 1, 1); 2^23 Fr "
         f"{fr['ms']:.3f} ms (K3 {k3_ms:.3f} ms; plain {fr['plain_ms']:.1f} ms; bound {bm:.3f} "
-        f"ms by {by}), Fq {out['bn254_fq']['ms']:.3f} ms")
+        f"ms by {by}; before {K7_MS_BEFORE} ms), Fq {out['bn254_fq']['ms']:.3f} ms")
     return dict(ms=fr["ms"], plain_ms=fr["plain_ms"], bound_ms=bm, bound_by=by,
                 max_abs_err=err, shape=f"{n_big} elements (Fr)", k3_ms=k3_ms,
+                ms_before=K7_MS_BEFORE,
                 fq_ms=out["bn254_fq"]["ms"],
                 bound_note="bytes: two operands read and one written, 96 a product; "
                            "operations: 128 32-bit multiply-adds (t = a b) and 3,072 u8 "
@@ -736,37 +746,58 @@ def mxu_product_phase(torch, dev, gen, k3_ms: float) -> dict:
                 library_call="none: no torch op computes a Montgomery product mod p")
 
 
+def dft_work(rows: int, logn: int, N) -> tuple[int, int]:
+    """(u8 tensor-core multiply-adds, 32-bit multiply-adds) that K8's
+    factored transform on [rows, 2^logn] needs: for each pass of its plan,
+    the 32 x 32 byte products of each (input, output) pair of every L-point
+    DFT (what the kernel's Toeplitz form issues beyond that, its zeros and
+    the m-tiles' padding, is not counted), one REDC a point, and the
+    twiddle product a point of a twiddled pass."""
+    n = 1 << logn
+    tc = imads = 0
+    for ps in N.dft_plan(logn):
+        tc += rows * n * (1 << ps.logl) * 32 * 32
+        imads += rows * n * (IMAD_PER_REDC272 + (IMAD_PER_MONT if ps.twiddled else 0))
+    return tc, imads
+
+
 def dft_phase(torch, dev, gen) -> dict:
-    """K8, the DFT-matrix short transform: over [4096, 2^6], [1024, 2^10]
-    (the committee's 2^20 four-step legs) and [1024, 2^12] rows, each equal
-    to its plain version (whole) and to K4 on the same rows, both timed;
-    the four-step transform (SPECTRE_NTT_MODE=fourstep) with K4's stages at
-    2^20 and 2^24 and with K8 at 2^20 and [16, 2^18], each equal to K4's
-    radix-2 transform, all timed; torch._int_mm on an int8 stand-in of the
-    committee leg's GEMM shape as the library yardstick. Returns K8's
-    record."""
+    """K8, the factored DFT short transform: over [4096, 2^6], [512, 2^9]
+    (the committee's 2^18 legs), [1024, 2^10] (its 2^20 legs), [64, 2^11]
+    and [1024, 2^12] rows, each equal to its plain version (the dense byte
+    matrix, whole) and to K4 on the same rows, all timed; the four-step
+    transform (SPECTRE_NTT_MODE=fourstep) with K4's stages at 2^20 and 2^24
+    and with K8 at 2^20 and [16, 2^18], each equal to K4's radix-2
+    transform, all timed; torch._int_mm on int8 stand-ins of the committee
+    leg's two passes (32 x 32 byte products a pair, the faster of two
+    orientations) as the library yardstick. Returns K8's record."""
     from spectre_tpu_torch.fields import bn254
     from spectre_tpu_torch.ops import field_ops as F, ntt as N
 
     fr = F.fr_ctx()
     tables = N.Twiddles(dev)
     err, short = 0, {}
-    for logn, rows in ((6, 4096), (10, 1024), (12, 1024)):
+    for logn, rows in ((6, 4096), (9, 512), (10, 1024), (11, 64), (12, 1024)):
         n, w = 1 << logn, bn254.fr_root_of_unity(logn)
         x = F.to_mont(fr, random_fr(torch, rows * n, gen, dev)).reshape(rows, n, 4)
         w8 = tables.dft_matrix8(logn, w)
         tw = tables.twiddles(w, n)
-        got = N.dft_matmul(x, w8)
+        got = N.dft_matmul(x, tables, w)
         want, plain_ms = timed_once(torch, lambda: N.dft_matmul_plain(x, w8))
         e = max(limb_err(F, got, N.ntt_passes(x, tw)), limb_err(F, got, want))
         require(e == 0, f"K8 equals its plain version and K4 on [{rows}, 2^{logn}]")
         err = max(err, e)
-        bm, by = bound_ms(2 * rows * n * 32 + n * n * 32, 0, rows * 32 * 32 * n * n)
+        tc, imads = dft_work(rows, logn, N)
+        bm, by = bound_ms(2 * rows * n * 32, imads, tc)
+        dense_bm, _ = bound_ms(2 * rows * n * 32 + n * n * 32, 0, rows * 32 * 32 * n * n)
         short[f"[{rows}, 2^{logn}]"] = dict(
-            ms=time_ms(torch, lambda: N.dft_matmul(x, w8), reps=3),
+            ms=time_ms(torch, lambda: N.dft_matmul(x, tables, w), reps=3),
             k4_ms=time_ms(torch, lambda: N.ntt_passes(x, tw), reps=3),
-            plain_ms=plain_ms, bound_ms=bm, bound_by=by)
-        del x, got, want
+            plain_ms=plain_ms, bound_ms=bm, bound_by=by, dense_bound_ms=dense_bm,
+            passes=[p.logl for p in N.dft_plan(logn)])
+        del x, got, want, w8
+        N.clear_tables()
+        torch.cuda.empty_cache()
     fourstep = {}
     for logn, batch, kernel in ((20, 1, "stages"), (24, 1, "stages"), (20, 1, "matmul"),
                                 (18, 16, "matmul")):
@@ -782,23 +813,39 @@ def dft_phase(torch, dev, gen) -> dict:
                        reps=3),
             radix2_ms=time_ms(torch, lambda: N.ntt(x, w, tables, mode="radix2"), reps=3))
         del x, want
-    # one torch call of the committee leg's GEMM shape: [32 x 1024 rows,
-    # 1024 points] x [1024 points, 32 x 1024 (point, limb)] of int8
-    m_, k_ = 32 * 1024, 1024
-    a8 = torch.randint(-128, 128, (m_, k_), dtype=torch.int8, device=dev, generator=gen)
-    b8 = torch.randint(-128, 128, (m_, k_), dtype=torch.int8, device=dev, generator=gen)
-    library_ms = time_ms(torch, lambda: torch._int_mm(a8, b8.t()), reps=3)
-    del a8, b8
+    # the committee leg's two passes as int8 GEMMs of the same work, 32 x 32
+    # byte products a pair: [2^20, 1024] x [1024, 32] a pass, and its
+    # transpose [32, 1024] x [1024, 2^20]; each second operand column-major,
+    # the faster of the two orientations kept
+    m8 = 1 << 20
+    big = torch.randint(-128, 128, (m8, 1024), dtype=torch.int8, device=dev, generator=gen)
+    small = torch.randint(-128, 128, (32, 1024), dtype=torch.int8, device=dev, generator=gen)
+    orient = {
+        "[2^20, 1024] x [1024, 32]": lambda: (torch._int_mm(big, small.t()),
+                                              torch._int_mm(big, small.t())),
+        "[32, 1024] x [1024, 2^20]": lambda: (torch._int_mm(small, big.t()),
+                                              torch._int_mm(small, big.t()))}
+    library = {k: time_ms(torch, fn, reps=3) for k, fn in orient.items()}
+    lib_shape = min(library, key=library.get)
+    library_ms = library[lib_shape]
+    del big, small
     torch.cuda.empty_cache()
     leg = short["[1024, 2^10]"]
     log(f"K8: equal to its plain version and K4 on {list(short)}; the four-step NTT equal to "
         f"radix-2 on {list(fourstep)}; " + json.dumps({**short, **fourstep})
-        + f"; torch._int_mm stand-in {library_ms:.3f} ms")
+        + f"; torch._int_mm on the leg's two passes {json.dumps(library)} ms; before "
+        f"{K8_MS_BEFORE} ms")
     return dict(ms=leg["ms"], plain_ms=leg["plain_ms"], bound_ms=leg["bound_ms"],
                 bound_by=leg["bound_by"], max_abs_err=err, library_ms=library_ms,
-                library_call="torch._int_mm on an int8 stand-in of the GEMM shape "
-                             "[32768, 1024] x [1024, 32768] (no torch op computes the "
-                             "transform)",
+                library_call=f"torch._int_mm twice, int8 stand-ins of the leg's two passes "
+                             f"at 32 x 32 byte products a pair, {lib_shape} a pass (the faster "
+                             f"orientation; no torch op computes the transform)",
+                library_orientations_ms=library,
+                ms_before=K8_MS_BEFORE, dense_bound_ms=leg["dense_bound_ms"],
+                bound_note="operations: the factored form's byte products on the tensor "
+                           "cores (2 x 32 x 32 x 32 u8 multiply-adds a point, 32 x 32 a pair "
+                           "of a 32-point DFT), its REDCs and pass A's twiddle product on "
+                           "the integer units; bytes: the rows read once and written once",
                 shape="[1024, 2^10] (a 2^20 four-step leg)", k4_ms=leg["k4_ms"],
                 short=short, fourstep=fourstep)
 

@@ -23,12 +23,15 @@ of 4096 projective bucket sums (checked after normalization: another
 geometry adds in another order), K3 at 2^23 and K6 (its squaring form,
 shuffles and block size; probes that drop a part to show its cost give
 wrong results) on the committee's 512 keys, checked limb for limb against
-the plain version. A variant rebuilds only the libraries whose
+the plain version, and K7 at 2^23 (checked against K3) and K8 on the
+committee's [1024, 2^10] legs (checked against K4, each pass also timed
+alone). A variant rebuilds only the libraries whose
 sources it edits, and its row times only their kernels (the BN254 ones
 also under a Python constant). Prints the card's name and power limit,
 then one JSON line per variant with CUDA-event milliseconds, the SASS
 instruction count of the product's probe kernel and of K6, and the
-registers and spill bytes a thread of K1c, K1c_fixed, K2, K2b and K6.
+registers and spill bytes a thread of K1c, K1c_fixed, K2, K2b, K6, K7
+and K8.
 Exits non-zero without CUDA.
 """
 
@@ -630,7 +633,42 @@ VARIANTS = [
         ("field384.cuh", "W::shfl(t * U64(kNp0), 0)", "t * U64(kNp0)")], {}),
     ("K6 probe: no carry look-ahead (timing only: wrong results)", [
         ("field384.cuh", "    return (p + (g << 1)) ^ p;", "    return g << 1;")], {}),
+    ("K7 blocks of 4 warps", [
+        ("field_mxu_kernels.cu", "constexpr int kWarps = 8;", "constexpr int kWarps = 4;")], {}),
+    ("K8 blocks of 8 warps at every length", [
+        ("ntt_matmul_kernels.cu", "kWarpsOf = LOGL >= 6 ? 8 : 16;", "kWarpsOf = 8;")], {}),
+    ("K8 one m-tile a sweep", [
+        ("ntt_matmul_kernels.cu", "constexpr int MT = MT_ALL < 2 ? MT_ALL : 2;",
+         "constexpr int MT = 1;")], {}),
+    ("K8 k-steps not unrolled", [
+        ("ntt_matmul_kernels.cu", "#pragma unroll 4\n      for (int j = 0; j < L; ++j) {",
+         "#pragma unroll 1\n      for (int j = 0; j < L; ++j) {")], {}),
+    ("K8 k-steps unrolled by 2", [
+        ("ntt_matmul_kernels.cu", "#pragma unroll 4\n      for (int j = 0; j < L; ++j) {",
+         "#pragma unroll 2\n      for (int j = 0; j < L; ++j) {")], {}),
+    ("K8 4-byte loads and stores of points", [
+        ("ntt_matmul_kernels.cu", "load16(a.tw", "spt::load_fe(a.tw"),
+        ("ntt_matmul_kernels.cu", "        store16(a.out", "        spt::store_fe(a.out")], {}),
+    ("K8 probe: no twiddle product (timing only: wrong results)", [
+        ("ntt_matmul_kernels.cu",
+         "        if (a.tw != nullptr) y = spt::mont_mul<spt::FR>(y, load16(a.tw + 8 * ((u << LOGL) + k)));\n",
+         "")], {}),
+    ("K8 probe: no REDC (timing only: wrong results)", [
+        ("ntt_matmul_kernels.cu", "        spt::Fe y = redc272(s);",
+         "        spt::Fe y;\n#pragma unroll\n        for (int q = 0; q < 8; ++q)"
+         " y.v[q] = (uint32_t)s[q] ^ (uint32_t)s[q + 8];")], {}),
+    ("K8 probe: the products alone, no epilogue (timing only: wrong results)", [
+        ("ntt_matmul_kernels.cu", ("      // rows 16 mt + g (+ 8): word", "  asm volatile(\"cp.async.wait_group 0;\""),
+         "      uint32_t xs = 0;\n"
+         "#pragma unroll\n      for (int mt = 0; mt < MT; ++mt)\n"
+         "#pragma unroll\n        for (int nt = 0; nt < 8; ++nt)\n"
+         "          xs ^= acc[mt][nt][0] ^ acc[mt][nt][1] ^ acc[mt][nt][2] ^ acc[mt][nt][3];\n"
+         "      if (xs == 0x9e3779b9u) a.out[lane] = xs;\n"
+         "    }\n  }\n")], {}),
 ]
+
+# the libraries of the tensor-core kernels (K7, K8), timed apart from the rest
+MXU_LIBS = ("field_mxu_kernels", "ntt_matmul_kernels")
 
 
 def _edit(text: str, old, new: str, where: str) -> str:
@@ -753,6 +791,20 @@ def _static_k6(KL, dirs: dict) -> dict:
             "K6 spill bytes": spills.get(name, 0)}
 
 
+def _static_mxu(KL, dirs: dict) -> dict:
+    """The registers, stack frame and spill stores a thread of K7 and of
+    K8's pass at 2^5 points."""
+    out = {}
+    for lib, rec, sym in (("field_mxu_kernels", "K7", "mont_mul_mxu_kernelILi1E"),
+                          ("ntt_matmul_kernels", "K8", "dft_pass_kernelILi5E")):
+        log = os.path.join(dirs[lib], f"{lib}.log")
+        regs, spills = KL.ptxas_registers(log), _spills(log)
+        name = next(k for k in regs if sym in k)
+        out[f"{rec} registers"] = regs[name]
+        out[f"{rec} spill bytes"] = spills.get(name, 0)
+    return out
+
+
 def _k6_input(F384, dev):
     """The committee's 512 keys' x: seeded points and their negations."""
     import random
@@ -777,8 +829,8 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, REPO)
     from spectre_tpu_torch.fields import bn254
-    from spectre_tpu_torch.ops import (ec, field384 as F384, field_ops as F, kernel_lib as KL,
-                                       msm as M, msm_kernels as MK, ntt as N)
+    from spectre_tpu_torch.ops import (ec, field384 as F384, field_mxu as MX, field_ops as F,
+                                       kernel_lib as KL, msm as M, msm_kernels as MK, ntt as N)
     from spectre_tpu_torch.plonk.srs import g1_powers_device
 
     want = sys.argv[1:] if argv is None else argv
@@ -810,49 +862,62 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         return a.elapsed_time(b) / reps
 
-    n = 1 << 21
-    pts = g1_powers_device(12345, n, dev)
-    c = M.default_window_pallas(n)
-    nwin, nb = M.num_windows(c), 1 << (c - 1)
-    negs = torch.zeros((1, n), dtype=torch.int32, device=dev)
-    digits = {k: M.signed_digit_stream(sc, c, nwin)
-              for k, sc in (("random", rnd(n)), ("all-equal", rnd(1).repeat(n, 1)))}
+    def touches_bn254(i):
+        return i == 0 or bool(VARIANTS[i][2]) or any(
+            lib not in ("field384_kernels", *MXU_LIBS) for lib in built[i])
+
     tables = N.Twiddles(dev)
-    x23 = F.to_mont(fr, rnd(1 << 23)).reshape(1, 1 << 23, 4)
-    tw23 = tables.twiddles(bn254.fr_root_of_unity(23), 1 << 23)
-    xb = F.to_mont(fr, rnd(16 << 21)).reshape(16, 1 << 21, 4)
-    twb = tables.twiddles(bn254.fr_root_of_unity(21), 1 << 21)
-    a2, b2 = pts, torch.roll(pts, 1, 0)
+    # K7 and K8 at their main path's shapes, K3's and K4's results the
+    # references
+    a23, b23 = F.to_mont(fr, rnd(1 << 23)), F.to_mont(fr, rnd(1 << 23))
+    x10 = F.to_mont(fr, rnd(1 << 20)).reshape(1024, 1024, 4)
+    w10 = bn254.fr_root_of_unity(10)
+    _use(KL, _dirs(KL, root, 0, built))
+    ref_k7 = F.mont_mul_cios(fr, a23, b23)
+    ref_k8 = N.ntt_passes(x10, tables.twiddles(w10, 1024))
+    if any(touches_bn254(i) for i in chosen):
+        n = 1 << 21
+        pts = g1_powers_device(12345, n, dev)
+        c = M.default_window_pallas(n)
+        nwin, nb = M.num_windows(c), 1 << (c - 1)
+        negs = torch.zeros((1, n), dtype=torch.int32, device=dev)
+        digits = {k: M.signed_digit_stream(sc, c, nwin)
+                  for k, sc in (("random", rnd(n)), ("all-equal", rnd(1).repeat(n, 1)))}
+        x23 = F.to_mont(fr, rnd(1 << 23)).reshape(1, 1 << 23, 4)
+        tw23 = tables.twiddles(bn254.fr_root_of_unity(23), 1 << 23)
+        xb = F.to_mont(fr, rnd(16 << 21)).reshape(16, 1 << 21, 4)
+        twb = tables.twiddles(bn254.fr_root_of_unity(21), 1 << 21)
+        a2, b2 = pts, torch.roll(pts, 1, 0)
+        ref_k1 = {k: ec.normalize_std(MK.bucket_sums_aos32(pts, d, negs, c))
+                  for k, d in digits.items()}
+        ref_k4 = N.ntt_passes(x23, tw23)
+        sums = MK.padd_aos32(pts[:nwin * nb], pts[nwin * nb:2 * nwin * nb])
+        ref_k2b = ec.normalize_std(MK.aggregate_buckets_aos32(sums, nwin, nb))
+        sums1 = MK.padd_aos32(pts[:4096], pts[4096:8192])
+        ref_k2b1 = ec.normalize_std(MK.aggregate_buckets_aos32(sums1, 1, 4096))
+        # the fixed form at the step's geometry: the normalised table of the
+        # 2^21 points (2^22 GLV rows, c = 13, 10 windows), GLV digits of random
+        # scalars, the plan made once
+        cf = M.default_window_pallas(2 * n, signed=True)
+        nwf = M.num_windows(cf, 126)
+        table = M.build_window_table(pts, cf, nwf)
+        mags, fnegs = M.glv_scalars(rnd(n))
+        fdig = M.signed_digits(mags, cf, nwf)
+        del mags
+        rows = table.reshape(-1, 24)
+        _, fbstart, fentries = MK.bucket_plan(fdig, fnegs, cf, fixed=True)
+        ref_fixed = ec.normalize_std(MK.bucket_walk_fixed(rows, fentries, fbstart))
     xk6 = _k6_input(F384, dev)
     ref_k6 = F384.decompress_y_plain(xk6)
-    _use(KL, _dirs(KL, root, 0, built))
-    ref_k1 = {k: ec.normalize_std(MK.bucket_sums_aos32(pts, d, negs, c)) for k, d in digits.items()}
-    ref_k4 = N.ntt_passes(x23, tw23)
-    sums = MK.padd_aos32(pts[:nwin * nb], pts[nwin * nb:2 * nwin * nb])
-    ref_k2b = ec.normalize_std(MK.aggregate_buckets_aos32(sums, nwin, nb))
-    sums1 = MK.padd_aos32(pts[:4096], pts[4096:8192])
-    ref_k2b1 = ec.normalize_std(MK.aggregate_buckets_aos32(sums1, 1, 4096))
-    # the fixed form at the step's geometry: the normalised table of the
-    # 2^21 points (2^22 GLV rows, c = 13, 10 windows), GLV digits of random
-    # scalars, the plan made once
-    cf = M.default_window_pallas(2 * n, signed=True)
-    nwf = M.num_windows(cf, 126)
-    table = M.build_window_table(pts, cf, nwf)
-    mags, fnegs = M.glv_scalars(rnd(n))
-    fdig = M.signed_digits(mags, cf, nwf)
-    del mags
-    rows = table.reshape(-1, 24)
-    _, fbstart, fentries = MK.bucket_plan(fdig, fnegs, cf, fixed=True)
-    ref_fixed = ec.normalize_std(MK.bucket_walk_fixed(rows, fentries, fbstart))
     consts = {"PLAN_POINTS": MK, "TMAX": N, "TILE_LOG": N, "K2B_THREADS": MK,
               "K2B_FILL": MK}
     for i in chosen:
         name, _, pyconst = VARIANTS[i]
         dirs = _dirs(KL, root, i, built)
         _use(KL, dirs)
-        bn254_kernels = i == 0 or bool(pyconst) or any(
-            lib != "field384_kernels" for lib in built[i])
+        bn254_kernels = touches_bn254(i)
         k6 = i == 0 or "field384_kernels" in built[i]
+        mxu = i == 0 or any(lib in MXU_LIBS for lib in built[i])
         saved = {k: getattr(consts[k], k) for k in pyconst}
         for k, v in pyconst.items():
             setattr(consts[k], k, v)
@@ -865,6 +930,22 @@ def main(argv=None) -> int:
                 y, ok = F384.decompress_y(xk6)
                 row["K6 equal"] = bool(torch.equal(y, ref_k6[0]) and torch.equal(ok, ref_k6[1]))
                 row["K6 512 keys ms"] = ms(lambda: F384.decompress_y(xk6), 50)
+            if mxu:
+                row.update(_static_mxu(KL, dirs))
+                row["K7 2^23 equal"] = bool(torch.equal(MX.mont_mul(fr, a23, b23),
+                                                        ref_k7))
+                row["K7 2^23 ms"] = ms(lambda: MX.mont_mul(fr, a23, b23), 10)
+                row["K8 [1024, 2^10] equal"] = bool(torch.equal(N.dft_matmul(x10, tables, w10),
+                                                                ref_k8))
+                row["K8 [1024, 2^10] ms"] = ms(lambda: N.dft_matmul(x10, tables, w10), 10)
+                lib8, src, out8 = KL.library("ntt_matmul_kernels"), x10, torch.empty_like(x10)
+                for j, ps in enumerate(N.dft_plan(10)):
+                    frag = tables.dft_fragments(ps.logl, pow(w10, 1024 >> ps.logl, N.R))
+                    tw = tables.twiddle_matrix(10 - ps.logl, ps.logl, w10) if ps.twiddled else None
+                    row[f"K8 pass {j} ms"] = ms(lambda: lib8.spt_ntt_dft_pass(
+                        src.data_ptr(), out8.data_ptr(), frag.data_ptr(),
+                        None if tw is None else tw.data_ptr(), 1024, 10, ps.logl, ps.bu_in,
+                        ps.s_in, ps.bu_out, ps.s_out, KL.stream_of(src)), 10)
             if bn254_kernels:
                 row.update(_static(KL, dirs))
                 for k, d in digits.items():

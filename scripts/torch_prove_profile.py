@@ -8,6 +8,8 @@
     python3 scripts/torch_prove_profile.py --circuit aggregation
     python3 scripts/torch_prove_profile.py --circuit step-aggregation
     python3 scripts/torch_prove_profile.py --circuit committee --transcripts blake2b,poseidon
+    python3 scripts/torch_prove_profile.py --circuit committee --transcript poseidon \
+        --modes default,fourstep+matmul+mxu
     python3 scripts/torch_prove_profile.py --circuit step --sigma-merge   # host only
 
 Builds the kernels, sets up the SRS and the key, proves once untraced
@@ -36,6 +38,14 @@ reuses it.
 proved untraced under each named transcript, in the order given and then
 reversed (a, b, b, a), and the mean seconds of each phase under each are
 printed, so that two transcripts are compared within one run.
+
+--modes a,b: the same witness, key and blinding seed proved untraced under
+each named knob set ("default", or a name of chip_smoke.py's MODES, such as
+fourstep+matmul+mxu), in the order given and then reversed (a, b, b, a);
+every proof must equal the first byte for byte. Prints the mean seconds of
+each phase under each, each prove's phases and launches, and exits.
+--transcript names the transcript of every prove (default blake2b; the
+app circuits' stage-1 proofs are Poseidon's).
 
 --sigma-merge: host only, no GPU needed. Keygen's copy-cycle merge of the
 circuit's copies (flex, committee or step) in Python and in host C++: the
@@ -98,6 +108,48 @@ def sigma_merge(args) -> int:
     return 0 if equal else 1
 
 
+def compare_modes(torch, names: list, one_prove, dev, PhaseTimer, KL) -> int:
+    """Untraced proves under each knob set of names, a, b, b, a, each
+    proof held to the first; prints each prove and the mean seconds of
+    each phase a knob set. Returns 1 if a proof differs."""
+    sys.path.insert(0, REPO)
+    import chip_smoke as C
+    from spectre_tpu_torch.ops import msm as MSM, ntt as NTT
+
+    unknown = [m for m in names if m != "default" and m not in C.MODES]
+    if unknown:
+        print(f"torch_prove_profile: unknown knob sets {unknown}", file=sys.stderr)
+        return 2
+    runs, first = {m: [] for m in names}, None
+    for name in names + names[::-1]:
+        MSM.clear_tables()
+        NTT.clear_tables()
+        torch.cuda.empty_cache()
+        timer = PhaseTimer(dev)
+        with C.knobs(C.MODES[name]["env"] if name != "default" else {}):
+            torch.cuda.synchronize()
+            KL.reset_launch_counts()
+            t0 = time.perf_counter()
+            proof = one_prove(timer)
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+            counts = {k: v for k, v in KL.launch_counts().items() if v}
+        first = proof if first is None else first
+        if proof != first:
+            print(f"torch_prove_profile: the {name} proof differs from the first",
+                  file=sys.stderr)
+            return 1
+        runs[name].append(dict(timer.seconds, total=total))
+        print(f"{name}: prove {total:.3f} s; phases "
+              + json.dumps({k: round(v, 3) for k, v in timer.seconds.items()})
+              + "; launches " + json.dumps(counts), flush=True)
+    means = {name: {key: sum(r[key] for r in rs) / len(rs) for key in rs[0]}
+             for name, rs in runs.items()}
+    print("modes, mean seconds a phase (order " + ",".join(names + names[::-1])
+          + ", equal proofs): " + json.dumps({"modes": means, "runs": runs}), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--k", type=int, default=None, help="rows of the flex circuit")
@@ -107,6 +159,11 @@ def main(argv=None) -> int:
     ap.add_argument("--transcripts", default=None,
                     help="comma list of " + ",".join(TRANSCRIPTS)
                     + ": untraced proves under each, a, b, b, a")
+    ap.add_argument("--transcript", default="blake2b", choices=TRANSCRIPTS,
+                    help="the transcript of every prove")
+    ap.add_argument("--modes", default=None,
+                    help="comma list of knob sets (default or chip_smoke.py's MODES): "
+                         "untraced proves under each, a, b, b, a, then exit")
     ap.add_argument("--sigma-merge", action="store_true",
                     help="host only: keygen's copy-cycle merge in Python and in C++")
     args = ap.parse_args(argv)
@@ -143,7 +200,10 @@ def main(argv=None) -> int:
     bk = TorchBackend(dev)
     from spectre_tpu_torch.plonk.transcript import Blake2bTranscript
 
-    transcript = Blake2bTranscript
+    from spectre_tpu_torch.plonk import transcript as T
+
+    transcript = {"blake2b": Blake2bTranscript, "poseidon": T.PoseidonTranscript,
+                  "keccak": T.KeccakTranscript}[args.transcript]
     setup = {}
     if args.circuit in ("aggregation", "step-aggregation"):
         from spectre_tpu_torch import spec as SPEC
@@ -222,8 +282,10 @@ def main(argv=None) -> int:
         return prove(pk, srs, asg, bk, timer=timer, transcript=transcript_cls(),
                      blinding_rng=lambda: r.randrange(bn254.R))
 
+    if args.modes:
+        return compare_modes(torch, args.modes.split(","), one_prove, dev, PhaseTimer, KL)
+
     if compare:
-        from spectre_tpu_torch.plonk import transcript as T
         classes = {"blake2b": T.Blake2bTranscript, "poseidon": T.PoseidonTranscript,
                    "keccak": T.KeccakTranscript}
         runs = {name: [] for name in compare}

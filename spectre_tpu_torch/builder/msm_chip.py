@@ -110,11 +110,14 @@ class MsmChip:
         return (out[0], out[1])
 
     # -- the MSM ----------------------------------------------------------
-    def msm(self, ctx: Context, witness_pairs: list, constant_pairs: list):
+    def msm(self, ctx: Context, witness_pairs: list, constant_pairs: list,
+            heartbeat=None):
         """sum of scalar*point over witness_pairs [(point_cells, scalar_cell)]
         and constant_pairs [(host_point, scalar_cell)]. Returns point cells.
         The witness points must already be constrained on the curve by the
-        caller."""
+        caller. `heartbeat` (a zero-argument callback) is stamped after each
+        witness table, each window and each constant term."""
+        hb = heartbeat or (lambda: None)
         ecc, fp = self.ecc, self.fp
         g1 = bn254.g1_curve
 
@@ -129,6 +132,7 @@ class MsmChip:
                 entries.append(ecc.add_unequal_lazy(ctx, entries[-1], pt))
             tables.append(entries)
             offsets.append(q_host)
+            hb()
 
         win_bits = [self._windows(ctx, s) for (_p, s) in witness_pairs]
 
@@ -140,6 +144,7 @@ class MsmChip:
             for i in range(len(witness_pairs)):
                 entry = self._select16(ctx, tables[i], win_bits[i][j])
                 acc = ecc.add_unequal_lazy(ctx, acc, entry)
+            hb()
 
         # the witness part's correction:
         # acc = 16^63*C0 + sum k_i P_i + (sum_j 16^j) * sum Q_i
@@ -161,6 +166,7 @@ class MsmChip:
                 entry = self._const_entry(ctx, self._onehot16(ctx, wins[j]), entries)
                 acc = ecc.add_unequal_lazy(ctx, acc, entry)
                 d = g1.add(d, q_host)
+            hb()
 
         # --- subtract the known correction D ---
         nd = fp.load_constant_point(ctx, (int(d[0]), (P - int(d[1])) % P))

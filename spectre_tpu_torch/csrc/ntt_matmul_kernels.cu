@@ -1,36 +1,55 @@
-// K8: the four-step NTT's short transforms as DFT matrix products on the
-// int8 tensor cores (the port of spectre_tpu/ops/ntt.py `_ntt_dft_matmul`,
-// XLA code in the JAX package: no Pallas kernel). Plain version:
-// ops/ntt.py `dft_matmul_plain`.
+// K8: the four-step NTT's short transforms on the int8 tensor cores (the
+// port of spectre_tpu/ops/ntt.py `_ntt_dft_matmul`, XLA code in the JAX
+// package: no Pallas kernel). Plain versions: ops/ntt.py `dft_matmul_plain`
+// (the reference's dense DFT) and `dft_factored_plain` (this kernel's steps,
+// from the same tables).
 //
-// For each row r of R rows of n points (Montgomery, canonical) and each
-// output point k:
-//   G[k, i1, i2] = sum_j W8[j, (k, i1)] x8[r, j, i2]         u8 GEMM, s32
-//   T[k]         = sum_{i1, i2} G[k, i1, i2] 2^(8 (i1 + i2)) < n p^2
-//   out[r, k]    = T[k] 2^-272 mod p                        one REDC
-// with W8[j, (k, i1)] byte i1 of omega^(jk) 2^272 mod p (`_dft_matrix8`,
-// [n, 32 n]), so out[r, k] = sum_j omega^(jk) x[r, j], Montgomery and
-// canonical (u < n p^2 / 2^272 + p < 2p for n <= 4096).
+// The algorithm differs from the reference's, the bytes do not. The
+// reference contracts each row of n points with the dense n x n DFT matrix
+// (O(n^2) products). Here a length-n leg is factored, n = n1 n2 with n1, n2
+// <= 64 (lengths up to 64 stay one direct DFT), into two launches of this
+// kernel over the rows (ops/ntt.py `dft_plan`):
+//   pass A: for each j1 < n1, the n2-point DFT over j2 of x[j1 + n1 j2]
+//           (root omega^n1), each output times omega^(j1 k2), written back
+//           to the slots it came from;
+//   pass B: for each k2 < n2, the n1-point DFT over j1 of those n1
+//           contiguous values (root omega^n2), written to out[n2 k1 + k2].
+// Each short DFT of L points is, for each output point k and each of the
+// 64 byte columns c of the 520-bit sum,
+//   col[k, c] = sum_j sum_i1 W8[j, k, i1] x8[j, c - i1]     (u8 x u8, s32)
+//   T[k]      = sum_c col[k, c] 2^(8 c) < L p^2 < 2^272 p
+//   out[k]    = T[k] 2^-272 mod p                          (one REDC, one
+//                                                          conditional subtract)
+// with W8[j, k] the bytes of omega_L^(jk) 2^272 mod p (Montgomery times
+// 2^16), so out[k] = sum_j omega_L^(jk) x_j in Montgomery form, canonical.
+// The GEMM is D[k, (vector, c)] = sum_(j, i1) A[k, (j, i1)] B[(j, i1), (vector, c)]
+// on mma.sync u8: A is the DFT matrix, built on the host in the fragment
+// order (`dft_fragments`: a lane's 16 bytes of a k-step are one 16-byte
+// shared-memory load, the i1 axis reversed within each word), and B is the
+// Toeplitz expansion of the data bytes, made in registers from 6
+// shared-memory words a k-step (funnel shifts: the column order puts the
+// byte offset of every B word at a shift the lane knows). The Toeplitz form
+// does more products than the limb-pair form, but the column sums come out
+// of the tensor cores: each lane holds whole 32-bit words of its rows' sums
+// (column n of n-tile (w, b) is c = 4 (4 w + n / 2) + 2 b + (n & 1): lane
+// tq holds words tq + 4 w), so the epilogue stages 16 words a row in shared
+// memory and each lane reduces one output point. Columns below 16 meet only
+// the low 16 bytes of W and columns from 48 only the high 16: their n-tiles
+// take m16n8k16 products, the others m16n8k32, 1.5 x the limb pairs'
+// products in all. The twiddle of pass A is a Montgomery product on the
+// integer units (bn254.cuh) in the same epilogue.
 //
-// The GEMM is M = 32 n (point k, limb i1), N = 32 R (row r, limb i2),
-// K = n (point j): a block takes 4 points x 4 rows (128 x 128) and walks
-// K in stages of 64, each operand staged into shared memory transposed
-// so that K is contiguous (a thread loads 4 x 4 bytes, moves them with
-// byte permutes), 80-byte rows (no bank conflicts on the fragment
-// loads). Its 8 warps each own one point and two rows (2 x 8 tiles of
-// mma.sync.m16n8k32 u8 x u8 -> s32, exact: a sum is below n 255^2 < 2^31).
-// The GEMM's output is never written: each warp folds a (point, row)
-// block of 32 x 32 products in shared memory into its 63 columns (64-bit:
-// a column is below 32 n 255^2 < 2^34), the columns into 16 words by a
-// quad shuffle, and 16 threads of the block reduce the 16 (point, row)
-// outputs at 2^272 (eight 32-bit steps and one 16-bit step) and subtract
-// p once.
+// A block holds the DFT matrix of its length in shared memory (L^2 / 16
+// x 512 bytes: 128 KiB at L = 64) and its 16 warps (8 at L = 64) walk the
+// vectors (a row's n / L short transforms, rows after rows) with a grid
+// stride; a warp streams its next vector in by cp.async while it computes
+// the current one, and moves its outputs and twiddles 16 bytes at a time
+// (faster than 4-byte accesses: scripts/torch_kernel_variants.py).
 //
-// Bound on the H100: the tensor cores' u8 rate (32 x 32 x n multiply-adds
-// an output point against 64 bytes). The design's simplicity costs: each
-// x byte is read n / 4 times and each W8 byte R / 4 times (from L2 at the
-// committee's n = 1024), and the fragments come from shared memory with
-// 32-bit loads.
+// Bound on the H100: at n = 2^10 the tensor cores' u8 rate (48 x 32 L
+// products a point and pass) against 4 x 32 bytes a point (each pass reads
+// and writes its rows); the REDCs and the twiddle product are ~400 32-bit
+// multiply-adds a point.
 //
 // Plain C interface, loaded with ctypes by spectre_tpu_torch/ops/kernel_lib.py;
 // the launcher enqueues on the stream it is given and returns
@@ -42,52 +61,22 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBK = 64;              // points j a stage
-constexpr int kRowBytes = kBK + 16;  // a staged row of 64 bytes and 16 of padding
-constexpr int kTile = 128;           // staged rows of an operand: 4 x 32 limbs
-constexpr int kGStride = 33;         // words a row of a warp's 32 x 32 product block
+// warps a block: 16 share a DFT matrix of up to 32 points; the matrix of
+// 64 (128 KiB) leaves shared memory for 8
+template <int LOGL> constexpr int kWarpsOf = LOGL >= 6 ? 8 : 16;
+constexpr int kEStride = 18;   // 64-bit words a staged row of the epilogue (16, 16-byte aligned)
+constexpr int kE4 = 32 * kEStride / 2;   // the epilogue's 32 rows in 16-byte units
 
-struct Smem {
-  union {
-    struct {
-      uint8_t a[kTile * kRowBytes];   // W8: rows (point, i1), bytes j
-      uint8_t b[kTile * kRowBytes];   // x8: rows (row, i2), bytes j
-    } ops;
-    int32_t g[8][32 * kGStride];      // a warp's (point, row) block of products
-  } u;
-  unsigned long long s[16][16];       // each (point, row) output's 16 words
+struct PassArgs {
+  const uint8_t* x;        // [rows, n] points of 32 bytes
+  uint32_t* out;           // [rows, n] points
+  const uint4* frag;       // the DFT matrix in fragment order
+  const uint32_t* tw;      // [n] omega^(u k) at u L + k (Montgomery), or null
+  long nvec;               // rows * (n / L) short transforms
+  int logn, logu;          // log2 n, log2 (n / L)
+  long bu_in, s_in;        // point j of vector u of row r at r n + u bu_in + j s_in
+  long bu_out, s_out;      // output k at r n + u bu_out + k s_out
 };
-
-// Stage one operand: 4 sub-tiles of kBK x 32 bytes, byte (kk, i) of
-// sub-tile s at src + s * sstride + kk * kstride + i (zero where
-// s >= svalid or kk >= kvalid), to dst row s * 32 + i, byte kk.
-__device__ __forceinline__ void stage(uint8_t* dst, const uint8_t* __restrict__ src,
-                                      long sstride, long kstride, int svalid, int kvalid) {
-  for (int unit = threadIdx.x; unit < 4 * (kBK / 4) * 8; unit += kThreads) {
-    const int w = unit & 7, jg = (unit >> 3) & (kBK / 4 - 1), s = unit >> 7;
-    uint32_t v[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int kk = jg * 4 + q;
-      v[q] = (s < svalid && kk < kvalid)
-                 ? *reinterpret_cast<const uint32_t*>(src + s * sstride + kk * kstride + 4 * w)
-                 : 0u;
-    }
-    // 4 x 4 byte transpose: o[b] holds byte b of v[0..3], low to high
-    const uint32_t t0 = __byte_perm(v[0], v[1], 0x5140), t1 = __byte_perm(v[2], v[3], 0x5140);
-    const uint32_t t2 = __byte_perm(v[0], v[1], 0x7362), t3 = __byte_perm(v[2], v[3], 0x7362);
-    const uint32_t o[4] = {__byte_perm(t0, t1, 0x5410), __byte_perm(t0, t1, 0x7632),
-                           __byte_perm(t2, t3, 0x5410), __byte_perm(t2, t3, 0x7632)};
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-      *reinterpret_cast<uint32_t*>(dst + (s * 32 + 4 * w + b) * kRowBytes + 4 * jg) = o[b];
-  }
-}
-
-__device__ __forceinline__ uint32_t ld32(const uint8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 __device__ __forceinline__ void mma_u8(int32_t d[4], const uint32_t a[4], uint32_t b0,
                                        uint32_t b1) {
@@ -96,6 +85,15 @@ __device__ __forceinline__ void mma_u8(int32_t d[4], const uint32_t a[4], uint32
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the half-depth form: K = 16 bytes, A rows g and g + 8 (a0, a1), B one word
+__device__ __forceinline__ void mma_u8_k16(int32_t d[4], uint32_t a0, uint32_t a1, uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.s32.u8.u8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0));
 }
 
 // T = sum_q s[q] 2^(32 q) (each s[q] < 2^60) reduced: T 2^-272 mod p over Fr,
@@ -149,109 +147,212 @@ __device__ spt::Fe redc272(const unsigned long long s[16]) {
   return spt::cond_sub_p<spt::FR>(u);
 }
 
-// grid (ceil(R / 4) row tiles, ceil(n / 4) point tiles)
-__global__ void __launch_bounds__(kThreads)
-    dft_matmul_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w8,
-                      uint32_t* __restrict__ out, long rows, int logn) {
-  __shared__ __align__(16) Smem sm;
-  const long n = 1L << logn;
-  const long rt = blockIdx.x;
-  const long kt = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+// A point at a 32-byte aligned address, as two 16-byte accesses.
+__device__ __forceinline__ spt::Fe load16(const uint32_t* src) {
+  const uint4* q = reinterpret_cast<const uint4*>(src);
+  const uint4 lo = q[0], hi = q[1];
+  return spt::Fe{{lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w}};
+}
+
+__device__ __forceinline__ void store16(uint32_t* dst, const spt::Fe& y) {
+  uint4* q = reinterpret_cast<uint4*>(dst);
+  q[0] = make_uint4(y.v[0], y.v[1], y.v[2], y.v[3]);
+  q[1] = make_uint4(y.v[4], y.v[5], y.v[6], y.v[7]);
+}
+
+// Start copying vector v's L points (2 L chunks of 16 bytes) into a warp's
+// buffer; one commit group a call, empty past the last vector.
+template <int L>
+__device__ __forceinline__ void stage_vector(uint4* buf, const PassArgs& a, long v, int lane) {
+  if (v < a.nvec) {
+    const long r = v >> a.logu, u = v & ((1L << a.logu) - 1);
+    const long base = (r << a.logn) + u * a.bu_in;
+    const uint32_t dst = (uint32_t)__cvta_generic_to_shared(buf);
+#pragma unroll
+    for (int c = lane; c < 2 * L; c += 32) {
+      const uint8_t* src = a.x + (base + (long)(c >> 1) * a.s_in) * 32 + (c & 1) * 16;
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst + 16 * c), "l"(src));
+    }
+  }
+  asm volatile("cp.async.commit_group;");
+}
+
+// smem: the DFT matrix ([L][MT_ALL][32] uint4), then per warp two vector
+// buffers (2 L uint4 each) and the epilogue's rows (32 x kEStride u64)
+template <int LOGL>
+__global__ void __launch_bounds__(32 * kWarpsOf<LOGL>)
+    dft_pass_kernel(PassArgs a) {
+  constexpr int L = 1 << LOGL;
+  constexpr int MT_ALL = (L + 15) / 16;            // m-tiles of output points
+  constexpr int MT = MT_ALL < 2 ? MT_ALL : 2;      // m-tiles a sweep (registers)
+  constexpr int SWEEPS = MT_ALL / MT;
+  extern __shared__ uint4 smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, tq = lane & 3;
-  const int p = warp & 3, r0 = (warp >> 2) * 2;   // this warp's point and first row
-  const int wvalid = (int)(n - kt * 4 < 4 ? n - kt * 4 : 4);
-  const int xvalid = (int)(rows - rt * 4 < 4 ? rows - rt * 4 : 4);
+  uint4* fragS = smem;
+  uint4* bufs = smem + L * MT_ALL * 32 + warp * (4 * L + kE4);
+  unsigned long long* E = reinterpret_cast<unsigned long long*>(bufs + 4 * L);
 
-  int32_t acc[2][8][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0;
-
-  for (long k0 = 0; k0 < n; k0 += kBK) {
-    const int kvalid = (int)(n - k0 < kBK ? n - k0 : kBK);
-    stage(sm.u.ops.a, w8 + k0 * 32 * n + kt * 4 * 32, 32, 32 * n, wvalid, kvalid);
-    stage(sm.u.ops.b, x + (rt * 4 * n + k0) * 32, 32 * n, 32, xvalid, kvalid);
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < kBK; ks += 32) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const uint8_t* ra = sm.u.ops.a + (p * 32 + mt * 16 + g) * kRowBytes + ks + tq * 4;
-        af[mt][0] = ld32(ra);
-        af[mt][1] = ld32(ra + 8 * kRowBytes);
-        af[mt][2] = ld32(ra + 16);
-        af[mt][3] = ld32(ra + 8 * kRowBytes + 16);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const uint8_t* rb = sm.u.ops.b + (r0 * 32 + nt * 8 + g) * kRowBytes + ks + tq * 4;
-        const uint32_t b0 = ld32(rb), b1 = ld32(rb + 16);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) mma_u8(acc[mt][nt], af[mt], b0, b1);
-      }
-    }
-    __syncthreads();
-  }
-
-  // each of the warp's two (point, row) blocks: the 32 x 32 products into
-  // shared memory, lane l sums column l (i1 <= l) and column l + 32, the
-  // columns become words 2^(32 q) by a quad sum
-  int32_t* gs = sm.u.g[warp];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int32_t* d = acc[mt][h * 4 + nt];
-        const int i1 = mt * 16 + g, i2 = nt * 8 + tq * 2;
-        gs[i1 * kGStride + i2] = d[0];
-        gs[i1 * kGStride + i2 + 1] = d[1];
-        gs[(i1 + 8) * kGStride + i2] = d[2];
-        gs[(i1 + 8) * kGStride + i2 + 1] = d[3];
-      }
-    __syncwarp();
-    unsigned long long lo = 0, hi = 0;
-#pragma unroll 8
-    for (int i1 = 0; i1 < 32; ++i1) {
-      if (i1 <= lane)
-        lo += (uint32_t)gs[i1 * kGStride + lane - i1];
-      else
-        hi += (uint32_t)gs[i1 * kGStride + lane + 32 - i1];
-    }
-    __syncwarp();
-    lo <<= 8 * (lane & 3);
-    hi <<= 8 * (lane & 3);
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      lo += __shfl_xor_sync(0xffffffffu, lo, off);
-      hi += __shfl_xor_sync(0xffffffffu, hi, off);
-    }
-    if ((lane & 3) == 0) {
-      sm.s[p * 4 + r0 + h][lane >> 2] = lo;
-      sm.s[p * 4 + r0 + h][8 + (lane >> 2)] = hi;
-    }
-  }
+  constexpr int kWarps = kWarpsOf<LOGL>;
+  for (int i = threadIdx.x; i < L * MT_ALL * 32; i += 32 * kWarps) fragS[i] = a.frag[i];
   __syncthreads();
-  if (threadIdx.x < 16) {
-    const int pp = threadIdx.x >> 2, rr = threadIdx.x & 3;
-    if (pp < wvalid && rr < xvalid) {
-      const spt::Fe v = redc272(sm.s[threadIdx.x]);
-      spt::store_fe(out + ((rt * 4 + rr) * n + kt * 4 + pp) * 8, v);
+
+  const long stride = (long)gridDim.x * kWarps;
+  long v = (long)blockIdx.x * kWarps + warp;
+  stage_vector<L>(bufs, a, v, lane);
+  for (int it = 0; v < a.nvec; ++it, v += stride) {
+    stage_vector<L>(bufs + ((it + 1) & 1) * 2 * L, a, v + stride, lane);
+    asm volatile("cp.async.wait_group 1;" ::: "memory");
+    __syncwarp();
+    const uint32_t* P = reinterpret_cast<const uint32_t*>(bufs + (it & 1) * 2 * L);
+    const long r = v >> a.logu, u = v & ((1L << a.logu) - 1);
+
+#pragma unroll 1
+    for (int mh = 0; mh < SWEEPS; ++mh) {
+      int32_t acc[MT][8][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+          acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0;
+
+#pragma unroll 4
+      for (int j = 0; j < L; ++j) {
+        // B[(j, kappa), (v, c)] = x8[j, c - pi(kappa)], kappa = 4 tq + q + 16 h,
+        // pi(kappa) = 4 (tq + 4 h) + 3 - q; column n = g of n-tile (w, b) is
+        // c = 4 (4 w + g / 2) + 2 b + (g & 1): bytes 2 b + (g & 1) + 1 .. of
+        // words i - 1, i of the point, i = g / 2 - tq + 4 (w - h). The lane's
+        // words: g / 2 - tq + {-1, 0, 3, 4, 7, 8}, zero outside 0 .. 7.
+        const int base = (g >> 1) - tq;
+        uint32_t wd[10];
+#pragma unroll
+        for (int t = 0; t < 10; ++t) {
+          const int idx = base + t - 1;
+          wd[t] = ((t & 3) == 0 || (t & 3) == 1) && idx >= 0 && idx < 8 ? P[j * 8 + idx] : 0u;
+        }
+        const uint32_t sg = 8 * ((g & 1) + 1);
+        uint32_t b[8][2];
+#pragma unroll
+        for (int w = 0; w < 4; ++w)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int o = 4 * (w - h) + 1;           // wd index of word i
+            if (o < 1 || o > 9) continue;            // the tile's zero half
+#pragma unroll
+            for (int bb = 0; bb < 2; ++bb)
+              b[2 * w + bb][h] = __funnelshift_rc(wd[o - 1], wd[o], sg + 16 * bb);
+          }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const uint4 af = fragS[(j * MT_ALL + mh * MT + mt) * 32 + lane];
+          const uint32_t av[4] = {af.x, af.y, af.z, af.w};
+#pragma unroll
+          for (int bb = 0; bb < 2; ++bb) {
+            // columns 0 .. 15 take only bytes i1 < 16 of W, columns 48 .. 63
+            // only i1 >= 16: half-depth products
+            mma_u8_k16(acc[mt][bb], av[0], av[1], b[bb][0]);
+            mma_u8(acc[mt][2 + bb], av, b[2 + bb][0], b[2 + bb][1]);
+            mma_u8(acc[mt][4 + bb], av, b[4 + bb][0], b[4 + bb][1]);
+            mma_u8_k16(acc[mt][6 + bb], av[2], av[3], b[6 + bb][1]);
+          }
+        }
+      }
+
+      // rows 16 mt + g (+ 8): word 4 w + tq of the sum is
+      // sum_(b, e) col(w, b) 2^(8 (2 b + e)) from regs e (row g) and 2 + e
+      // (row g + 8)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int w = 0; w < 4; ++w) {
+            unsigned long long s = 0;
+#pragma unroll
+            for (int bb = 0; bb < 2; ++bb)
+#pragma unroll
+              for (int e = 0; e < 2; ++e)
+                s += (unsigned long long)(uint32_t)acc[mt][2 * w + bb][2 * hh + e]
+                     << (8 * (2 * bb + e));
+            E[(16 * mt + g + 8 * hh) * kEStride + 4 * w + tq] = s;
+          }
+      __syncwarp();
+      const int k = mh * MT * 16 + lane;
+      if (lane < MT * 16 && k < L) {
+        unsigned long long s[16];
+        const ulonglong2* row = reinterpret_cast<const ulonglong2*>(E + lane * kEStride);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const ulonglong2 two = row[q];
+          s[2 * q] = two.x;
+          s[2 * q + 1] = two.y;
+        }
+        spt::Fe y = redc272(s);
+        if (a.tw != nullptr) y = spt::mont_mul<spt::FR>(y, load16(a.tw + 8 * ((u << LOGL) + k)));
+        store16(a.out + 8 * ((r << a.logn) + u * a.bu_out + (long)k * a.s_out), y);
+      }
+      __syncwarp();
     }
   }
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+template <int LOGL>
+constexpr int smem_bytes() {
+  constexpr int L = 1 << LOGL;
+  return (L * ((L + 15) / 16) * 32 + kWarpsOf<LOGL> * (4 * L + kE4)) * 16;
+}
+
+template <int LOGL>
+int launch(const PassArgs& a, cudaStream_t stream) {
+  constexpr int bytes = smem_bytes<LOGL>();
+  static int blocks_per_sm = 0, sms = 0;   // read once a length
+  if (blocks_per_sm == 0) {
+    cudaFuncSetAttribute(dft_pass_kernel<LOGL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         bytes);
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks_per_sm, dft_pass_kernel<LOGL>,
+                                                  32 * kWarpsOf<LOGL>, bytes);
+    if (blocks_per_sm < 1) blocks_per_sm = 1;
+  }
+  const long want = (a.nvec + kWarpsOf<LOGL> - 1) / kWarpsOf<LOGL>;
+  const long cap = (long)sms * blocks_per_sm;
+  const unsigned blocks = (unsigned)(want < cap ? want : cap);
+  dft_pass_kernel<LOGL><<<blocks, 32 * kWarpsOf<LOGL>, bytes, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int spt_ntt_dft_matmul(const void* x, const void* w8, void* out, long rows,
-                                  int logn, void* stream) {
-  const long n = 1L << logn;
-  const dim3 grid((unsigned)((rows + 3) / 4), (unsigned)((n + 3) / 4));
-  dft_matmul_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)x, (const uint8_t*)w8, (uint32_t*)out, rows, logn);
-  return (int)cudaGetLastError();
+// One pass of K8 over `rows` rows of 2^logn points: the 2^logl-point DFTs of
+// the rows' 2^(logn - logl) vectors (strides above), the matrix `frag` of
+// ops/ntt.py `dft_fragments`, times `tw` when it is not null.
+extern "C" int spt_ntt_dft_pass(const void* x, void* out, const void* frag, const void* tw,
+                                long rows, int logn, int logl, long bu_in, long s_in,
+                                long bu_out, long s_out, void* stream) {
+  PassArgs a;
+  a.x = (const uint8_t*)x;
+  a.out = (uint32_t*)out;
+  a.frag = (const uint4*)frag;
+  a.tw = (const uint32_t*)tw;
+  a.logn = logn;
+  a.logu = logn - logl;
+  a.nvec = rows << a.logu;
+  a.bu_in = bu_in;
+  a.s_in = s_in;
+  a.bu_out = bu_out;
+  a.s_out = s_out;
+  if (a.nvec == 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (logl) {
+    case 1: return launch<1>(a, s);
+    case 2: return launch<2>(a, s);
+    case 3: return launch<3>(a, s);
+    case 4: return launch<4>(a, s);
+    case 5: return launch<5>(a, s);
+    case 6: return launch<6>(a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

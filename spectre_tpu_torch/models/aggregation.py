@@ -15,7 +15,7 @@ where e(lhs, [tau]_2) == e(rhs, [1]_2) iff the inner proof verifies.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 from ..builder.range_chip import RangeChip
 from ..device import resolve
@@ -119,13 +119,17 @@ class AggregationArgs:
     Single-snark compression (the service's two-stage flow) uses the first
     four fields; `more_snarks` adds further inner proofs, folded into one
     deferred accumulator with transcript-bound challenges
-    (`AggregationCircuit::new(Vec<Snark>)`)."""
+    (`AggregationCircuit::new(Vec<Snark>)`). `heartbeat`, a zero-argument
+    callback or None, is stamped between the build's steps (not part of
+    the witness): the build is minutes at the testnet k, and a prover's
+    lease must not lapse inside it (the reference has no such stamps)."""
 
     inner_vk: object            # plonk VerifyingKey of the app circuit
     srs: SRS
     inner_instances: list       # [[int]] app public inputs
     proof: bytes                # Poseidon-transcript app proof
     more_snarks: tuple = ()     # further SnarkWitness entries
+    heartbeat: object = field(default=None, compare=False, repr=False)
 
     @property
     def snarks(self) -> list:
@@ -154,15 +158,18 @@ class AggregationCircuit(AppCircuit):
     def build(cls, ctx, args: AggregationArgs, spec):
         from ..plonk.in_circuit import VerifierChip
         vc = VerifierChip(RangeChip(lookup_bits=cls.default_lookup_bits))
+        hb = args.heartbeat or (lambda: None)
         accs, all_inst_cells = [], []
         for sn in args.snarks:
             inst_cells = [[ctx.load_witness(int(v) % R) for v in col] for col in sn.instances]
             all_inst_cells.append(inst_cells)
-            accs.append(vc.verify_proof(ctx, sn.vk, args.srs, inst_cells, sn.proof))
+            accs.append(vc.verify_proof(ctx, sn.vk, args.srs, inst_cells, sn.proof,
+                                        heartbeat=hb))
         if len(accs) == 1:
             lhs, rhs = accs[0]
         else:
             lhs, rhs = vc.fold_accumulators(ctx, accs)
+            hb()
         # the accumulator's limbs as canonical representatives (the outer
         # pairing check compares them coordinate for coordinate)
         out = []

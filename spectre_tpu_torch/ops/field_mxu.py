@@ -16,8 +16,9 @@ true matrix product: [rows, 32] bytes times a constant Toeplitz matrix of
 p' ([32, 32]) or of p ([32, 64]). On the TPU the reference leaves them to
 XLA's matrix unit; on the H100 they run on the int8 tensor cores in kernel
 K7 (csrc/field_mxu_kernels.cu, `mma.sync` m16n8k32 u8 x u8 -> s32, 16
-elements an m-tile); t = a * b has no shared operand and stays on the
-integer units there.
+elements an m-tile, everything in registers: a quad of lanes holds four
+elements word-interleaved between the two products); t = a * b has no
+shared operand and stays on the integer units there.
 
 The port's field vectors are [..., 4] int64 Montgomery tensors
 (field_ops), and their 8-bit limbs are the little-endian bytes of a
@@ -172,6 +173,8 @@ def mont_mul(ctx: F.FieldCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return mont_mul_mxu_plain(ctx, a, b)
     KL.require(a, "mont_mul_mxu a", torch.int64, last=4)
     KL.require(b, "mont_mul_mxu b", torch.int64, ndim=2, last=4)
+    if a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError("mont_mul_mxu: operands not 16-byte aligned")
     out = torch.empty_like(a)
     lib = KL.library("field_mxu_kernels")
     KL.KERNELS["K7_mont_mul_mxu"].launches += 1

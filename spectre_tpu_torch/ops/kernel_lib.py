@@ -67,7 +67,8 @@ LIBRARIES = {
         "spt_mont_mul_mxu": [_VP, _VP, _LONG, _VP, _LONG, _INT, _VP],
     }),
     "ntt_matmul_kernels": ("ntt_matmul_kernels.cu", {
-        "spt_ntt_dft_matmul": [_VP, _VP, _VP, _LONG, _INT, _VP],
+        "spt_ntt_dft_pass": [_VP, _VP, _VP, _VP, _LONG, _INT, _INT, _LONG, _LONG, _LONG,
+                             _LONG, _VP],
     }),
 }
 HEADERS = ("aggregate.cuh", "bn254.cuh", "bucket.cuh", "field384.cuh", "ntt.cuh")
@@ -126,7 +127,7 @@ KERNELS = {k.name: k for k in (
                "mont_mul_mxu_kernel"),
     KernelInfo("K8_ntt_dft_matmul", "spectre_tpu_torch/csrc/ntt_matmul_kernels.cu",
                "spectre_tpu/ops/ntt.py:366 _ntt_dft_matmul (XLA, no Pallas kernel)",
-               "dft_matmul_kernel"),
+               "dft_pass_kernel"),
 )}
 
 

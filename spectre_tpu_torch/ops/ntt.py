@@ -34,7 +34,15 @@ omega^(jk) 2^272 mod p (`_dft_matrix8`, [n, 32 n] bytes, the reference's
 layout and bytes): the 32 x 32 byte products of each (point, limb pair)
 are one u8 GEMM over the point axis, collapsed along i1 + i2 into 63
 columns, carried, and reduced once at 2^272 (u < n p^2 / 2^272 + p < 2p
-for n < 2^18), then one conditional subtract. Every mode gives the same
+for n < 2^18), then one conditional subtract. That dense form is K8's
+plain version (`dft_matmul_plain`). On the card K8 factors the leg
+(`dft_plan`): n = n1 n2 with n1, n2 <= 64, n2-point DFTs over the stride-n1
+columns times the twiddles omega^(j1 k2), then n1-point DFTs of the
+contiguous results, each short DFT the same byte-column sum and one REDC
+at 2^272, from the matrices of `dft_fragments` (the tensor cores'
+fragment order) and the four-step's `_twiddle_matrix`; O(n (n1 + n2))
+products where the dense form does O(n^2). `dft_factored_plain` repeats
+its steps from the same tables. Every mode and form gives the same
 canonical bytes.
 
 The knobs are read per call (`ntt_mode`, `ntt_kernel`; an explicit
@@ -52,7 +60,7 @@ repeats K4's passes in torch ops (the same tiles, rows, strides and
 twiddle indices), `ntt_stages_plain` is the stage loop (the plain NTT K4
 is held against on the card), `dft_matmul_plain` is K8's (the GEMM in
 float64, exact: every sum stays below n 255^2 < 2^53; the collapse, the
-carries and the reduction in int64).
+carries and the reduction in int64), `dft_factored_plain` K8's steps.
 
 The coset/Montgomery folds of the reference's fused stage-0 tables
 (`_fused_in_table` :239, `_fused_out_table` :265, `_vinv_in_table` :295)
@@ -67,6 +75,7 @@ polynomials is [B, n, 4] and transforms in one launch per pass.
 from __future__ import annotations
 
 import os
+from typing import NamedTuple
 
 import torch
 
@@ -97,6 +106,10 @@ _REDC_SHIFT = 272
 _REDC_LIMBS = _REDC_SHIFT // 8               # 34
 # t = sum_j W x_j < n p^2 < 2^520 at the cap: 66 limbs hold t and m p
 _T_LIMBS = _REDC_LIMBS + 32                  # 66
+# K8's short DFTs: at most 2^_DFT_MAX_LOGL points a pass (the matrix of 64
+# points is 128 KiB of a block's shared memory), so a leg up to the cap is
+# one pass or two
+_DFT_MAX_LOGL = 6
 
 
 def _conv_group_width(logn: int) -> int:
@@ -206,6 +219,43 @@ def _twiddle_matrix(logr: int, logc: int, omega: int, device) -> torch.Tensor:
     return _cached(("mat", str(device), logr, logc, omega), build)
 
 
+def _dft_fragments(logl: int, omega: int, device="cpu") -> torch.Tensor:
+    """K8's matrix of the 2^logl-point DFT of root omega in the tensor
+    cores' fragment order, uint8 [L, MT, 32, 16] (L = 2^logl, MT = ceil(L /
+    16) m-tiles of output points): the 16 bytes lane 4 g + tq loads for
+    k-step j (input point j) of m-tile mt are its A registers a_(hh + 2 h),
+    each the byte-reversed word tq + 4 h of W[j, 16 mt + g + 8 hh] =
+    omega^(jk) 2^272 mod p (zero past L), so that K index 4 tq + q + 16 h
+    is byte 4 (tq + 4 h) + 3 - q of W (csrc/ntt_matmul_kernels.cu)."""
+    device = torch.device(device)
+
+    def build():
+        ll = 1 << logl
+        mt_all = -(-ll // 16)
+        ctx = F.fr_ctx()
+        w = F.mont_mul(ctx, _twiddle_matrix(logl, logl, omega, device),
+                       F.const(ctx, 1 << 16, device))
+        wb = torch.zeros((ll, 16 * mt_all, 32), dtype=torch.uint8, device=device)
+        wb[:, :ll] = w.contiguous().view(torch.uint8).reshape(ll, ll, 32)
+        row, byte = _fragment_index(mt_all, device)
+        return wb.reshape(ll, -1)[:, row * 32 + byte].reshape(ll, mt_all, 32, 16).contiguous()
+
+    return _cached(("dftf", str(device), logl, omega), build)
+
+
+def _fragment_index(mt_all: int, device):
+    """(row, byte), each [MT, 32, 4, 4] over (m-tile, lane, register,
+    byte of it): the DFT matrix's output point and the byte of its entry
+    that the fragment holds; K index kappa = 4 tq + q + 16 h reads byte
+    4 (tq + 4 h) + 3 - q."""
+    mt = torch.arange(mt_all, device=device)[:, None, None, None]
+    lane = torch.arange(32, device=device)[None, :, None, None]
+    reg = torch.arange(4, device=device)[None, None, :, None]
+    q = torch.arange(4, device=device)[None, None, None, :]
+    return torch.broadcast_tensors(16 * mt + (lane >> 2) + 8 * (reg & 1),
+                                   4 * ((lane & 3) + 4 * (reg >> 1)) + 3 - q)
+
+
 def _dft_matrix8(logn: int, omega: int, device="cpu") -> torch.Tensor:
     """The matmul body's DFT matrix, contraction-ready: W8[j, k 32 + i1] =
     byte i1 of (omega^(jk) 2^272 mod p), uint8 [n, 32 n] (the reference's
@@ -262,6 +312,9 @@ class Twiddles:
 
     def dft_matrix8(self, logn: int, omega: int) -> torch.Tensor:
         return _dft_matrix8(logn, omega, self.device)
+
+    def dft_fragments(self, logl: int, omega: int) -> torch.Tensor:
+        return _dft_fragments(logl, omega, self.device)
 
 
 def _fr():
@@ -457,41 +510,127 @@ def dft_matmul_plain(x: torch.Tensor, w8: torch.Tensor,
     return out
 
 
-def dft_matmul(x: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
-    """K8: the DFT of each row of a contiguous [R, n, 4] batch against the
-    byte matrix w8 [n, 32 n] (`_dft_matrix8` of a primitive n-th root),
-    one launch, into a new tensor. The plain version for a CPU tensor."""
+class DftPass(NamedTuple):
+    """One launch of K8: the 2^logl-point DFTs of a row's 2^(logn - logl)
+    vectors, point j of vector u of row r at r n + u bu_in + j s_in, output
+    k at r n + u bu_out + k s_out, times omega^(u k) when twiddled."""
+    logl: int
+    bu_in: int
+    s_in: int
+    bu_out: int
+    s_out: int
+    twiddled: bool
+
+
+def dft_plan(logn: int) -> list:
+    """K8's passes for a leg of 2^logn points: one direct DFT up to
+    2^_DFT_MAX_LOGL, else n = n1 n2 (n1 = 2^(logn // 2)): the n2-point DFTs
+    of the stride-n1 columns times omega^(j1 k2), back into their slots,
+    then the n1-point DFTs of each k2's n1 contiguous values into
+    out[n2 k1 + k2]."""
+    if logn <= _DFT_MAX_LOGL:
+        return [DftPass(logn, 0, 1, 0, 1, False)]
+    n1, n2 = 1 << (logn // 2), 1 << (logn - logn // 2)
+    return [DftPass(logn - logn // 2, 1, n1, 1, n1, True),
+            DftPass(logn // 2, n1, 1, 1, n2, False)]
+
+
+def _pass_points(rows: int, logn: int, ps: DftPass, out: bool, device) -> torch.Tensor:
+    """[rows 2^logu, L] flat point indices of a pass's vectors (inputs, or
+    outputs when `out`)."""
+    n, ll = 1 << logn, 1 << ps.logl
+    r = torch.arange(rows, device=device)[:, None, None]
+    u = torch.arange(n // ll, device=device)[None, :, None]
+    j = torch.arange(ll, device=device)[None, None, :]
+    idx = r * n + u * (ps.bu_out if out else ps.bu_in) + j * (ps.s_out if out else ps.s_in)
+    return idx.reshape(-1, ll)
+
+
+def dft_factored_plain(x: torch.Tensor, tables: Twiddles, omega: int) -> torch.Tensor:
+    """K8's steps in torch ops, from the tables the kernel reads: for each
+    pass of dft_plan, the DFT matrix read back out of its fragment order
+    (`dft_fragments`) times the Toeplitz expansion of each vector's bytes
+    (column c of point j, K index kappa: byte c - pi(kappa) of x_j), the 64
+    byte columns carried and reduced once at 2^272, times the twiddle matrix
+    where the pass is twiddled, scattered to the pass's outputs. The products
+    run in float64 (exact: a column stays below 64 32 255^2 < 2^27)."""
     rows, n, _ = x.shape
-    if not x.is_cuda:
-        return dft_matmul_plain(x, w8)
-    KL.require(x, "dft x", torch.int64, ndim=3, last=4)
-    KL.require(w8, "dft matrix", torch.uint8, ndim=2)
     logn = n.bit_length() - 1
+    ctx = F.fr_ctx()
+    pinv8, p8 = _matmul_consts()
+    kappa = torch.arange(MX.L8)
+    pi = 4 * ((kappa % 16) // 4 + 4 * (kappa // 16)) + 3 - kappa % 4
+    tidx = (torch.arange(2 * MX.L8)[None, :] - pi[:, None] + MX.L8).to(x.device)  # [32, 64]
+    src = x
+    for ps in dft_plan(logn):
+        ll = 1 << ps.logl
+        frag = tables.dft_fragments(ps.logl, pow(omega, n >> ps.logl, R))
+        mt_all = frag.shape[1]
+        row, byte = _fragment_index(mt_all, x.device)
+        kap = (byte // 4 % 4) * 4 + 3 - byte % 4 + 16 * (byte // 16)   # kappa of each byte
+        a = torch.zeros((16 * mt_all, MX.L8, ll), dtype=torch.float64, device=x.device)
+        a[row, kap] = frag.reshape(ll, mt_all, 32, 4, 4).permute(1, 2, 3, 4, 0).double()
+        a = a.permute(0, 2, 1).reshape(16 * mt_all, ll * MX.L8)[:ll]   # [k, (j, kappa)]
+        xv = src.reshape(-1, 4)[_pass_points(rows, logn, ps, False, x.device)]   # [V, L, 4]
+        y = torch.empty_like(xv)
+        step = max(1, (1 << 22) // (ll * MX.L8 * 2 * MX.L8))
+        for v0 in range(0, xv.shape[0], step):
+            x8 = torch.nn.functional.pad(MX._to8(xv[v0:v0 + step]), (MX.L8, MX.L8))
+            bt = x8[:, :, tidx].reshape(x8.shape[0], ll * MX.L8, 2 * MX.L8)
+            cols = torch.matmul(a, bt.double()).to(torch.int64)      # [v, k, c]
+            y[v0:v0 + step] = MX.redc_columns(ctx, MX._carry8(cols, _T_LIMBS), pinv8, p8)
+        if ps.twiddled:
+            y = F.mont_mul_plain(ctx, y, tables.twiddle_matrix(logn - ps.logl, ps.logl, omega))
+        dst = torch.empty_like(x)
+        dst.view(-1, 4)[_pass_points(rows, logn, ps, True, x.device).reshape(-1)] = \
+            y.reshape(-1, 4)
+        src = dst
+    return src
+
+
+def dft_matmul(x: torch.Tensor, tables: Twiddles, omega: int) -> torch.Tensor:
+    """K8: the DFT of root omega (primitive n-th) of each row of a
+    contiguous [R, n, 4] batch, into a new tensor: one launch a pass of
+    dft_plan(log2 n), from the tables' `dft_fragments` and, for a twiddled
+    pass, `twiddle_matrix`. The plain version (`dft_matmul_plain`, the dense
+    byte matrix) for a CPU tensor."""
+    rows, n, _ = x.shape
+    logn = n.bit_length() - 1
+    if not x.is_cuda:
+        return dft_matmul_plain(x, tables.dft_matrix8(logn, omega))
+    KL.require(x, "dft x", torch.int64, ndim=3, last=4)
     if n != 1 << logn or not 0 < logn <= _MATMUL_MAX_LOGN:
         raise ValueError(f"dft_matmul: length {n} is not 2^1 .. 2^{_MATMUL_MAX_LOGN}")
-    if tuple(w8.shape) != (n, n * MX.L8) or w8.device != x.device:
-        raise ValueError(f"dft_matmul: matrix {tuple(w8.shape)} on {w8.device} for "
-                         f"length {n} on {x.device}")
-    out = torch.empty_like(x)
+    if tables.device != x.device:
+        raise ValueError(f"dft_matmul: tables on {tables.device} for rows on {x.device}")
+    if x.data_ptr() % 16:
+        raise ValueError("dft_matmul: rows not 16-byte aligned")
     if rows == 0:
-        return out
+        return torch.empty_like(x)
     lib = KL.library("ntt_matmul_kernels")
-    KL.KERNELS["K8_ntt_dft_matmul"].launches += 1
-    rc = lib.spt_ntt_dft_matmul(x.data_ptr(), w8.data_ptr(), out.data_ptr(), rows, logn,
-                                KL.stream_of(x))
-    KL.check_launch(rc, "K8_ntt_dft_matmul")
-    return out
+    src = x
+    for ps in dft_plan(logn):
+        dst = torch.empty_like(x)
+        frag = tables.dft_fragments(ps.logl, pow(omega, n >> ps.logl, R))
+        tw = tables.twiddle_matrix(logn - ps.logl, ps.logl, omega) if ps.twiddled else None
+        KL.KERNELS["K8_ntt_dft_matmul"].launches += 1
+        rc = lib.spt_ntt_dft_pass(src.data_ptr(), dst.data_ptr(), frag.data_ptr(),
+                                  None if tw is None else tw.data_ptr(), rows, logn, ps.logl,
+                                  ps.bu_in, ps.s_in, ps.bu_out, ps.s_out, KL.stream_of(x))
+        KL.check_launch(rc, "K8_ntt_dft_matmul")
+        src = dst
+    return src
 
 
 def _ntt_dft_matmul(a: torch.Tensor, logn: int, omega: int, tables: Twiddles,
                     group_width: int | None = None) -> torch.Tensor:
-    """The direct DFT of each row of a [R, n, 4] batch as one 8-bit-limb
-    matrix product (the reference's `_ntt_dft_matmul` :366): K8 on the
-    card, the plain version (optionally in groups) on the CPU."""
-    w8 = tables.dft_matrix8(logn, omega)
+    """The DFT of each row of a [R, n, 4] batch in the 8-bit-limb domain
+    (the reference's `_ntt_dft_matmul` :366, a direct DFT as one matrix
+    product): K8's factored passes on the card, the plain dense product
+    (optionally in the reference's groups) on the CPU."""
     if group_width is not None and not a.is_cuda:
-        return dft_matmul_plain(a, w8, group_width)
-    return dft_matmul(a, w8)
+        return dft_matmul_plain(a, tables.dft_matrix8(logn, omega), group_width)
+    return dft_matmul(a, tables, omega)
 
 
 def _short_transform(a: torch.Tensor, logn: int, omega: int, kernel: str,

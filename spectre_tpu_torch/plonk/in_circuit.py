@@ -152,11 +152,16 @@ class VerifierChip:
 
     # -- the verifier -----------------------------------------------------
     def verify_proof(self, ctx: Context, vk: VerifyingKey, srs: SRS,
-                     instance_cells: list, proof: bytes):
+                     instance_cells: list, proof: bytes, heartbeat=None):
         """instance_cells: [[AssignedValue]], the inner proof's public
         inputs as cells (the caller exposes them in its own statement).
         Returns (acc_lhs, acc_rhs) point cells: the deferred pairing check
-        e(acc_lhs, [tau]_2) == e(acc_rhs, [1]_2)."""
+        e(acc_lhs, [tau]_2) == e(acc_rhs, [1]_2). `heartbeat` (a
+        zero-argument callback) is stamped after the transcript, after the
+        identity check, after the SHPLONK terms and inside the MSM (after
+        each of its tables, windows and constant terms), so that no stretch
+        of this minutes-long build goes unstamped; it changes no cell."""
+        hb = heartbeat or (lambda: None)
         gate = self.gate
         cfg = vk.config
         dom = vk.domain
@@ -190,6 +195,7 @@ class VerifierChip:
         evals = {}
         for key, rot in plan:
             evals[(key, rot)] = self._read_scalar(ctx, tr, tchip)
+        hb()
 
         # --- instance evaluations, computed in-circuit: the public-input
         # binding (these cells are the exposed instances) ---
@@ -225,6 +231,7 @@ class VerifierChip:
         h_at_x = gate.add(ctx, gate.add(ctx, evals[(("h", 0), 0)], h01),
                           gate.mul(ctx, evals[(("h", 2), 0)], xn2))
         ctx.constrain_equal(acc, gate.mul(ctx, h_at_x, zx))
+        hb()
 
         # --- SHPLONK (kzg.shplonk_accumulate over cells) ---
         v = self._challenge(ctx, tr, tchip)
@@ -295,7 +302,8 @@ class VerifierChip:
         witness_pairs.append((w1, gate.neg(ctx, z_t_u)))
         witness_pairs.append((w2, uch))
         constant_pairs.append((bn254.G1_GEN, gate.neg(ctx, e_scalar)))
-        acc_rhs = self.msm.msm(ctx, witness_pairs, constant_pairs)
+        hb()
+        acc_rhs = self.msm.msm(ctx, witness_pairs, constant_pairs, heartbeat=hb)
 
         tr.assert_consumed()
         return w2, acc_rhs

@@ -215,10 +215,11 @@ class ProverState:
         hb()              # phase boundary: app snark done, aggregation next
         inst = circuit.get_instances(args, self.spec)
         agg_args = AggregationArgs(inner_vk=pk.vk, srs=self.srs[k], inner_instances=[inst],
-                                   proof=app_proof)
+                                   proof=app_proof, heartbeat=hb)
         with phase("prove/aggregation"):
-            # the aggregation's build (its witness) and layout are
-            # stamped inside: the build alone is minutes at the testnet k
+            # the aggregation's build (its witness) is minutes at the
+            # testnet k: the args carry the heartbeat into it, stamped
+            # between the in-circuit verifier's steps and the MSM's windows
             outer = self._snark(agg_cls, agg_pk, k_agg, agg_args, KeccakTranscript(), hb)
         hb()
         return outer, agg_cls.get_instances(agg_args, self.spec)

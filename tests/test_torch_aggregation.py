@@ -12,6 +12,7 @@ copies. The outer prove at k=17 under Keccak: the reference's, on the CPU
 `tests/test_torch_cuda.py` holds the port's prove on the card to.
 """
 
+import dataclasses
 import gc
 
 import numpy as np
@@ -38,7 +39,7 @@ from spectre_tpu_torch.builder.msm_chip import MsmChip, deterministic_point
 from spectre_tpu_torch.builder.range_chip import RangeChip
 from spectre_tpu_torch.builder.transcript_chip import TranscriptChip
 from spectre_tpu_torch.fields import bn254
-from spectre_tpu_torch.models import aggregation as A
+from spectre_tpu_torch.models import aggregation as A, app_circuit as app_circuit_mod
 from spectre_tpu_torch.plonk import transcript as T
 from spectre_tpu_torch.plonk.constraint_system import sigma_targets
 from spectre_tpu_torch.plonk.in_circuit import VerifierChip
@@ -123,16 +124,34 @@ def _rargs(ref, more=()):
                                                 for p, _, i, pr in more))
 
 
+# the port's aggregation builds, by the first snark's proof: the advice
+# cells counted at each of the build's heartbeat stamps, then the total
+_BUILD_STAMPS: dict = {}
+
+
 def _built(ref_args, args):
     """(the port's context, the reference's snapshot, the reference's
     instance values): the reference is built first and kept only as its
-    snapshot."""
+    snapshot. The port builds with a heartbeat that counts the advice cells
+    at each stamp (`_BUILD_STAMPS`): the stamps change no cell."""
     rctx = RA.AggregationCircuit.build_context(ref_args, None)
     rvals = [av.value for av in rctx.instance_cells]
     ref = snapshot(rctx)
     del rctx
     gc.collect()
-    ctx = A.AggregationCircuit.build_context(args, None, device="cpu")
+    made, marks = [], []
+
+    class Counted(Context):
+        def __init__(self):
+            super().__init__()
+            made.append(self)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(app_circuit_mod, "Context", Counted)
+        ctx = A.AggregationCircuit.build_context(
+            dataclasses.replace(args, heartbeat=lambda: marks.append(len(made[0].adv_values))),
+            None, device="cpu")
+    _BUILD_STAMPS[args.proof] = marks + [len(ctx.adv_values)]
     return ctx, ref, rvals
 
 
@@ -297,6 +316,19 @@ def test_aggregation_context_equals_reference(agg):
     ctx, ref, _ = agg
     assert len(ctx.adv_values) > 5_000_000
     assert_contexts_equal(ctx, ref)
+
+
+def test_aggregation_build_stamps_its_heartbeat(inner, agg):
+    """The in-circuit verifier stamps the heartbeat between its steps and
+    inside the MSM (each table, window and constant term): at least one
+    stamp a window, and no stretch of the build between two stamps holds
+    more than 5% of its advice cells (the stamps bound the time a farm
+    lease goes unrenewed inside a minutes-long build)."""
+    marks = _BUILD_STAMPS[inner[1][3]]
+    total = marks[-1]
+    stretches = [b - a for a, b in zip([0] + marks, marks)]
+    assert len(marks) > 64 and total == len(agg[0].adv_values)
+    assert max(stretches) <= 0.05 * total, (max(stretches), total)
 
 
 def test_statement_and_get_instances(inner, agg):

@@ -79,10 +79,11 @@ def test_k4_splits_a_batch_above_its_grid(dev):
 
 
 @pytest.mark.parametrize("field", ["fr", "fq"])
-@pytest.mark.parametrize("n", [1, 63, 513])
+@pytest.mark.parametrize("n", [1, 63, 513, (1 << 20) + 3])
 def test_k7_mont_mul_mxu(dev, field, n):
     """The tensor-core product against its plain version and K3, at odd
-    element counts (part-filled warps and m-tiles), b whole and of one row."""
+    element counts (part-filled warps and m-tiles; past one wave of the
+    persistent grid at 2^20 + 3), b whole and of one row."""
     ctx = F.fr_ctx() if field == "fr" else F.fq_ctx()
     a, b = _fe(ctx, n, dev, 11 + n), _fe(ctx, n, dev, 12 + n)
     before = KL.KERNELS["K7_mont_mul_mxu"].launches
@@ -93,19 +94,22 @@ def test_k7_mont_mul_mxu(dev, field, n):
     assert torch.equal(MX.mont_mul(ctx, a, b[:1]), MX.mont_mul_mxu_plain(ctx, a, b[:1]))
 
 
-@pytest.mark.parametrize("logn,rows", [(1, 63), (4, 513), (6, 63), (10, 3), (12, 2)])
+@pytest.mark.parametrize("logn,rows", [(1, 63), (4, 513), (6, 63), (9, 512), (10, 3), (11, 64),
+                                       (12, 2)])
 def test_k8_dft_matmul(dev, logn, rows):
-    """The tensor-core DFT against its plain version and K4 on the same
-    rows, one launch, at odd row counts (part-filled row tiles) and at
-    lengths below one point tile and one staged K chunk."""
+    """The tensor-core DFT against its plain version, its factored replica
+    and K4 on the same rows, one launch a pass of its plan, at odd row
+    counts, lengths below one m-tile, one direct pass (up to 2^6) and two
+    (odd log n included)."""
     n = 1 << logn
     x = _fe(F.fr_ctx(), rows * n, dev, 13 + logn).reshape(rows, n, 4)
     tables = N.Twiddles(dev)
     w = bn254.fr_root_of_unity(logn)
     before = KL.KERNELS["K8_ntt_dft_matmul"].launches
-    got = N.dft_matmul(x, tables.dft_matrix8(logn, w))
-    assert KL.KERNELS["K8_ntt_dft_matmul"].launches == before + 1
+    got = N.dft_matmul(x, tables, w)
+    assert KL.KERNELS["K8_ntt_dft_matmul"].launches == before + len(N.dft_plan(logn))
     assert torch.equal(got, N.dft_matmul_plain(x, tables.dft_matrix8(logn, w)))
+    assert torch.equal(got, N.dft_factored_plain(x, tables, w))
     assert torch.equal(got, N.ntt_passes(x, tables.twiddles(w, n)))
 
 

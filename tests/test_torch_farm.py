@@ -1397,6 +1397,102 @@ def test_lease_shorter_than_the_prove_holds_across_its_phases(tmp_path, monkeypa
     assert max(gaps) <= 40.0
 
 
+def test_aggregation_build_longer_than_the_default_lease_holds_it(tmp_path, monkeypatch):
+    """A compressing LocalReplica whose aggregation build takes 150 s of the
+    dispatcher's clock, past the default 120 s lease, every other phase 40
+    s: the state hands the build its heartbeat (AggregationArgs.heartbeat),
+    which the build stamps between its steps (transcript, MSM terms,
+    pairing inputs; 50 s each here), so the lease never lapses: 0
+    takeovers, 0 expiries, one prove, and no gap between two of the
+    state's stamps longer than the lease."""
+    import types
+
+    from _torch_service_params import committee_params
+    from spectre_tpu_torch import spec as SPEC
+    from spectre_tpu_torch.models.aggregation import AggregationArgs
+    from spectre_tpu_torch.prover_service import selfverify
+    from spectre_tpu_torch.prover_service.state import ProverState
+    from spectre_tpu_torch.witness import default_committee_update_args
+
+    monkeypatch.setenv("SPECTRE_SELF_VERIFY", "always")
+    monkeypatch.delenv("SPECTRE_REPLICA_LEASE_S", raising=False)
+    clk = [0.0]
+
+    def costs(seconds):
+        clk[0] += seconds
+
+    def stub(name):
+        class Stub:
+            @classmethod
+            def create_pk(cls, srs, spec, k, dummy_args, device=None, cache=False,
+                          cache_dir=None):
+                return types.SimpleNamespace(vk=types.SimpleNamespace(config=None))
+
+            @classmethod
+            def build_context(cls, args, spec, device=None):
+                if isinstance(args, AggregationArgs):
+                    for _ in range(3):        # transcript, MSM terms, pairing inputs
+                        costs(50.0)
+                        if args.heartbeat is not None:
+                            args.heartbeat()
+                else:
+                    costs(40.0)
+                return types.SimpleNamespace(layout=lambda cfg: costs(40.0))
+
+            @classmethod
+            def prove(cls, pk, srs, args, spec, device=None, ctx=None, timer=None,
+                      transcript=None):
+                costs(40.0)
+                return b"\x06" * 32
+
+            @classmethod
+            def get_instances(cls, args, spec):
+                return list(range(1, 15))   # 12 limbs + the app's
+
+            @classmethod
+            def verify(cls, vk, srs, instances, proof, device=None, transcript_cls=None):
+                return True
+
+            @classmethod
+            def variant(cls, name):
+                return cls
+        Stub.name = name
+        return Stub
+
+    stamps, proves = [], []
+
+    class PhasedState(ProverState):
+        step_circuit = stub("sync_step")
+        committee_circuit = stub("committee_update")
+        aggregation_circuit = stub("aggregation")
+
+        def prove_committee(self, args, heartbeat=None):
+            proves.append(clk[0])
+
+            def stamp():
+                stamps.append(clk[0])
+                heartbeat()
+            return super().prove_committee(args, heartbeat=stamp)
+
+    st = PhasedState(SPEC.TINY, 6, 6, device="cpu", params_dir=str(tmp_path),
+                     key_args={"step": None, "committee": None}, compress=True,
+                     k_agg=6, self_check=selfverify.SelfCheck(runner=lambda: True))
+    d = Dispatcher([LocalReplica("card", state=st)], poll_s=0.005, clock=lambda: clk[0])
+    take0 = HEALTH.get("dispatcher_lease_takeovers")
+    exp0 = HEALTH.get("dispatcher_lease_expired")
+    params = committee_params(default_committee_update_args(SPEC.TINY))
+    res = d.dispatch(COMMITTEE, params)
+    assert res["proof"] == "0x" + "06" * 32
+    assert d.lease_s == 120.0
+    assert clk[0] == 3 * 40.0 + 150.0 + 2 * 40.0
+    assert HEALTH.get("dispatcher_lease_takeovers") == take0
+    assert HEALTH.get("dispatcher_lease_expired") == exp0
+    assert proves == [0.0]
+    marks = [0.0, *stamps, clk[0]]
+    gaps = [b - a for a, b in zip(marks, marks[1:])]
+    assert max(gaps) <= 50.0 < d.lease_s
+
+
 # -- the CLI's farm flags ------------------------------------------------------
 
 

@@ -126,10 +126,38 @@ def test_grouped_dft_matmul_equals_the_reference(logn, width):
     x = _port(vals, (3, n))
     tables = N.Twiddles("cpu")
     assert np.array_equal(_as16(N._ntt_dft_matmul(x, logn, w, tables, group_width=width)), want)
-    assert np.array_equal(_as16(N.dft_matmul(x, tables.dft_matrix8(logn, w))), want)
+    assert np.array_equal(_as16(N.dft_matmul(x, tables, w)), want)
     assert N._conv_group_width(logn) == RN._conv_group_width(logn)
     with pytest.raises(ValueError, match="does not divide"):
         N.dft_matmul_plain(x, tables.dft_matrix8(logn, w), group_width=3)
+
+
+@pytest.mark.parametrize("logn", [1, 5, 6, 9, 10])
+def test_factored_dft_equals_the_reference(logn):
+    """K8's factored algorithm (one direct pass up to 2^6, then an n2-point
+    pass over the stride-n1 columns with its twiddles and an n1-point pass),
+    run by its plain replica from the tables the kernel reads (the DFT
+    matrices in fragment order, the four-step's twiddle matrix): equal to
+    the reference's direct `_ntt_dft_matmul` and to the dense plain version
+    on 1-3 rows, odd log n included. The dense version contracts the
+    reference's byte matrix, which its call has just built (the port's
+    equals it byte for byte: test_dft_matrix_bytes_equal_the_reference)."""
+    n = 1 << logn
+    w = rbn.fr_root_of_unity(logn)
+    rows = 1 + logn % 3
+    vals = _vals(rows * n, 31 * logn)
+    want = np.asarray(RN._ntt_dft_matmul(_ref(vals, (rows, n)), logn, w))
+    x = _port(vals, (rows, n))
+    tables = N.Twiddles("cpu")
+    got = N.dft_factored_plain(x, tables, w)
+    assert np.array_equal(_as16(got), want)
+    dense = torch.from_numpy(np.asarray(RN._dft_matrix8(logn, w)))
+    assert torch.equal(got, N.dft_matmul_plain(x, dense))
+    plan = N.dft_plan(logn)
+    assert [p.logl for p in plan] == ([logn] if logn <= 6 else [logn - logn // 2, logn // 2])
+    frag = tables.dft_fragments(plan[0].logl, pow(w, n >> plan[0].logl, R))
+    assert frag.dtype == torch.uint8 and frag.shape == (1 << plan[0].logl,
+                                                        -(-(1 << plan[0].logl) // 16), 32, 16)
 
 
 def test_coset_scale_equals_the_reference():
@@ -173,7 +201,8 @@ class TestKnobs:
         launches the DFT body, a radix2 call never does."""
         calls = []
         real = N.dft_matmul
-        monkeypatch.setattr(N, "dft_matmul", lambda x, w8: calls.append(x.shape) or real(x, w8))
+        monkeypatch.setattr(N, "dft_matmul",
+                            lambda x, *tab: calls.append(x.shape) or real(x, *tab))
         a = _port(_vals(16, 3), (16,))
         w = rbn.fr_root_of_unity(4)
         monkeypatch.setenv("SPECTRE_NTT_MODE", "radix2")
@@ -188,7 +217,7 @@ class TestKnobs:
         """Past _MATMUL_MAX_LOGN the short transform takes K4's stages; the
         routing is the contract, so recorders stand in for the transforms."""
         dft, passes = [], []
-        monkeypatch.setattr(N, "dft_matmul", lambda x, w8: dft.append(x.shape[1]) or x)
+        monkeypatch.setattr(N, "dft_matmul", lambda x, *tab: dft.append(x.shape[1]) or x)
         monkeypatch.setattr(N, "ntt_passes", lambda x, tw: passes.append(x.shape[1]) or x)
         monkeypatch.setattr(N.Twiddles, "dft_matrix8", lambda self, logn, omega: None)
         monkeypatch.setattr(N.Twiddles, "twiddles", lambda self, omega, n: None)
