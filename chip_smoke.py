@@ -123,6 +123,22 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
            the vanilla proof byte for byte and verified, the fixed form and
            K2 launched in the fixed prove (the fixed walk once a fixed-form
            MSM, K1c never), no fixed-base degrade
+  mesh     the step's stage 1 again on a ShardingPlan of a 2x2 mesh (four
+           virtual shards of cuda:0 on a one-card machine, the default mesh
+           of the cards on a larger one): the step phase's witness, key and
+           blinding seed, vanilla, under the Poseidon transcript, through
+           TorchBackend(plan=): its MSMs of 2^21 points shard by rows and
+           windows, the h commitments spread over the batch axis, its NTTs
+           split by Bailey over the data axis, its quotient (2^23) runs
+           row-sharded; the proof equals the step's byte for byte and
+           verifies, plan.stats() counts sharded MSMs, batched MSMs, sharded
+           NTTs and quotients, no degrade counter moves, K1, K2b, K3 and K4
+           launch at least once a shard. Then the K=6 readiness circuit
+           (prover_service.selfverify._tiny_setup) with the gates lowered to
+           2^5, on 2x1 and 4x2 plans of cuda:0, under glv+signed and fixed:
+           each proof equal to the unsharded one. One `mesh` line: the
+           prove's seconds by phase beside the step phase's, its peak, the
+           bytes exchanged and the launches
   service  rpc.serve over the boot's state (journal in the temporary
            directory; replica id "card", announcing itself to the farm's
            head), driven through the port's ProverClient with a request made
@@ -1487,7 +1503,7 @@ def circuit_path(torch, dev, seed: int, circuit, k: int, keyed: dict, prove_args
     return dict(phases=phases, prove_phases=timer.seconds,
                 peak_gib=peak, keygen_launches=keygen_counts, prove_launches=prove_counts,
                 modes=by_mode, proof=proof, vk=pk.vk, srs=srs, instances=instances, args=args,
-                key_instances=key_instances)
+                key_instances=key_instances, ctx=ctx)
 
 
 def committee_path(torch, dev, seed: int, keyed: dict, acquired) -> dict:
@@ -1534,6 +1550,138 @@ def step_path(torch, dev, seed: int, keyed: dict, acquired) -> dict:
                         len(a.pubkeys_uncompressed)) == (STEP_K, 16, 3, 18, 512),
         "512 pubkeys, k=21, 16 advice, 3 lookup columns, lookup_bits 18", flip=1,
         check_args=wrong_signature_refused, modes=STEP_MODES, transcript_cls=PoseidonTranscript)
+
+
+MESH_GATES = ("SPECTRE_SHARD_MSM_MIN_LOGN", "SPECTRE_SHARD_NTT_MIN_LOGN",
+              "SPECTRE_SHARD_QUOTIENT_MIN_LOGN")
+MESH_KERNELS = ("K1a_bucket_count", "K1b_bucket_scatter", "K1c_bucket_walk",
+                "K1d_bucket_pieces", "K2b_bucket_aggregate", "K3_mont_mul", "K4_ntt")
+
+
+def mesh_plan(torch):
+    """(the 2x2 plan the mesh phase proves on, what it is): four virtual
+    shards of cuda:0 on a one-card machine, else the default mesh of the
+    cards."""
+    from spectre_tpu_torch.parallel import default_mesh, make_mesh, plan_for_mesh
+
+    if torch.cuda.device_count() == 1:
+        dev = torch.device("cuda", 0)
+        return (plan_for_mesh(make_mesh(devices=[dev] * 4, data_axis=2)),
+                "four virtual shards of cuda:0 (one card)")
+    return plan_for_mesh(default_mesh()), f"the default mesh of {torch.cuda.device_count()} cards"
+
+
+def mesh_k6(torch, dev, seed: int) -> dict:
+    """The K=6 readiness circuit with the mesh gates lowered to 2^5, proved
+    on 2x1 and 4x2 plans of `dev` under glv+signed and fixed: {(shape,
+    mode): proof equal to the unsharded proof}, and the unsharded proof's
+    seconds."""
+    from spectre_tpu_torch.fields import bn254
+    from spectre_tpu_torch.ops import msm as M
+    from spectre_tpu_torch.parallel import make_mesh, plan_for_mesh
+    from spectre_tpu_torch.plonk.backend import TorchBackend
+    from spectre_tpu_torch.plonk.prover import prove
+    from spectre_tpu_torch.plonk.verifier import verify
+    from spectre_tpu_torch.prover_service.selfverify import _tiny_setup
+
+    pk, srs, asg, out = _tiny_setup(str(dev))
+    r = random.Random(seed)
+    one = prove(pk, srs, asg, device=dev, blinding_rng=lambda: r.randrange(bn254.R))
+    equal = {}
+    for shape in ((2, 1), (4, 2)):
+        plan = plan_for_mesh(make_mesh(devices=[dev] * (shape[0] * shape[1]),
+                                       data_axis=shape[0]))
+        for mode in ("glv+signed", "fixed"):
+            r = random.Random(seed)
+            with knobs({"SPECTRE_MSM_MODE": mode, **{g: "5" for g in MESH_GATES}}):
+                plan.reset_stats()
+                proof = prove(pk, srs, asg, TorchBackend(dev, plan=plan),
+                              blinding_rng=lambda: r.randrange(bn254.R))
+                stats = plan.stats()
+            require(stats["sharded_msm"] > 0 and stats["quotient"] > 0,
+                    f"the K=6 prove on the {shape[0]}x{shape[1]} plan sharded")
+            equal[f"{shape[0]}x{shape[1]}/{mode}"] = proof == one
+            require(proof == one, f"the K=6 proof on a {shape[0]}x{shape[1]} plan under "
+                                  f"{mode} equals the unsharded proof")
+            require(verify(pk.vk, srs, [[out]], proof), "the K=6 mesh proof verifies")
+        plan.clear()
+    M.clear_tables()
+    return equal
+
+
+def mesh_path(torch, dev, seed: int, step: dict, keyed: dict) -> dict:
+    """The step's stage 1 on the 2x2 plan (`mesh_plan`), under the step
+    phase's key (keyed), witness and blinding seed: the proof must equal
+    the step phase's vanilla proof. Then `mesh_k6`. Returns the prove's
+    seconds and phases, its peak, the plan's stats and the launches."""
+    from spectre_tpu_torch.fields import bn254
+    from spectre_tpu_torch.models import StepCircuit
+    from spectre_tpu_torch.ops import kernel_lib as KL, msm as M, ntt as N
+    from spectre_tpu_torch.parallel import sharded_quotient as SQ
+    from spectre_tpu_torch.plonk.backend import TorchBackend
+    from spectre_tpu_torch.plonk.prover import PhaseTimer, prove
+    from spectre_tpu_torch.plonk.transcript import PoseidonTranscript
+
+    plan, how = mesh_plan(torch)
+    pk, srs = keyed["pk"], keyed["srs"]
+    ctx = step.pop("ctx")
+    asg = ctx.assignment(pk.vk.config)
+    del ctx
+    log(f"mesh: plan {json.dumps(plan.describe()['mesh'])} over "
+        f"{[str(d) for d in plan.mesh.flat]}: {how}")
+    M.clear_tables()
+    N.clear_tables()
+    plan.reset_stats()
+    degraded = (M.COUNTERS["msm_fixed_degraded"], SQ.COUNTERS["quotient_sharded_degraded"])
+    timer = PhaseTimer(torch.device(dev))
+    r = random.Random(seed)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    KL.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    proof = prove(pk, srs, asg, TorchBackend(dev, plan=plan), transcript=PoseidonTranscript(),
+                  blinding_rng=lambda: r.randrange(bn254.R), timer=timer)
+    torch.cuda.synchronize()
+    prove_s = time.perf_counter() - t0
+    counts = KL.launch_counts()
+    stats = plan.stats()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del asg
+    require(proof == step["proof"], "the step proof on the 2x2 plan equals the unsharded proof "
+                                    "byte for byte")
+    require(StepCircuit.verify(pk.vk, srs, step["instances"], proof, device=dev,
+                               transcript_cls=PoseidonTranscript),
+            "the step proof of the 2x2 plan verifies")
+    for what in ("sharded_msm", "batch_msm", "sharded_ntt", "quotient"):
+        require(stats[what] > 0, f"the mesh prove ran a {what}")
+    require(degraded == (M.COUNTERS["msm_fixed_degraded"],
+                         SQ.COUNTERS["quotient_sharded_degraded"]),
+            "no degrade counter moved in the mesh prove")
+    for name in MESH_KERNELS:
+        require(counts[name] >= plan.n_devices, f"{name} launched on every shard")
+    require(counts["K1c_bucket_walk"] >= stats["sharded_msm"] * plan.n_devices,
+            "K1 launched on every shard of every sharded MSM")
+    require(counts["K4_ntt"] >= stats["sharded_ntt"] * plan.ndata,
+            "K4 launched on every data shard of every sharded NTT")
+    plan.clear()
+    M.clear_tables()
+    N.clear_tables()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    k6 = mesh_k6(torch, dev, seed)
+    k6_s = time.perf_counter() - t0
+    unsharded = step["prove_phases"]
+    log(f"  prove {prove_s:.3f} s on the plan, equal to the step's proof, verified; phases (s) "
+        + json.dumps({key: [round(v, 3), round(unsharded.get(key, 0.0), 3)]
+                      for key, v in timer.seconds.items()})
+        + f" [mesh, unsharded]; unsharded prove {step['phases']['prove']:.3f} s; peak device "
+          f"memory {peak:.1f} GiB (unsharded {step['peak_gib']:.1f}); plan stats "
+        + json.dumps(stats))
+    log(f"  launches: {json.dumps({k: v for k, v in counts.items() if v})}")
+    log(f"  K=6 with the gates at 2^5 on {dev}: {json.dumps(k6)} ({k6_s:.1f} s)")
+    return dict(prove_s=prove_s, prove_phases=timer.seconds, peak_gib=peak, stats=stats,
+                launches=counts, k6=k6, k6_s=k6_s, how=how)
 
 
 def boot_service(torch, dev, committee_args, step_args, params_dir: str) -> dict:
@@ -3060,16 +3208,22 @@ def run(args, t_start: float, pool, fixture_dir: str, service_dir: str) -> int:
     log("resident before the committee: " + resident(torch))
     mark("committee")
     committee = committee_path(torch, dev, args.seed, boot["committee"], acquired)
+    del committee["ctx"]
     torch.cuda.empty_cache()
     log("resident before the step: " + resident(torch))
     mark("step")
     step = step_path(torch, dev, args.seed, boot["step"], acquired)
     torch.cuda.empty_cache()
+    mark("mesh")
+    mesh = mesh_path(torch, dev, args.seed, step, boot["step"])
+    torch.cuda.empty_cache()
     # the committee's outer build (minutes of one Python thread) runs in the
     # worker process beside the service, farm and step-aggregation phases.
     # Started here, not after the committee phase: its result (gigabytes,
     # unpickled in this process under the GIL) then lands in the
-    # step-aggregation's build, not in the farm's measured drill
+    # step-aggregation's build, not in the farm's measured drill; and not
+    # before the mesh phase, whose prove is held against the step phase's
+    # under the same host load
     committee_build = pool.submit(outer_build, "committee", vk_to_ints(committee["vk"]),
                                   committee["vk"].digest(), committee["instances"],
                                   committee["proof"])
@@ -3146,6 +3300,7 @@ def run(args, t_start: float, pool, fixture_dir: str, service_dir: str) -> int:
             "committee_launches_by_mode": committee_by_mode,
             "committee_keygen_launches": committee["keygen_launches"][name],
             "step_launches": step["prove_launches"][name],
+            "mesh_launches": mesh["launches"][name],
             "step_keygen_launches": step["keygen_launches"][name],
             "service_launches": service["launches"][name],
             "farm_launches": farm["launches"][name],

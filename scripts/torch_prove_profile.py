@@ -40,8 +40,10 @@ reversed (a, b, b, a), and the mean seconds of each phase under each are
 printed, so that two transcripts are compared within one run.
 
 --modes a,b: the same witness, key and blinding seed proved untraced under
-each named knob set ("default", or a name of chip_smoke.py's MODES, such as
-fourstep+matmul+mxu), in the order given and then reversed (a, b, b, a);
+each named knob set ("default", a name of chip_smoke.py's MODES, such as
+fourstep+matmul+mxu, or "mesh": the default knobs on a 2x2 ShardingPlan of
+four virtual shards of the card, chip_smoke.py's mesh phase's plan), in
+the order given and then reversed (a, b, b, a);
 every proof must equal the first byte for byte. Prints the mean seconds of
 each phase under each, each prove's phases and launches, and exits.
 --transcript names the transcript of every prove (default blake2b; the
@@ -115,22 +117,28 @@ def compare_modes(torch, names: list, one_prove, dev, PhaseTimer, KL) -> int:
     sys.path.insert(0, REPO)
     import chip_smoke as C
     from spectre_tpu_torch.ops import msm as MSM, ntt as NTT
+    from spectre_tpu_torch.parallel import make_mesh, plan_for_mesh
+    from spectre_tpu_torch.plonk.backend import TorchBackend
 
-    unknown = [m for m in names if m != "default" and m not in C.MODES]
+    unknown = [m for m in names if m not in ("default", "mesh") and m not in C.MODES]
     if unknown:
         print(f"torch_prove_profile: unknown knob sets {unknown}", file=sys.stderr)
         return 2
+    plan = plan_for_mesh(make_mesh(devices=[dev] * 4, data_axis=2))
     runs, first = {m: [] for m in names}, None
     for name in names + names[::-1]:
         MSM.clear_tables()
         NTT.clear_tables()
+        plan.clear()
         torch.cuda.empty_cache()
         timer = PhaseTimer(dev)
-        with C.knobs(C.MODES[name]["env"] if name != "default" else {}):
+        with C.knobs(C.MODES[name]["env"] if name in C.MODES else {}):
             torch.cuda.synchronize()
             KL.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            proof = one_prove(timer)
+            proof = one_prove(timer, backend=TorchBackend(dev, plan=plan)
+                              if name == "mesh" else None)
             torch.cuda.synchronize()
             total = time.perf_counter() - t0
             counts = {k: v for k, v in KL.launch_counts().items() if v}
@@ -139,8 +147,9 @@ def compare_modes(torch, names: list, one_prove, dev, PhaseTimer, KL) -> int:
             print(f"torch_prove_profile: the {name} proof differs from the first",
                   file=sys.stderr)
             return 1
-        runs[name].append(dict(timer.seconds, total=total))
-        print(f"{name}: prove {total:.3f} s; phases "
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        runs[name].append(dict(timer.seconds, total=total, peak_gib=peak))
+        print(f"{name}: prove {total:.3f} s, peak {peak:.1f} GiB; phases "
               + json.dumps({k: round(v, 3) for k, v in timer.seconds.items()})
               + "; launches " + json.dumps(counts), flush=True)
     means = {name: {key: sum(r[key] for r in rs) / len(rs) for key in rs[0]}
@@ -162,7 +171,7 @@ def main(argv=None) -> int:
     ap.add_argument("--transcript", default="blake2b", choices=TRANSCRIPTS,
                     help="the transcript of every prove")
     ap.add_argument("--modes", default=None,
-                    help="comma list of knob sets (default or chip_smoke.py's MODES): "
+                    help="comma list of knob sets (default, mesh or chip_smoke.py's MODES): "
                          "untraced proves under each, a, b, b, a, then exit")
     ap.add_argument("--sigma-merge", action="store_true",
                     help="host only: keygen's copy-cycle merge in Python and in C++")
@@ -277,9 +286,9 @@ def main(argv=None) -> int:
         pk = keygen(srs, cfg, fc.fixed, fc.selectors, fc.copies, bk)
         asg = fc.assignment
 
-    def one_prove(timer, transcript_cls=transcript):
+    def one_prove(timer, transcript_cls=transcript, backend=None):
         r = random.Random(args.seed)
-        return prove(pk, srs, asg, bk, timer=timer, transcript=transcript_cls(),
+        return prove(pk, srs, asg, backend or bk, timer=timer, transcript=transcript_cls(),
                      blinding_rng=lambda: r.randrange(bn254.R))
 
     if args.modes:

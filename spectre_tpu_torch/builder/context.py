@@ -195,6 +195,41 @@ class Context:
         """Append a cell to the instance column (copy-constrained)."""
         self.instance_cells.append(a)
 
+    def cell_references(self) -> dict:
+        """The auditor's hook (`analysis.circuit_audit`): per advice-stream
+        cell, whether it sits in a gated unit (the vertical gate reads its
+        4 rows) and whether a copy, a constant pin or the instance column
+        references it. An ungated cell with neither is a free witness the
+        proof never binds. {"n_cells", "gated", "referenced"}, the last two
+        uint8 arrays indexed by stream position."""
+        n = len(self.adv_values)
+        gated = np.zeros(n, np.uint8)
+        g = np.array(self.gated, dtype=np.int64).reshape(-1, 2)
+        if g.size:
+            cover = np.zeros(n + 1, np.int64)
+            np.add.at(cover, g[:, 0], 1)
+            np.add.at(cover, g[:, 0] + g[:, 1], -1)
+            gated[np.cumsum(cover[:n]) > 0] = 1
+        referenced = np.zeros(n, np.uint8)
+        codes = np.array(self.copies, dtype=np.int64)
+        adv = codes[(codes & 7) == ADV] >> 3
+        uses = np.array(self.const_uses, dtype=np.int64).reshape(-1, 2)[:, 0]
+        inst = np.array([av.index for av in self.instance_cells], dtype=np.int64)
+        for idx in (adv, uses, inst):
+            referenced[idx[(idx >= 0) & (idx < n)]] = 1
+        return {"n_cells": n, "gated": gated, "referenced": referenced}
+
+    def cell_placement(self, cfg: CircuitConfig) -> tuple[np.ndarray, np.ndarray]:
+        """The auditor's hook: the (column, row) of every advice-stream cell
+        the layout of `cfg` placed, as two arrays indexed by stream
+        position; taken with the memoized layout, so the two never
+        disagree."""
+        self.layout(cfg)
+        starts, total = self._placed
+        idx = np.arange(total, dtype=np.int64)
+        col = np.searchsorted(starts, idx, side="right") - 1
+        return col, idx - starts[col]
+
     def stats(self) -> dict:
         return {
             "advice_cells": len(self.adv_values),
@@ -280,6 +315,7 @@ class Context:
         total = len(self.adv_values)
         starts, break_points = self.column_starts(cfg)
         starts_a = np.array(starts, dtype=np.int64)
+        self._placed = (starts_a, total)
 
         def place(idx):
             col = np.searchsorted(starts_a, idx, side="right") - 1
@@ -326,6 +362,13 @@ class Context:
                                count=len(self.constants))
             fixed[frow // u, frow % u] = L.ints_to_limbs(self.constants.keys())
 
+        def check(idx, size, key=lambda i: i):
+            # an endpoint past its stream names no cell: refuse it, with the
+            # reference's KeyError
+            bad = (idx < 0) | (idx >= size)
+            if bad.any():
+                raise KeyError(key(int(idx[bad][0])))
+
         # copy endpoints -> global (column, row)
         def coords(code):
             kind, v = code & 7, code >> 3
@@ -333,6 +376,7 @@ class Context:
             row = np.zeros_like(v)
             m = kind == ADV
             if m.any():
+                check(v[m], total)
                 c, r = place(v[m])
                 col[m], row[m] = cfg.col_gate_advice(c), r
             m = kind == SHW
@@ -340,6 +384,8 @@ class Context:
             row[m] = v[m] & 0xFFFFFFFF
             for kd, cols in lkp_col.items():
                 m = kind == kd
+                tid = next(t for t, k in self._lkp_kind.items() if k == kd)
+                check(v[m], len(self.lkp_streams[tid]), lambda i: (tid, i))
                 col[m] = cfg.col_lookup_advice(cols[v[m] // u])
                 row[m] = v[m] % u
             return col, row
@@ -348,8 +394,11 @@ class Context:
         ca, ra = coords(pairs[:, 0])
         cb, rb = coords(pairs[:, 1])
         uses = np.array(self.const_uses, dtype=np.int64).reshape(-1, 2)
+        check(uses[:, 1], len(self.constants))
+        check(uses[:, 0], total)
         ua, ura = place(uses[:, 0])
         inst = np.array([av.index for av in self.instance_cells], dtype=np.int64)
+        check(inst, total)
         ia, ira = place(inst)
         copies = np.concatenate([
             np.stack([ca, ra, cb, rb], axis=1),

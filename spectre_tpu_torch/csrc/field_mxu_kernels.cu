@@ -44,6 +44,7 @@
 
 namespace {
 
+constexpr int kMaxCards = 64;   // the launcher's per-card settings
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr unsigned kFull = 0xffffffffu;
@@ -304,17 +305,18 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int F>
 int launch(const void* a, const void* b, long nb, void* out, long n, cudaStream_t s) {
-  static int blocks_per_sm = 0, sms = 0;   // read once a field
-  if (blocks_per_sm == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks_per_sm, mont_mul_mxu_kernel<F>,
+  static int blocks_per_sm[kMaxCards] = {}, sms[kMaxCards] = {};   // read once a card and field
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= kMaxCards) return (int)cudaErrorInvalidDevice;
+  if (blocks_per_sm[dev] == 0) {
+    cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks_per_sm[dev], mont_mul_mxu_kernel<F>,
                                                   kThreads, 0);
-    if (blocks_per_sm < 1) blocks_per_sm = 1;
+    if (blocks_per_sm[dev] < 1) blocks_per_sm[dev] = 1;
   }
   const long want = (n + kThreads - 1) / kThreads;
-  const long cap = (long)sms * blocks_per_sm;
+  const long cap = (long)sms[dev] * blocks_per_sm[dev];
   const unsigned blocks = (unsigned)(want < cap ? want : cap);
   mont_mul_mxu_kernel<F><<<blocks, kThreads, 0, s>>>(
       (const uint32_t*)a, (const uint32_t*)b, nb, (uint32_t*)out, n);

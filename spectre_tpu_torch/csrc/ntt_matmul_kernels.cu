@@ -64,6 +64,7 @@ namespace {
 // warps a block: 16 share a DFT matrix of up to 32 points; the matrix of
 // 64 (128 KiB) leaves shared memory for 8
 template <int LOGL> constexpr int kWarpsOf = LOGL >= 6 ? 8 : 16;
+constexpr int kMaxCards = 64;   // the launchers' per-card settings
 constexpr int kEStride = 18;   // 64-bit words a staged row of the epilogue (16, 16-byte aligned)
 constexpr int kE4 = 32 * kEStride / 2;   // the epilogue's 32 rows in 16-byte units
 
@@ -306,19 +307,22 @@ constexpr int smem_bytes() {
 template <int LOGL>
 int launch(const PassArgs& a, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<LOGL>();
-  static int blocks_per_sm = 0, sms = 0;   // read once a length
-  if (blocks_per_sm == 0) {
+  // set and read once a card and length: the shared-memory opt-in holds
+  // for the current card only
+  static int blocks_per_sm[kMaxCards] = {}, sms[kMaxCards] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= kMaxCards) return (int)cudaErrorInvalidDevice;
+  if (blocks_per_sm[dev] == 0) {
     cudaFuncSetAttribute(dft_pass_kernel<LOGL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          bytes);
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks_per_sm, dft_pass_kernel<LOGL>,
+    cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks_per_sm[dev], dft_pass_kernel<LOGL>,
                                                   32 * kWarpsOf<LOGL>, bytes);
-    if (blocks_per_sm < 1) blocks_per_sm = 1;
+    if (blocks_per_sm[dev] < 1) blocks_per_sm[dev] = 1;
   }
   const long want = (a.nvec + kWarpsOf<LOGL> - 1) / kWarpsOf<LOGL>;
-  const long cap = (long)sms * blocks_per_sm;
+  const long cap = (long)sms[dev] * blocks_per_sm[dev];
   const unsigned blocks = (unsigned)(want < cap ? want : cap);
   dft_pass_kernel<LOGL><<<blocks, 32 * kWarpsOf<LOGL>, bytes, stream>>>(a);
   return (int)cudaGetLastError();

@@ -205,8 +205,9 @@ def decompress_y(xm: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     ok = torch.empty(xm.shape[0], dtype=torch.int32, device=xm.device)
     lib = KL.library("field384_kernels")
     KL.KERNELS["K6_g1_decompress"].launches += 1
-    rc = lib.spt_g1_sqrt(xm.data_ptr(), y.data_ptr(), ok.data_ptr(), xm.shape[0],
-                         KL.stream_of(xm))
+    with KL.on_device(xm):
+        rc = lib.spt_g1_sqrt(xm.data_ptr(), y.data_ptr(), ok.data_ptr(), xm.shape[0],
+                             KL.stream_of(xm))
     KL.check_launch(rc, "K6_g1_decompress")
     return y, ok
 

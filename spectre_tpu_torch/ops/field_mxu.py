@@ -178,8 +178,9 @@ def mont_mul(ctx: F.FieldCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(a)
     lib = KL.library("field_mxu_kernels")
     KL.KERNELS["K7_mont_mul_mxu"].launches += 1
-    rc = lib.spt_mont_mul_mxu(a.data_ptr(), b.data_ptr(), b.shape[0], out.data_ptr(), n,
-                              ctx.field_id, KL.stream_of(a))
+    with KL.on_device(a):
+        rc = lib.spt_mont_mul_mxu(a.data_ptr(), b.data_ptr(), b.shape[0], out.data_ptr(), n,
+                                  ctx.field_id, KL.stream_of(a))
     KL.check_launch(rc, "K7_mont_mul_mxu")
     return out
 

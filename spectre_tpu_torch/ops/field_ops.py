@@ -207,14 +207,42 @@ def join16(limbs: torch.Tensor) -> torch.Tensor:
                         for k in range(4)], dim=-1)
 
 
-def _p_col16(ctx: FieldCtx, like: torch.Tensor) -> torch.Tensor:
-    col = torch.tensor([int(v) for v in ctx.p_limbs], dtype=torch.int64,
-                       device=like.device)
-    return col.reshape((NLIMBS,) + (1,) * (like.dim() - 1))
+def _limb_consts(ctx: FieldCtx, like: torch.Tensor):
+    """p's 16-bit limbs and the weights 3^i, as [16, 1, ...] columns on
+    like's device (cached per field, device and rank)."""
+    key = (ctx.p, str(like.device), like.dim())
+    hit = _LIMB_CONSTS.get(key)
+    if hit is None:
+        shape = (NLIMBS,) + (1,) * (like.dim() - 1)
+        p = torch.tensor([int(v) for v in ctx.p_limbs], dtype=torch.int64, device=like.device)
+        w3 = torch.tensor([3 ** i for i in range(NLIMBS)], dtype=torch.int64, device=like.device)
+        hit = _LIMB_CONSTS[key] = (p.reshape(shape), w3.reshape(shape))
+    return hit
+
+
+_LIMB_CONSTS: dict = {}
+
+
+def _normalize(t: torch.Tensor, width: int) -> torch.Tensor:
+    """Carry-propagate a [k, ...] accumulator of int64 columns (negative
+    ones borrow) into `width` >= k rows of 16-bit limbs, the last row
+    taking what is left above: whole-tensor carry passes until none is
+    left (a carry moves one limb a pass; a few passes for all but chains
+    of 0xFFFF limbs)."""
+    k = t.shape[0]
+    t = torch.cat([t, t.new_zeros((width - k,) + t.shape[1:])]) if width > k else t.clone()
+    while True:
+        c = t[:-1] >> 16
+        if not bool(c.any()):
+            return t
+        t[:-1] &= MASK16
+        t[1:] += c
 
 
 def carry16(t: torch.Tensor):
-    """Carry-propagate a [k, ...] accumulator -> (normalized limbs, carry)."""
+    """Carry-propagate a [k, ...] accumulator -> (normalized limbs, carry):
+    one limb after another, a fixed number of launches and no read back
+    to the host (the GLV split runs it on the card)."""
     out, c = [], torch.zeros_like(t[0])
     for i in range(t.shape[0]):
         cur = t[i] + c
@@ -224,51 +252,43 @@ def carry16(t: torch.Tensor):
 
 
 def cond_sub16(ctx: FieldCtx, a: torch.Tensor) -> torch.Tensor:
-    """a if a < p else a - p, on [16, ...] normalized limbs (a < 2p)."""
-    diff, borrow = [], torch.zeros_like(a[0])
-    for i in range(NLIMBS):
-        cur = a[i] - int(ctx.p_limbs[i]) - borrow
-        diff.append(cur & MASK16)
-        borrow = (cur < 0).to(torch.int64)
-    return torch.where(borrow.bool(), a, torch.stack(diff))
+    """a if a < p else a - p, on [16, ...] normalized limbs (a < 2p): the
+    comparison is the sign of sum_i sign(a_i - p_i) 3^i (its top nonzero
+    term decides), the subtraction one borrow-normalized difference."""
+    p, w3 = _limb_consts(ctx, a)
+    ge = ((a - p).sign() * w3).sum(0) >= 0
+    return _normalize(a - p * ge.to(torch.int64), NLIMBS + 1)[:NLIMBS]
 
 
 def add16(ctx, a, b):
-    out, _ = carry16(a + b)
-    return cond_sub16(ctx, out)
+    return cond_sub16(ctx, _normalize(a + b, NLIMBS + 1)[:NLIMBS])
 
 
 def sub16(ctx, a, b):
     """a - b mod p on [16, ...] limbs, as a + (p - b) (the reference's
-    `_k_sub`)."""
-    pb, borrow = [], torch.zeros_like(b[0])
-    for i in range(NLIMBS):
-        cur = int(ctx.p_limbs[i]) - b[i] - borrow
-        pb.append(cur & MASK16)
-        borrow = (cur < 0).to(torch.int64)
-    return add16(ctx, a, torch.stack(pb))
+    `_k_sub`): in (0, 2p), then the conditional subtract."""
+    p, _ = _limb_consts(ctx, a)
+    return cond_sub16(ctx, _normalize(a - b + p, NLIMBS + 1)[:NLIMBS])
 
 
 def mont_mul16(ctx: FieldCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """CIOS Montgomery product on [16, ...] int64 16-bit limbs: 16 rounds,
     each a multiply-accumulate of a by limb b[i] and of p by m (the
     reference's `_mont_mul_cios`, lanes across the trailing axes)."""
-    p_col = _p_col16(ctx, a)
+    p_col, _ = _limb_consts(ctx, a)
     # t[i:] is the reference's accumulator after i rounds: instead of
     # shifting it down one limb per round, the window moves up one row.
+    # Rows hold whole 32-bit products (sums < 2^38), not split halves:
+    # m needs only t[i] mod 2^16, and t[i]'s whole value, a multiple of
+    # 2^16 once p m is added, moves up one row as its carry.
     t = torch.zeros((2 * NLIMBS + 1,) + tuple(a.shape[1:]), dtype=torch.int64,
                     device=a.device)
     for i in range(NLIMBS):
-        prod = a * b[i]
-        t[i:i + NLIMBS] += prod & MASK16
-        t[i + 1:i + NLIMBS + 1] += prod >> 16
+        t[i:i + NLIMBS] += a * b[i]
         m = (t[i] * ctx.n0inv16) & MASK16
-        q = p_col * m
-        t[i:i + NLIMBS] += q & MASK16
-        t[i + 1:i + NLIMBS + 1] += q >> 16
-        t[i + 1] += t[i] >> 16          # t[i] is now 0 mod 2^16
-    res, _top = carry16(t[NLIMBS:2 * NLIMBS])
-    return cond_sub16(ctx, res)
+        t[i:i + NLIMBS] += p_col * m
+        t[i + 1] += t[i] >> 16
+    return cond_sub16(ctx, _normalize(t[NLIMBS:2 * NLIMBS], NLIMBS + 1)[:NLIMBS])
 
 
 def mont_mul_plain(ctx: FieldCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -330,8 +350,9 @@ def mont_mul_cios(ctx: FieldCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Tens
     out = torch.empty_like(a)
     lib = KL.library("field_kernels")
     KL.KERNELS["K3_mont_mul"].launches += 1
-    rc = lib.spt_mont_mul(a.data_ptr(), b.data_ptr(), b.shape[0],
-                          out.data_ptr(), n, ctx.field_id, KL.stream_of(a))
+    with KL.on_device(a):
+        rc = lib.spt_mont_mul(a.data_ptr(), b.data_ptr(), b.shape[0],
+                              out.data_ptr(), n, ctx.field_id, KL.stream_of(a))
     KL.check_launch(rc, "K3_mont_mul")
     return out
 

@@ -298,6 +298,14 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def on_device(t: torch.Tensor):
+    """The device guard of a launch onto `stream_of(t)`: t's card made the
+    current device for the call. CUDA refuses a launch to a stream of a
+    card that is not current, and the launchers set and read per-card
+    kernel attributes on the current device."""
+    return torch.cuda.device(t.device)
+
+
 def check_launch(rc: int, kernel: str) -> None:
     """Raise on a refused or failed launch (the launcher returns
     cudaGetLastError())."""

@@ -375,22 +375,25 @@ def expanded_base(points: torch.Tensor, base_key=None) -> torch.Tensor:
 # the MSM
 # ---------------------------------------------------------------------------
 
-def _vanilla(points, scalars, c):
+def vanilla_windows(points, scalars, c=None):
+    """The vanilla mode's window sums: (AoS32 [nwin, 24], c), on the
+    device, before the host's window combine."""
     n = points.shape[0]
     c = c or default_window_pallas(n)
     nwin = num_windows(c)
     digits = signed_digit_stream(scalars, c, nwin)
     negs = torch.zeros((1, n), dtype=torch.int32, device=points.device)
     sums = MK.bucket_sums_aos32(points, digits, negs, c)
-    return MK.combine_windows(MK.aggregate_buckets_aos32(sums, nwin, 1 << (c - 1)), c)
+    return MK.aggregate_buckets_aos32(sums, nwin, 1 << (c - 1)), c
 
 
-def _glv(points, scalars, c, base_key):
+def glv_windows(points, scalars, c, base_key=None):
+    """The GLV modes' window sums: (AoS32 [nwin, 24], c)."""
     points2, mags, negs = glv_split(points, scalars, base_key)
     nwin = num_windows(c, glv.glv_bits())
     digits = signed_digits(mags, c, nwin)
     sums = MK.bucket_sums_aos32(points2, digits, negs, c)
-    return MK.combine_windows(MK.aggregate_buckets_aos32(sums, nwin, 1 << (c - 1)), c)
+    return MK.aggregate_buckets_aos32(sums, nwin, 1 << (c - 1)), c
 
 
 def _fixed(table, mags, negs, c):
@@ -415,13 +418,13 @@ def msm_aos32(points: torch.Tensor, scalars: torch.Tensor, c: int | None = None,
     if mode not in MSM_MODES:
         raise ValueError(f"unknown MSM mode {mode!r}")
     if mode == "vanilla":
-        return _vanilla(points, scalars, c)
+        return MK.combine_windows(*vanilla_windows(points, scalars, c))
     nbits = glv.glv_bits()
     c = c or default_window_pallas(2 * n, signed=True)
     if mode == "fixed" and not _degrade_fixed(n, c, nbits):
         return _fixed(fixed_base_table(points, c, num_windows(c, nbits), base_key),
                       *glv_scalars(scalars), c)
-    return _glv(points, scalars, c, base_key)
+    return MK.combine_windows(*glv_windows(points, scalars, c, base_key))
 
 
 def msm_base(base: torch.Tensor, scalars_mont: torch.Tensor, c: int | None = None,

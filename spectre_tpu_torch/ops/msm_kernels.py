@@ -105,8 +105,9 @@ def padd_aos32(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(p)
     lib = KL.library("msm_kernels")
     KL.KERNELS["K2_padd"].launches += 1
-    rc = lib.spt_padd(p.data_ptr(), q.data_ptr(), out.data_ptr(), p.shape[0],
-                      KL.stream_of(p))
+    with KL.on_device(p):
+        rc = lib.spt_padd(p.data_ptr(), q.data_ptr(), out.data_ptr(), p.shape[0],
+                          KL.stream_of(p))
     KL.check_launch(rc, "K2_padd")
     return out
 
@@ -359,15 +360,17 @@ def bucket_plan(digits: torch.Tensor, negs: torch.Tensor, c: int, fixed: bool = 
     lib = KL.library("msm_kernels")
     counts = torch.empty(nkeys * nblk, dtype=torch.int32, device=dev)
     KL.KERNELS["K1a_bucket_count"].launches += 1
-    KL.check_launch(lib.spt_k1_count(digits.data_ptr(), nwin, n, nb, P, nblk,
-                                     counts.data_ptr(), stream), "K1a_bucket_count")
+    with KL.on_device(digits):
+        KL.check_launch(lib.spt_k1_count(digits.data_ptr(), nwin, n, nb, P, nblk,
+                                         counts.data_ptr(), stream), "K1a_bucket_count")
     offs, bstart = bucket_offsets(counts, nkeys, nblk)
     entries = torch.empty(max(nwin * n, 1), dtype=torch.int32, device=dev)
     scatter = "K1_fixed" if fixed else "K1b_bucket_scatter"
     KL.KERNELS[scatter].launches += 1
-    KL.check_launch(lib.spt_k1_scatter(digits.data_ptr(), negs.data_ptr(), nwin, n, nb,
-                                       P, nblk, offs.data_ptr(), entries.data_ptr(),
-                                       int(fixed), stream), scatter)
+    with KL.on_device(digits):
+        KL.check_launch(lib.spt_k1_scatter(digits.data_ptr(), negs.data_ptr(), nwin, n, nb,
+                                           P, nblk, offs.data_ptr(), entries.data_ptr(),
+                                           int(fixed), stream), scatter)
     return counts, bstart, entries
 
 
@@ -391,12 +394,13 @@ def bucket_walk(pts: torch.Tensor, entries: torch.Tensor, bstart: torch.Tensor) 
     out = torch.empty((nkeys, 24), dtype=torch.int32, device=dev)
     pieces = torch.empty((max(2 * nwalk, 1), 24), dtype=torch.int32, device=dev)
     KL.KERNELS["K1c_bucket_walk"].launches += 1
-    KL.check_launch(lib.spt_k1_walk(pts.data_ptr(), entries.data_ptr(), bstart.data_ptr(),
-                                    nkeys, max_entries, out.data_ptr(), pieces.data_ptr(),
-                                    stream), "K1c_bucket_walk")
     KL.KERNELS["K1d_bucket_pieces"].launches += 1
-    KL.check_launch(lib.spt_k1_pieces(bstart.data_ptr(), nkeys, pieces.data_ptr(),
-                                      out.data_ptr(), stream), "K1d_bucket_pieces")
+    with KL.on_device(pts):
+        KL.check_launch(lib.spt_k1_walk(pts.data_ptr(), entries.data_ptr(), bstart.data_ptr(),
+                                        nkeys, max_entries, out.data_ptr(), pieces.data_ptr(),
+                                        stream), "K1c_bucket_walk")
+        KL.check_launch(lib.spt_k1_pieces(bstart.data_ptr(), nkeys, pieces.data_ptr(),
+                                          out.data_ptr(), stream), "K1d_bucket_pieces")
     return out
 
 
@@ -454,13 +458,14 @@ def bucket_walk_fixed(table: torch.Tensor, entries: torch.Tensor,
     out = torch.empty((nkeys, 24), dtype=torch.int32, device=dev)
     pieces = torch.empty((max(2 * nwalk, 1), 24), dtype=torch.int32, device=dev)
     KL.KERNELS["K1c_fixed_walk"].launches += 1
-    KL.check_launch(lib.spt_k1_fixed_walk(table.data_ptr(), entries.data_ptr(),
-                                          bstart.data_ptr(), nkeys, max_entries,
-                                          out.data_ptr(), pieces.data_ptr(), stream),
-                    "K1c_fixed_walk")
     KL.KERNELS["K1d_bucket_pieces"].launches += 1
-    KL.check_launch(lib.spt_k1_pieces(bstart.data_ptr(), nkeys, pieces.data_ptr(),
-                                      out.data_ptr(), stream), "K1d_bucket_pieces")
+    with KL.on_device(table):
+        KL.check_launch(lib.spt_k1_fixed_walk(table.data_ptr(), entries.data_ptr(),
+                                              bstart.data_ptr(), nkeys, max_entries,
+                                              out.data_ptr(), pieces.data_ptr(), stream),
+                        "K1c_fixed_walk")
+        KL.check_launch(lib.spt_k1_pieces(bstart.data_ptr(), nkeys, pieces.data_ptr(),
+                                          out.data_ptr(), stream), "K1d_bucket_pieces")
     return out
 
 
@@ -635,9 +640,10 @@ def aggregate_buckets_aos32(sums: torch.Tensor, nwin: int, nb: int) -> torch.Ten
     tickets = _tickets(nwin, sums.device)
     lib = KL.library("msm_kernels")
     KL.KERNELS["K2b_bucket_aggregate"].launches += 1
-    KL.check_launch(lib.spt_k2b_aggregate(sums.data_ptr(), nwin, nb, pairs.data_ptr(),
-                                          tickets.data_ptr(), out.data_ptr(),
-                                          KL.stream_of(sums)), "K2b_bucket_aggregate")
+    with KL.on_device(sums):
+        KL.check_launch(lib.spt_k2b_aggregate(sums.data_ptr(), nwin, nb, pairs.data_ptr(),
+                                              tickets.data_ptr(), out.data_ptr(),
+                                              KL.stream_of(sums)), "K2b_bucket_aggregate")
     return out
 
 

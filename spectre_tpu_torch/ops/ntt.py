@@ -451,9 +451,10 @@ def ntt_passes(x: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
         for i, (s0, t, logc) in enumerate(plan):
             src = src0 if i == 0 else dst
             KL.KERNELS["K4_ntt"].launches += 1
-            rc = lib.spt_ntt_pass(src.data_ptr(), dst.data_ptr(), tw.data_ptr(),
-                                  dst.shape[0], n.bit_length() - 1, s0, t, logc,
-                                  KL.stream_of(x))
+            with KL.on_device(x):
+                rc = lib.spt_ntt_pass(src.data_ptr(), dst.data_ptr(), tw.data_ptr(),
+                                      dst.shape[0], n.bit_length() - 1, s0, t, logc,
+                                      KL.stream_of(x))
             KL.check_launch(rc, "K4_ntt")
     return out
 
@@ -614,9 +615,11 @@ def dft_matmul(x: torch.Tensor, tables: Twiddles, omega: int) -> torch.Tensor:
         frag = tables.dft_fragments(ps.logl, pow(omega, n >> ps.logl, R))
         tw = tables.twiddle_matrix(logn - ps.logl, ps.logl, omega) if ps.twiddled else None
         KL.KERNELS["K8_ntt_dft_matmul"].launches += 1
-        rc = lib.spt_ntt_dft_pass(src.data_ptr(), dst.data_ptr(), frag.data_ptr(),
-                                  None if tw is None else tw.data_ptr(), rows, logn, ps.logl,
-                                  ps.bu_in, ps.s_in, ps.bu_out, ps.s_out, KL.stream_of(x))
+        with KL.on_device(x):
+            rc = lib.spt_ntt_dft_pass(src.data_ptr(), dst.data_ptr(), frag.data_ptr(),
+                                      None if tw is None else tw.data_ptr(), rows, logn,
+                                      ps.logl, ps.bu_in, ps.s_in, ps.bu_out, ps.s_out,
+                                      KL.stream_of(x))
         KL.check_launch(rc, "K8_ntt_dft_matmul")
         src = dst
     return src

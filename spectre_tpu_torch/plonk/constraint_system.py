@@ -38,6 +38,7 @@ from ..ops.sha256 import K as SHA_K
 R = bn254.R
 
 ZK_ROWS = 5
+GATE_ROWS = 4   # the vertical gate reads rotations 0..+3 of its column
 PERM_CHUNK = 2  # columns per permutation grand-product (degree 4 budget)
 NUM_H_CHUNKS = 3
 
@@ -80,6 +81,17 @@ def sha_selector_columns(cfg: "CircuitConfig") -> tuple[np.ndarray, np.ndarray]:
     return sel, kcol
 
 
+def gate_coverage(selectors) -> np.ndarray:
+    """[num_advice, n] uint8 mask of the rows some active gate window
+    reads: a selector firing at row r binds rows r..r+GATE_ROWS-1 of its
+    column (the auditor's row-coverage primitive)."""
+    sel = np.asarray(selectors, dtype=np.uint8)
+    cov = sel.copy()
+    for off in range(1, GATE_ROWS):
+        cov[:, off:] |= sel[:, :sel.shape[1] - off]
+    return cov
+
+
 @dataclass(frozen=True)
 class CircuitConfig:
     """Circuit shape — the pinning payload (`k`, column counts, lookup
@@ -110,6 +122,16 @@ class CircuitConfig:
     @property
     def last_row(self) -> int:
         return self.usable_rows  # l_last index
+
+    @property
+    def max_expr_degree(self) -> int:
+        """Degree budget of one constraint expression, each column
+        polynomial (advice, fixed, selector, sigma, z, l0/llast/lblind, X)
+        counting 1: an expression of column-degree d has degree <= d (n - 1);
+        divided by the vanishing polynomial, the quotient must fit the
+        NUM_H_CHUNKS committed chunks, so d <= NUM_H_CHUNKS + 1 (the
+        auditor's CA-DEGREE rule holds the expressions to it)."""
+        return NUM_H_CHUNKS + 1
 
     @property
     def num_sha_word(self) -> int:

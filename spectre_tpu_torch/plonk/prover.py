@@ -20,6 +20,7 @@ import torch
 
 from ..fields import bn254
 from ..ops import field_ops as F, limbs as L
+from ..parallel import sharded_quotient as SQ
 from .backend import TorchBackend
 from . import kzg
 from .constraint_system import (Assignment, NUM_H_CHUNKS, PERM_CHUNK,
@@ -76,16 +77,28 @@ class _ExtCache:
             self._d.move_to_end(key)
         return hit
 
-    def put(self, key, t: torch.Tensor) -> torch.Tensor:
-        size = t.numel() * t.element_size()
+    @staticmethod
+    def _size(t) -> int:
+        """Bytes of a tensor, or of a row-sharded column (a list of them)."""
+        if isinstance(t, list):
+            return sum(x.numel() * x.element_size() for x in t)
+        return t.numel() * t.element_size()
+
+    def put(self, key, t):
+        size = self._size(t)
         if size > self.budget:
             return t
         while self._bytes + size > self.budget and self._d:
             _, old = self._d.popitem(last=False)
-            self._bytes -= old.numel() * old.element_size()
+            self._bytes -= self._size(old)
         self._d[key] = t
         self._bytes += size
         return t
+
+    def clear(self) -> None:
+        """Drop every entry (their device memory)."""
+        self._d.clear()
+        self._bytes = 0
 
 
 def _ext_budget(device: torch.device) -> int:
@@ -296,8 +309,9 @@ def prove(pk: ProvingKey, srs: SRS, assignment: Assignment, bk=None,
     timer.start("commit_h")
     for i in range(NUM_H_CHUNKS):
         polys[("h", i)] = h_coeffs[i * n:(i + 1) * n].contiguous()
-        tr.write_point(kzg.commit(srs, polys[("h", i)], bk))
     del h_coeffs
+    for pt in kzg.commit_many(srs, [polys[("h", i)] for i in range(NUM_H_CHUNKS)], bk):
+        tr.write_point(pt)
 
     x = tr.challenge()
 
@@ -334,7 +348,18 @@ def _quotient(cfg, dom, bk, poly_for, beta, gamma, y) -> torch.Tensor:
     """h(X) = (sum_i y^(N-1-i) e_i(X)) / Z_H(X) in coefficient form [4n, 4]:
     the expression stream folded one expression at a time over extended
     columns drawn through a byte-budgeted LRU, then one product by the
-    period-4 vanishing inverse and one coset iLDE."""
+    period-4 vanishing inverse and one coset iLDE. On a backend whose plan
+    shards (`parallel.sharded_quotient.mesh_engine`) the same pipeline runs
+    over row-sharded columns; a failure there falls back to this device,
+    visibly."""
+    engine = SQ.mesh_engine(bk, dom)
+    if engine is not None:
+        lru = _ExtCache(sum(_ext_budget(d) for d in engine.plan.physical_devices))
+        try:
+            return SQ.quotient(engine, cfg, dom, poly_for, beta, gamma, y, lru)
+        except Exception as e:   # the mesh path failed: this device proves, visibly
+            lru.clear()
+            SQ.degrade("mesh_exception", error=f"{type(e).__name__}: {e}", n_ext=dom.n_ext)
     n, u = cfg.n, cfg.usable_rows
     lru = _ExtCache(_ext_budget(bk.device))
 

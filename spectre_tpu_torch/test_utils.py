@@ -1,6 +1,5 @@
 """Test fixtures: deterministic witness generation + loaders (the port's
-copy of `spectre_tpu/test_utils.py`; `mesh_prove_fixture` comes with the
-port's `parallel/`).
+copy of `spectre_tpu/test_utils.py`).
 
 Reference parity: the `test-utils` crate (spec-test loader,
 `test-utils/src/lib.rs:87-131`) and the `unit_test_gen` fixture generator
@@ -150,6 +149,34 @@ def read_spec_test_steps(test_dir: str):
         elif "force_update" in step:
             out.append(("force_update", step["force_update"]))
     return out
+
+
+def mesh_prove_fixture(k: int = 13, device=None):
+    """Deterministic circuit, key and assignment for the mesh prove's byte
+    check: a prove on a sharding plan must give the bytes of the prove on
+    one device under the same seeded blinding. 1500 range-checked
+    witnesses summed into one public output (the reference's fixture, at
+    its k). Returns (srs, pk, assignment), keyed on `device`."""
+    from .builder.context import Context
+    from .builder.gate import GateChip
+    from .builder.range_chip import RangeChip
+    from .plonk.keygen import keygen
+    from .plonk.srs import SRS
+
+    ctx = Context()
+    gate = GateChip()
+    rng = RangeChip(8, gate)
+    acc = ctx.load_zero()
+    for i in range(1500):
+        v = ctx.load_witness((i * 7 + 3) % 251)
+        rng.range_check(ctx, v, 8)
+        acc = gate.add(ctx, acc, v)
+    ctx.expose_public(acc)
+    cfg = ctx.auto_config(k=k, lookup_bits=8)
+    asg = ctx.assignment(cfg)
+    srs = SRS.load_or_setup(k, device=device)
+    pk = keygen(srs, cfg, asg.fixed, asg.selectors, asg.copies, device=device)
+    return srs, pk, asg
 
 
 def seeded_blinding_rng(seed: int = 12345):

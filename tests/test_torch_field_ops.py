@@ -136,3 +136,106 @@ class TestHostMath:
         assert got == [3 * v % ctx.p for v in va]
         with pytest.raises(ValueError):
             F.mont_mul(ctx, a, F.from_ints(ctx, [1] * 5, "cpu"))
+
+
+# -- the 16-bit limb references against their limb-by-limb form --------------
+#
+# The plain versions that the kernels are held against (cond_sub16, add16,
+# sub16, mont_mul16) run whole-tensor carry passes. The functions below are
+# their limb-by-limb form: one borrow or carry a limb, as the CIOS product
+# of the reference's `_mont_mul_cios` spells it out. Both must agree limb
+# for limb on every input inside the contract (a < 2p for the conditional
+# subtract, operands < p elsewhere), edge values, long carry chains and
+# broadcast operands included.
+
+def _carry16_limbwise(t):
+    out, c = [], torch.zeros_like(t[0])
+    for i in range(t.shape[0]):
+        cur = t[i] + c
+        out.append(cur & F.MASK16)
+        c = cur >> 16
+    return torch.stack(out), c
+
+
+def _cond_sub16_limbwise(ctx, a):
+    diff, borrow = [], torch.zeros_like(a[0])
+    for i in range(F.NLIMBS):
+        cur = a[i] - int(ctx.p_limbs[i]) - borrow
+        diff.append(cur & F.MASK16)
+        borrow = (cur < 0).to(torch.int64)
+    return torch.where(borrow.bool(), a, torch.stack(diff))
+
+
+def _add16_limbwise(ctx, a, b):
+    return _cond_sub16_limbwise(ctx, _carry16_limbwise(a + b)[0])
+
+
+def _sub16_limbwise(ctx, a, b):
+    pb, borrow = [], torch.zeros_like(b[0])
+    for i in range(F.NLIMBS):
+        cur = int(ctx.p_limbs[i]) - b[i] - borrow
+        pb.append(cur & F.MASK16)
+        borrow = (cur < 0).to(torch.int64)
+    return _add16_limbwise(ctx, a, torch.stack(pb))
+
+
+def _mont_mul16_limbwise(ctx, a, b):
+    p_col = torch.tensor([int(v) for v in ctx.p_limbs], dtype=torch.int64)
+    p_col = p_col.reshape((F.NLIMBS,) + (1,) * (a.dim() - 1))
+    t = torch.zeros((2 * F.NLIMBS + 1,) + tuple(a.shape[1:]), dtype=torch.int64)
+    for i in range(F.NLIMBS):
+        prod = a * b[i]
+        t[i:i + F.NLIMBS] += prod & F.MASK16
+        t[i + 1:i + F.NLIMBS + 1] += prod >> 16
+        m = (t[i] * ctx.n0inv16) & F.MASK16
+        q = p_col * m
+        t[i:i + F.NLIMBS] += q & F.MASK16
+        t[i + 1:i + F.NLIMBS + 1] += q >> 16
+        t[i + 1] += t[i] >> 16
+    return _cond_sub16_limbwise(ctx, _carry16_limbwise(t[F.NLIMBS:2 * F.NLIMBS])[0])
+
+
+def _limbs16(vals) -> torch.Tensor:
+    """[16, len(vals)] int64 16-bit limbs of integers < 2^256."""
+    return torch.tensor([[(v >> (16 * i)) & 0xFFFF for v in vals] for i in range(F.NLIMBS)],
+                        dtype=torch.int64)
+
+
+def _edge_values(p: int) -> list:
+    """Values < p that stress the carries: 0, 1, p - 1, p - 2^16, runs of
+    0xFFFF limbs, lone high limbs."""
+    cands = [0, 1, 2, p - 1, p - 2, p - (1 << 16), p >> 1, (1 << 16) - 1, 1 << 16]
+    cands += [(1 << (16 * k)) - 1 for k in range(1, 16)]
+    cands += [1 << (16 * k + 15) for k in range(15)]
+    cands += [p - (1 << (16 * k)) for k in range(1, 15)]
+    return [v for v in cands if 0 <= v < p]
+
+
+@pytest.mark.parametrize("op", ["cond_sub16", "add16", "sub16", "mont_mul16"])
+@pytest.mark.parametrize("field", ["fr", "fq"])
+def test_limb_references_equal_limbwise_form(field, op):
+    ctx = F.fr_ctx() if field == "fr" else F.fq_ctx()
+    p = ctx.p
+    edge = _edge_values(p)
+    rnd = _values(p, 11, n=200)[4:]
+    if op == "cond_sub16":
+        # a < 2p: reduced and unreduced values, p itself and 2p - 1
+        unreduced = [v + p for v in edge + rnd] + [p, 2 * p - 1]
+        a = _limbs16(edge + rnd + [v for v in unreduced if v < 1 << 256])
+        got, want = F.cond_sub16(ctx, a), _cond_sub16_limbwise(ctx, a)
+        assert torch.equal(got, want)
+        assert torch.equal(got, _limbs16([v % p for v in
+                                          edge + rnd + [v for v in unreduced if v < 1 << 256]]))
+        return
+    # every pair of edge values, then seeded pairs
+    xs = [x for x in edge for _ in edge] + rnd
+    ys = [y for _ in edge for y in edge] + rnd[::-1]
+    a, b = _limbs16(xs), _limbs16(ys)
+    fn, ref = {"add16": (F.add16, _add16_limbwise), "sub16": (F.sub16, _sub16_limbwise),
+               "mont_mul16": (F.mont_mul16, _mont_mul16_limbwise)}[op]
+    assert torch.equal(fn(ctx, a, b), ref(ctx, a, b))
+    # broadcast: a [16, 3, m] against b [16, 1, m]
+    m = 17
+    a3 = a[:, :3 * m].reshape(F.NLIMBS, 3, m)
+    b1 = b[:, -m:].reshape(F.NLIMBS, 1, m)
+    assert torch.equal(fn(ctx, a3, b1), ref(ctx, a3, b1))

@@ -336,7 +336,12 @@ def test_test_utils_fixtures_equal_the_reference(tmp_path):
     _same(TU.load_rotation_fixture(str(tmp_path / "port" / "rotation_2.json")), rot)
     a, b = TU.seeded_blinding_rng(9), RTU.seeded_blinding_rng(9)
     assert [a() for _ in range(5)] == [b() for _ in range(5)]
-    assert not hasattr(TU, "mesh_prove_fixture")
+    # the mesh prove's fixture, at the reference's k (its keygen at k=13
+    # takes minutes on the CPU: tests/test_torch_parallel.py proves it
+    # under -m slow)
+    import inspect
+    assert inspect.signature(TU.mesh_prove_fixture).parameters["k"].default == \
+        inspect.signature(RTU.mesh_prove_fixture).parameters["k"].default == 13
 
 
 # ---------------------------------------------------------------------------
